@@ -1,0 +1,119 @@
+"""Batched STFT / iSTFT (port of ``ml_audio_inpainting_tpu/ops/stft.py``).
+
+Explicit framing, ``torch.fft.rfft``/``irfft`` and a scatter overlap-add,
+with the JAX package's numerics:
+
+* the periodic Hann window, of ``win_length`` samples zero-padded centrally to
+  ``n_fft``;
+* ``center=True`` pads the signal with **zeros** by ``n_fft // 2`` on both
+  sides (``torch.stft`` would pad with reflection);
+* the iSTFT divides by the window sum-square only where it exceeds
+  ``finfo.tiny`` (``torch.istft`` raises where the NOLA check fails).
+
+Waveforms ``(..., T)`` go in, complex spectrograms ``(..., F, N)`` come out.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+__all__ = ["get_window", "pad_center", "frame_signal", "stft", "istft"]
+
+
+def get_window(
+    window: str, win_length: int, dtype: torch.dtype = torch.float32, device=None
+) -> torch.Tensor:
+    """The periodic (DFT-even) Hann window, as scipy/librosa give it.  The
+    serving path's STFT uses no other window, as in the JAX package."""
+    if window != "hann":
+        raise ValueError(f"Unsupported window type: {window!r} (the port has only 'hann')")
+    n = np.arange(win_length, dtype=np.float64)
+    w = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)
+    return torch.as_tensor(w, dtype=dtype, device=device)
+
+
+def pad_center(window: torch.Tensor, size: int) -> torch.Tensor:
+    """Centre-pad a window to ``size`` samples (librosa ``util.pad_center``)."""
+    n = window.shape[-1]
+    if n > size:
+        raise ValueError(f"window length {n} > target size {size}")
+    lpad = (size - n) // 2
+    return F.pad(window, (lpad, size - n - lpad))
+
+
+def frame_signal(y: torch.Tensor, frame_length: int, hop_length: int) -> torch.Tensor:
+    """Overlapping frames ``(..., N, frame_length)`` of ``(..., T)`` (a view)."""
+    return y.unfold(-1, frame_length, hop_length)
+
+
+def stft(
+    y: torch.Tensor,
+    n_fft: int = 512,
+    hop_length: Optional[int] = None,
+    win_length: Optional[int] = None,
+    window: str = "hann",
+    center: bool = True,
+) -> torch.Tensor:
+    """Short-time Fourier transform of ``(..., T)`` -> complex ``(..., F, N)``."""
+    if hop_length is None:
+        hop_length = n_fft // 4
+    if win_length is None:
+        win_length = n_fft
+    win = pad_center(get_window(window, win_length, y.dtype, y.device), n_fft)
+    if center:
+        pad = n_fft // 2
+        y = F.pad(y, (pad, pad), mode="constant")
+    frames = frame_signal(y, n_fft, hop_length)  # (..., N, n_fft)
+    spec = torch.fft.rfft(frames * win, n=n_fft, dim=-1)  # (..., N, F)
+    return spec.transpose(-1, -2)
+
+
+def istft(
+    spec: torch.Tensor,
+    n_fft: Optional[int] = None,
+    hop_length: Optional[int] = None,
+    win_length: Optional[int] = None,
+    window: str = "hann",
+    center: bool = True,
+    length: Optional[int] = None,
+) -> torch.Tensor:
+    """Inverse STFT of complex ``(..., F, N)`` -> ``(..., T)``: windowed
+    overlap-add normalised by the window sum-square."""
+    if n_fft is None:
+        n_fft = 2 * (spec.shape[-2] - 1)
+    if hop_length is None:
+        hop_length = n_fft // 4
+    if win_length is None:
+        win_length = n_fft
+
+    frames = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1)  # (..., N, n_fft)
+    real_dtype = frames.dtype
+    win = pad_center(get_window(window, win_length, real_dtype, frames.device), n_fft)
+    frames = frames * win
+
+    n = frames.shape[-2]
+    total = n_fft + hop_length * (n - 1)
+    idx = (
+        torch.arange(n, device=frames.device)[:, None] * hop_length
+        + torch.arange(n_fft, device=frames.device)[None, :]
+    ).reshape(-1)
+    batch = frames.shape[:-2]
+    out = frames.new_zeros(batch + (total,))
+    out.index_add_(-1, idx, frames.reshape(batch + (-1,)))
+
+    wss = frames.new_zeros((total,))
+    wss.index_add_(0, idx, (win * win).repeat(n))
+    tiny = torch.finfo(real_dtype).tiny
+    nonzero = wss > tiny
+    out = torch.where(nonzero, out / torch.where(nonzero, wss, torch.ones_like(wss)), out)
+
+    start = n_fft // 2 if center else 0
+    end = start + length if length is not None else total - start
+    out = out[..., start : min(end, total)]
+    if length is not None and out.shape[-1] < length:
+        out = F.pad(out, (0, length - out.shape[-1]))
+    return out
