@@ -6,20 +6,41 @@ card: the quickest proof that the port builds, runs and agrees with itself.
 
 Phases, each printing one flushed line per step with the seconds since start:
 
-1. device  -- the card's name, count and power limit (raises without CUDA);
-2. build   -- one ``nvcc`` call builds ``csrc/lstm_fwd.cu``; prints the time
-              and ptxas' register / shared-memory / spill report;
-3. kernel  -- the LSTM kernel (both directions of a layer in one launch)
-              against its plain PyTorch version at the serving shapes
-              (B=32, T=417, H=128), TF32 off;
-              CUDA-event times of both, and of cuDNN's ``nn.LSTM`` on layer
-              1's shapes as the library yardstick (the port never calls it);
-4. serving -- the CNN+BiLSTM runner with the committed
-              ``results/checkpoints/cnn_blstm_formant_v2_r2.npz`` answers 3
-              requests of 32 seeded speech-like 5 s clips with an 80 ms gap at
-              2.0 s (``oracle``, ``oracle``, ``impaired``); the kernel's launch
-              count must rise by 3 a request (one a layer, both directions in
-              one launch); clip 0 is held against the port on the CPU.
+1. device     -- the card's name, count and power limit (raises without CUDA);
+2. build      -- one ``nvcc`` call a source, ``csrc/lstm_fwd.cu`` and
+                 ``csrc/lstm_bwd.cu``, started together; prints the times and
+                 ptxas' register / shared-memory / spill reports;
+3. kernel     -- the forward LSTM kernel ``lstm_fwd`` (both directions of a
+                 layer in one launch) against its plain PyTorch version at the
+                 serving shapes (B=32, T=417, H=128), TF32 off; CUDA-event
+                 times of both, and of cuDNN's ``nn.LSTM`` on layer 1's shapes
+                 as the library yardstick (the port never calls it);
+4. kernel_bwd -- the backward kernels ``lstm_bwd`` (reverse-time sweep) and
+                 ``lstm_dwhh`` (dW_hh reduction) against the plain backward at
+                 the training shapes (B=25, T=417, H=128, both directions),
+                 TF32 off; CUDA-event times, the plain version's, and cuDNN's
+                 ``nn.LSTM`` backward on layer 1's shapes beside the port's
+                 projection + ``lstm_fwd`` + ``lstm_bwd`` + ``lstm_dwhh``;
+5. serving    -- the CNN+BiLSTM runner with the committed
+                 ``results/checkpoints/cnn_blstm_formant_v2_r2.npz`` answers 3
+                 requests of 32 seeded speech-like 5 s clips with an 80 ms gap
+                 at 2.0 s (``oracle``, ``oracle``, ``impaired``); ``lstm_fwd``
+                 must launch 3 times a request (one a layer, both directions in
+                 one launch) and the backward kernels never; clip 0 is held
+                 against the port on the CPU;
+6. training   -- the recipe of ``configs/cnn_blstm.yaml`` (1 clip x 25 gap
+                 variants of 0.2 s, Adam at lr 1e-4, full width) takes 5 steps
+                 on seeded clips and gap starts, twice: from the committed
+                 checkpoint, and from it with its BiLSTM weights redrawn
+                 (the checkpoint's BiLSTM is saturated, so no gradient
+                 reaches it or the encoder, in either package).  Each step
+                 must launch every kernel 3 times (one a BiLSTM layer) and
+                 give a finite loss; every parameter with a gradient must
+                 move (from the redrawn BiLSTM: every parameter); step 0's
+                 loss and gradients on a reduced batch (1 clip x 2 variants)
+                 are held against the port on the CPU from both starts; the
+                 trained weights are exported to the JAX package's npz format
+                 and serve one request.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and the script
@@ -33,7 +54,9 @@ import math
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -41,11 +64,17 @@ import torch
 
 from ml_audio_inpainting_torch.ops.cuda import lstm_cell
 from ml_audio_inpainting_torch.ops.cuda.lstm_cell import (
+    bilstm_dwhh,
+    bilstm_forward,
     bilstm_recurrence,
+    bilstm_recurrence_backward,
     bilstm_recurrence_reference,
+    dwhh_reference,
     load_library,
+    lstm_recurrence_backward_reference,
     lstm_recurrence_reference,
 )
+from ml_audio_inpainting_torch.ops.gaps import random_gap_mask
 from ml_audio_inpainting_torch.ops.lstm import BiLSTM
 from ml_audio_inpainting_torch.runtime.serve import make_cnn_runner
 from ml_audio_inpainting_torch.runtime.synthetic import (
@@ -55,7 +84,10 @@ from ml_audio_inpainting_torch.runtime.synthetic import (
     SAMPLE_RATE,
     speech_like_batch,
 )
+from ml_audio_inpainting_torch.train.checkpoints import export_params_npz
+from ml_audio_inpainting_torch.train.cnn_trainer import create_cnn_state, make_cnn_train_step
 from ml_audio_inpainting_torch.utils.config import Config
+from ml_audio_inpainting_torch.weights import load_params_npz
 
 DEVICE = "cuda"
 REPO = Path(__file__).resolve().parent
@@ -68,9 +100,31 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
 B, T, H = BATCH, 417, 128  # serving shapes of one sweep
+B_TRAIN = 25  # the training recipe's 1 clip x 25 gap variants
 KERNEL_ATOL = 1e-4  # f32 dots over H=128 in the kernel's order vs cuBLAS', over 417 steps
 CUDNN_ATOL = 1e-4  # the same, plus cuDNN's own projection and gate order
 CPU_ATOL = 1e-4  # one clip on the card vs the CPU: every sum in another order
+# lstm_bwd's dxw against the plain backward: f32 dots over H and 4H in another
+# order, carried through 417 reverse steps.
+DXW_ATOL = 1e-4
+# lstm_dwhh's dW_hh: a sum of B*T = 10 425 outer products in another order
+# than cuBLAS', held within 1e-4 of the largest entry of dW_hh.
+DWHH_RTOL_OF_MAX = 1e-4
+# Training step 0 on the card vs the CPU (1 clip x 2 variants, full width,
+# TF32 off): the loss to 1e-4 relative; each gradient tensor within 2e-3 of
+# its largest entry.  Every sum runs in another order, and some gradients
+# are ill-conditioned in f32: a BatchNorm bias's is a sum of 214 000 terms of
+# both signs, and on the CPU the f32 gradient of enc_bn1.bias lies 4.3e-4 of
+# its largest entry from the f64 one (from the redrawn-BiLSTM start), so two
+# f32 orders may differ by about twice that.  The conv biases in front of
+# BatchNorm have an exact gradient of zero (the batch mean removes them), so
+# theirs are rounding noise on both devices and are held within 2e-3 of the
+# model's largest gradient entry.
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_RTOL_OF_MAX = 2e-3
+NOISE_GRAD = {"enc_conv0.bias", "enc_conv1.bias", "enc_conv2.bias", "dec_conv0.bias",
+              "dec_conv1.bias"}
+TRAIN_STEPS = 5
 
 
 def log(phase: str, msg: str) -> None:
@@ -106,17 +160,26 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     shutil.rmtree(lstm_cell.BUILD_DIR, ignore_errors=True)  # time a build from nothing
-    lib = load_library()
-    log("build", f"nvcc {' '.join(lstm_cell.NVCC_FLAGS)} -> {lib.path.name} "
-                 f"in {lib.build_seconds:.2f} s")
-    for line in lib.compiler_output.splitlines():
-        if line.strip():
-            log("build", f"  {line.strip()}")
+    names = list(lstm_cell.SOURCES)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc a source, all at once
+        libs = dict(zip(names, pool.map(load_library, names)))
+    log("build", f"{len(names)} sources in {time.perf_counter() - t0:.2f} s (in parallel)")
+    for name, lib in libs.items():
+        log("build", f"nvcc {' '.join(lstm_cell.NVCC_FLAGS)} {name}.cu -> {lib.path.name} "
+                     f"in {lib.build_seconds:.2f} s")
+        for line in lib.compiler_output.splitlines():
+            if line.strip():
+                log("build", f"  {line.strip()}")
+
+
+def roofline(bytes_moved: float, flops: float) -> tuple:
+    """(ms, "bytes" or "operations"): the least time at the H100's peaks."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_kernel(card: str) -> dict:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(0)
     bound = 1.0 / math.sqrt(H)
@@ -180,8 +243,7 @@ def phase_kernel(card: str) -> dict:
     # Both directions: xw and W_hh read once, h written once; h @ W_hh each step.
     bytes_moved = 2 * 4 * (B * T * 4 * H + H * 4 * H + B * T * H)
     flops = 2 * 2 * B * T * H * 4 * H
-    bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
-    bound_by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / F32_FLOP_PER_S else "operations"
+    bound_ms, bound_by = roofline(bytes_moved, flops)
     log("kernel", f"bound {bound_ms:.5f} ms by {bound_by} ({bytes_moved / 1e6:.1f} MB, "
                   f"{flops / 1e9:.3f} GFLOP at H100 SXM peaks)")
     return {
@@ -189,7 +251,7 @@ def phase_kernel(card: str) -> dict:
         "route": "cuda",
         "source": "ml_audio_inpainting_torch/csrc/lstm_fwd.cu",
         "replaces": "ml_audio_inpainting_tpu/ops/pallas/lstm_cell.py:40",
-        "launches": None,  # filled from the serving run
+        "launches": None,  # filled from the main paths' runs
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -203,7 +265,173 @@ def phase_kernel(card: str) -> dict:
     }
 
 
-def phase_serving(card: str) -> int:
+def phase_kernel_bwd(card: str) -> list:
+    """lstm_bwd and lstm_dwhh against the plain backward at the training
+    shapes; their times, bounds and the cuDNN backward yardstick."""
+    dev = torch.device(DEVICE)
+    b = B_TRAIN
+    rng = np.random.default_rng(2)
+    scale = 1.0 / math.sqrt(H)
+    xw_f, xw_b = (torch.tensor(rng.standard_normal((b, T, 4 * H)).astype(np.float32), device=dev)
+                  for _ in range(2))
+    w_f, w_b = (torch.tensor(rng.uniform(-scale, scale, (H, 4 * H)).astype(np.float32),
+                             device=dev) for _ in range(2))
+    g = torch.tensor(rng.standard_normal((b, T, 2 * H)).astype(np.float32), device=dev)
+    with torch.no_grad():
+        h, c = bilstm_forward(xw_f, w_f, xw_b, w_b, with_c=True)
+        dxw_f, dxw_b = bilstm_recurrence_backward(xw_f, w_f, xw_b, w_b, h, c, g)
+        dw_f, dw_b = bilstm_dwhh(h, dxw_f, dxw_b)
+        torch.cuda.synchronize()
+        err_dxw = err_dw = 0.0
+        for name, sl, xw, w, dxw, dw, reverse in (
+            ("forward", slice(0, H), xw_f, w_f, dxw_f, dw_f, False),
+            ("backward", slice(H, 2 * H), xw_b, w_b, dxw_b, dw_b, True),
+        ):
+            want_dxw = lstm_recurrence_backward_reference(
+                xw, w, h[..., sl], c[..., sl], g[..., sl], reverse=reverse)
+            want_dw = dwhh_reference(h[..., sl], want_dxw, reverse)
+            e_dxw = (dxw - want_dxw).abs().max().item()
+            e_dw = (dw - want_dw).abs().max().item()
+            dw_max = want_dw.abs().max().item()
+            log("kernel_bwd", f"{name}: max |dxw - plain| = {e_dxw:.3e} (atol {DXW_ATOL}); "
+                              f"max |dW_hh - plain| = {e_dw:.3e} of max |dW_hh| {dw_max:.3e} "
+                              f"(allowed {DWHH_RTOL_OF_MAX} of it)")
+            if not e_dxw <= DXW_ATOL:
+                raise AssertionError(f"lstm_bwd ({name}) disagrees with its plain version: "
+                                     f"{e_dxw} > {DXW_ATOL}")
+            if not e_dw <= DWHH_RTOL_OF_MAX * dw_max:
+                raise AssertionError(f"lstm_dwhh ({name}) disagrees with its plain version: "
+                                     f"{e_dw} > {DWHH_RTOL_OF_MAX} x {dw_max}")
+            err_dxw, err_dw = max(err_dxw, e_dxw), max(err_dw, e_dw / dw_max)
+
+        bwd_ms = cuda_ms(lambda: bilstm_recurrence_backward(xw_f, w_f, xw_b, w_b, h, c, g), reps=20)
+        dwhh_ms = cuda_ms(lambda: bilstm_dwhh(h, dxw_f, dxw_b), reps=50)
+        plain_bwd_ms = cuda_ms(lambda: [lstm_recurrence_backward_reference(
+            xw, w, h[..., sl], c[..., sl], g[..., sl], reverse=rev)
+            for xw, w, sl, rev in ((xw_f, w_f, slice(0, H), False),
+                                   (xw_b, w_b, slice(H, 2 * H), True))], reps=3, warmup=1)
+        plain_dwhh_ms = cuda_ms(lambda: (dwhh_reference(h[..., :H], dxw_f, False),
+                                         dwhh_reference(h[..., H:], dxw_b, True)), reps=20)
+        # The reduction as one library call: a batched product over pre-shifted h.
+        hp = torch.stack([
+            torch.cat([torch.zeros_like(h[:, :1, :H]), h[:, :-1, :H]], dim=1),
+            torch.cat([h[:, 1:, H:], torch.zeros_like(h[:, :1, H:])], dim=1),
+        ]).reshape(2, b * T, H)
+        dxw_both = torch.stack([dxw_f, dxw_b]).reshape(2, b * T, 4 * H)
+        lib_dwhh = torch.bmm(hp.transpose(1, 2), dxw_both)
+        e_lib = (lib_dwhh - torch.stack([dw_f, dw_b])).abs().max().item()
+        log("kernel_bwd", f"dW_hh kernel vs torch.bmm on shifted h: max abs err {e_lib:.3e}")
+        library_dwhh_ms = cuda_ms(lambda: torch.bmm(hp.transpose(1, 2), dxw_both), reps=50)
+    log("kernel_bwd", f"lstm_bwd {bwd_ms:.4f} ms (plain {plain_bwd_ms:.3f} ms), lstm_dwhh "
+                      f"{dwhh_ms:.4f} ms (plain {plain_dwhh_ms:.4f} ms, torch.bmm "
+                      f"{library_dwhh_ms:.4f} ms) at B={b}, T={T}, H={H}, both directions ({card})")
+
+    # Library yardstick: cuDNN's bidirectional LSTM backward on layer 1's
+    # shapes (fwd+bwd minus fwd), beside the port's layer for the same work.
+    torch.manual_seed(0)
+    x1 = torch.tensor(rng.standard_normal((b, T, 2 * H)).astype(np.float32), device=dev,
+                      requires_grad=True)
+    gout = torch.tensor(rng.standard_normal((b, T, 2 * H)).astype(np.float32), device=dev)
+    cudnn = torch.nn.LSTM(2 * H, H, batch_first=True, bidirectional=True).to(dev)
+    port = BiLSTM(2 * H, H, 1).to(dev)
+    with torch.no_grad():
+        port.load_state_dict({
+            f"l0_{direction}_{name}": value
+            for direction, suffix in (("fwd", ""), ("bwd", "_reverse"))
+            for name, value in (
+                ("w_ih", getattr(cudnn, f"weight_ih_l0{suffix}").T),
+                ("w_hh", getattr(cudnn, f"weight_hh_l0{suffix}").T),
+                ("b", getattr(cudnn, f"bias_ih_l0{suffix}") + getattr(cudnn, f"bias_hh_l0{suffix}")),
+            )
+        })
+    grads = {}
+    for name, layer in (("cudnn", lambda: cudnn(x1)[0]), ("port", lambda: port(x1))):
+        params = list(cudnn.parameters() if name == "cudnn" else port.parameters())
+        grads[name] = torch.autograd.grad(layer(), [x1, *params], gout)
+    e_dx = (grads["port"][0] - grads["cudnn"][0]).abs().max().item()
+    log("kernel_bwd", f"port BiLSTM layer backward vs cuDNN: max |dx| err {e_dx:.3e} "
+                      f"(atol {CUDNN_ATOL})")
+    if not e_dx <= CUDNN_ATOL:
+        raise AssertionError(f"port BiLSTM backward disagrees with cuDNN: {e_dx} > {CUDNN_ATOL}")
+
+    def fwd_bwd(layer, params):
+        return lambda: torch.autograd.grad(layer(), [x1, *params], gout)
+
+    # Forwards with grad on, as in training (the port's then keeps c).
+    cudnn_f = cuda_ms(lambda: cudnn(x1), reps=10)
+    port_f = cuda_ms(lambda: port(x1), reps=10)
+    cudnn_fb = cuda_ms(fwd_bwd(lambda: cudnn(x1)[0], list(cudnn.parameters())), reps=10)
+    port_fb = cuda_ms(fwd_bwd(lambda: port(x1), list(port.parameters())), reps=10)
+    library_ms = cudnn_fb - cudnn_f
+    log("kernel_bwd", f"layer-1 BiLSTM (B={b}, T={T}, 256->2x{H}): cuDNN nn.LSTM forward "
+                      f"{cudnn_f:.4f} ms, forward+backward {cudnn_fb:.4f} ms (backward "
+                      f"{library_ms:.4f} ms); port forward {port_f:.4f} ms, forward+backward "
+                      f"{port_fb:.4f} ms (backward {port_fb - port_f:.4f} ms) ({card})")
+
+    # Both directions.  lstm_bwd: xw, W_hh, h, c, g read once, dxw written
+    # once; two (B,H)x(H,4H) products a step (gates, dh).  lstm_dwhh: h and
+    # dxw read once, dW_hh written once; one product of depth B*T.
+    f4 = 4
+    bwd_bytes = 2 * f4 * (b * T * 4 * H + H * 4 * H + b * T * 4 * H) + 3 * f4 * b * T * 2 * H
+    bwd_flops = 2 * 2 * (2 * b * T * H * 4 * H)
+    dwhh_bytes = f4 * (b * T * 2 * H + 2 * b * T * 4 * H + 2 * H * 4 * H)
+    dwhh_flops = 2 * (2 * b * T * H * 4 * H)
+    bwd_bound, bwd_by = roofline(bwd_bytes, bwd_flops)
+    dwhh_bound, dwhh_by = roofline(dwhh_bytes, dwhh_flops)
+    log("kernel_bwd", f"bounds: lstm_bwd {bwd_bound:.5f} ms by {bwd_by} ({bwd_bytes / 1e6:.1f} MB, "
+                      f"{bwd_flops / 1e9:.3f} GFLOP); lstm_dwhh {dwhh_bound:.5f} ms by {dwhh_by} "
+                      f"({dwhh_bytes / 1e6:.1f} MB, {dwhh_flops / 1e9:.3f} GFLOP) at H100 SXM peaks")
+    shapes = {"B": b, "T": T, "H": H, "directions": 2}
+    return [
+        {
+            "name": "lstm_bwd",
+            "route": "cuda",
+            "source": "ml_audio_inpainting_torch/csrc/lstm_bwd.cu",
+            "replaces": "ml_audio_inpainting_tpu/ops/pallas/lstm_cell.py:64",
+            "launches": None,
+            "max_abs_err": err_dxw,
+            "ms": bwd_ms,
+            "plain_ms": plain_bwd_ms,
+            "bound_ms": bwd_bound,
+            "bound_by": bwd_by,
+            "library_ms": library_ms,
+            "library_call": "torch.nn.LSTM(256, 128, bidirectional=True) backward, layer-1 "
+                            "shapes (forward+backward minus forward)",
+            "port_same_work_ms": port_fb - port_f,
+            "shapes": shapes,
+        },
+        {
+            "name": "lstm_dwhh",
+            "route": "cuda",
+            "source": "ml_audio_inpainting_torch/csrc/lstm_bwd.cu",
+            "replaces": "ml_audio_inpainting_tpu/ops/pallas/lstm_cell.py:109",
+            "launches": None,
+            "max_abs_err": err_dw,
+            "max_abs_err_is": "relative to max |dW_hh|",
+            "ms": dwhh_ms,
+            "plain_ms": plain_dwhh_ms,
+            "bound_ms": dwhh_bound,
+            "bound_by": dwhh_by,
+            "library_ms": library_dwhh_ms,
+            "library_call": "torch.bmm of the shifted h_prev^T and dxw, both directions",
+            "shapes": shapes,
+        },
+    ]
+
+
+def _counts() -> dict:
+    return {"lstm_fwd": bilstm_recurrence.launches,
+            "lstm_bwd": bilstm_recurrence_backward.launches,
+            "lstm_dwhh": bilstm_dwhh.launches}
+
+
+def _reset_counts() -> None:
+    bilstm_recurrence.launches = 0
+    bilstm_recurrence_backward.launches = 0
+    bilstm_dwhh.launches = 0
+
+
+def phase_serving(card: str) -> dict:
     cfg = Config()
     n_samples = cfg.data.max_samples
     runners = {
@@ -217,7 +445,7 @@ def phase_serving(card: str) -> int:
                    f"[{GAP_START}, {GAP_START + GAP_LEN}) samples")
 
     torch.cuda.reset_peak_memory_stats()
-    bilstm_recurrence.launches = 0
+    _reset_counts()
     outputs = []
     for i, phase in enumerate(("oracle", "oracle", "impaired")):
         before = bilstm_recurrence.launches
@@ -238,7 +466,9 @@ def phase_serving(card: str) -> int:
         log("serving", f"request {i} ({phase}): {1e3 * seconds:.2f} ms, "
                        f"{B * n_samples / SAMPLE_RATE / seconds:.1f} s-audio/s, "
                        f"{launched} lstm_fwd launches ({card})")
-    launches = bilstm_recurrence.launches
+    launches = _counts()
+    if launches["lstm_bwd"] or launches["lstm_dwhh"]:
+        raise AssertionError(f"serving launched a backward kernel: {launches}")
     log("serving", f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
 
     # Outside the gap's frames the output is the input: impaired exactly,
@@ -262,14 +492,185 @@ def phase_serving(card: str) -> int:
     return launches
 
 
+def training_config() -> Config:
+    """``configs/cnn_blstm.yaml``'s values, built in Python (the card's machine
+    has no YAML package): 5 s clips, 1 clip x 25 gap variants of 0.2 s,
+    STFT 512/192/384, enc 16-32-64, BiLSTM 3 x 2 x 128, Adam at lr 1e-4."""
+    return Config.from_dict({
+        "data": {"sample_rate": SAMPLE_RATE, "max_len_s": 5.0, "gap_len_s": 0.2,
+                 "gaps_per_audio": 25,
+                 "spectrogram": {"n_fft": 512, "hop_length": 192, "win_length": 384}},
+        "model": {"in_channels": 1, "num_lstm_layers": 3, "lstm_hidden_dim": 128,
+                  "enc_filters": [16, 32], "dec_filters": [16, 32]},
+        "training": {"batch_size": 1, "optimizer_type": "adam",
+                     "starter_learning_rate": 1e-4, "lr_decay": 1.0, "max_n_epochs": 50},
+    })
+
+
+def _gap_starts(gen: torch.Generator, cfg: Config, clips: int, variants: int) -> torch.Tensor:
+    starts = [[random_gap_mask(gen, cfg.data.max_samples, cfg.data.gap_len_s,
+                               cfg.data.sample_rate)[1][0].item() for _ in range(variants)]
+              for _ in range(clips)]
+    return torch.tensor(starts, dtype=torch.int64)
+
+
+def live_bilstm(flat: dict, seed: int) -> dict:
+    """``flat`` with every BiLSTM weight matrix redrawn from
+    U(-1/sqrt(rows), 1/sqrt(rows)) (biases kept).  The committed checkpoint's
+    BiLSTM is saturated: in both packages its gates' derivatives and so the
+    gradients of the BiLSTM and of the encoder below it are exactly zero in
+    f32.  From these weights every parameter gets a gradient, and
+    ``lstm_bwd`` carries one."""
+    rng = np.random.default_rng(seed)
+    out = dict(flat)
+    for key, value in flat.items():
+        if key.startswith("params/lstm/") and not key.endswith("_b"):
+            bound = 1.0 / math.sqrt(value.shape[0])
+            out[key] = rng.uniform(-bound, bound, value.shape).astype(np.float32)
+    return out
+
+
+def _check_step_against_cpu(cfg: Config, flat: dict, audio: np.ndarray, starts: torch.Tensor,
+                            label: str) -> dict:
+    """Step 0 of a reduced batch on the card and on the CPU from the same
+    weights: the loss and every gradient tensor.  Returns the names of the
+    tensors whose gradient is exactly zero on the card."""
+    out = {}
+    for device in (DEVICE, "cpu"):
+        state = create_cnn_state(cfg, device=device, params=flat)
+        _, m = make_cnn_train_step(cfg)(state, torch.tensor(audio, device=device),
+                                        starts.to(device))
+        out[device] = (m["loss"].item(),
+                       {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()})
+    (loss_d, g_d), (loss_c, g_c) = out[DEVICE], out["cpu"]
+    rel = abs(loss_d - loss_c) / abs(loss_c)
+    log("training", f"{label}: step 0 of {tuple(starts.shape)} clips x variants: loss card "
+                    f"{loss_d:.6f}, CPU {loss_c:.6f}, relative difference {rel:.3e} "
+                    f"(rtol {STEP_LOSS_RTOL})")
+    if not rel <= STEP_LOSS_RTOL:
+        raise AssertionError(f"{label} step 0 loss: card {loss_d} vs CPU {loss_c}")
+    g_max = max(g.abs().max().item() for g in g_c.values())
+    worst = (0.0, "")
+    for name, want in g_c.items():
+        scale = g_max if name in NOISE_GRAD else want.abs().max().item()
+        err = (g_d[name] - want).abs().max().item()
+        if not err <= STEP_GRAD_RTOL_OF_MAX * scale:
+            raise AssertionError(f"{label} step 0 gradient {name}: card vs CPU max err {err} > "
+                                 f"{STEP_GRAD_RTOL_OF_MAX} x {scale}")
+        if scale > 0 and err / scale > worst[0]:
+            worst = (err / scale, name)
+    zero = sorted(n for n, g in g_d.items() if not g.any())
+    log("training", f"{label}: step 0 gradients, {len(g_c)} tensors: card vs CPU within "
+                    f"{worst[0]:.3e} of their largest entry (worst {worst[1]}; allowed "
+                    f"{STEP_GRAD_RTOL_OF_MAX}); exactly zero on the card: {len(zero)} tensors")
+    return {"loss_rel_err": rel, "grad_rel_err": worst[0], "zero_grad": zero}
+
+
+def _train(card: str, cfg: Config, flat: dict, label: str, clips: list, starts: list) -> tuple:
+    """TRAIN_STEPS steps from ``flat``; asserts the launches of every step and
+    finite losses.  Returns the state, the launch counts, the names of the
+    parameter tensors that moved and of all of them."""
+    G = cfg.data.gaps_per_audio
+    state = create_cnn_state(cfg, device=DEVICE, params=flat)
+    step = make_cnn_train_step(cfg)
+    before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    seconds = []
+    for i in range(TRAIN_STEPS):
+        counts = _counts()
+        audio = torch.tensor(clips[i], device=DEVICE)
+        gs = starts[i].to(DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, audio, gs)
+        loss = metrics["loss"].item()  # synchronises
+        seconds.append(time.perf_counter() - t0)
+        launched = {k: v - counts[k] for k, v in _counts().items()}
+        if launched != {"lstm_fwd": 3, "lstm_bwd": 3, "lstm_dwhh": 3}:
+            raise AssertionError(f"{label} training step {i}: launches {launched}, expected 3 "
+                                 "of each (one a BiLSTM layer)")
+        if not math.isfinite(loss):
+            raise AssertionError(f"{label} training step {i}: loss {loss}")
+        log("training", f"{label}: step {i}: loss {loss:.4f}, {1e3 * seconds[-1]:.2f} ms, "
+                        f"{G / seconds[-1]:.1f} sequences/s, launches {launched} ({card})")
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    warm = sorted(seconds[1:])[len(seconds[1:]) // 2]
+    log("training", f"{label}: warm step (median of steps 1-{TRAIN_STEPS - 1}) "
+                    f"{1e3 * warm:.2f} ms, {G / warm:.1f} sequences/s, "
+                    f"{G * cfg.data.max_len_s / warm:.1f} s-audio/s; first step "
+                    f"{1e3 * seconds[0]:.2f} ms; peak device memory {peak:.1f} MiB ({card})")
+    moved = {n for n, p in state.model.named_parameters() if not torch.equal(p, before[n])}
+    return state, launches, moved, set(before)
+
+
+def phase_training(card: str) -> dict:
+    cfg = training_config()
+    G = cfg.data.gaps_per_audio
+    flat = load_params_npz(CHECKPOINT)
+    live = live_bilstm(flat, seed=6)
+    clips = [speech_like_batch(np.random.default_rng(100 + i), 1) for i in range(TRAIN_STEPS)]
+    gen = torch.Generator().manual_seed(5)
+    starts = [_gap_starts(gen, cfg, 1, G) for _ in range(TRAIN_STEPS)]
+    log("training", f"{TRAIN_STEPS} steps of 1 clip x {G} gap variants of "
+                    f"{cfg.data.gap_len_s} s, lr {cfg.training.starter_learning_rate}, from "
+                    f"{CHECKPOINT.name} and from it with its BiLSTM redrawn")
+
+    # From the committed checkpoint: what has a gradient moves, and what has
+    # none on the card has none on the CPU either (the same zero set).
+    check = _check_step_against_cpu(cfg, flat, clips[0], starts[0][:, :2], "checkpoint")
+    _, launches, moved, names = _train(card, cfg, flat, "checkpoint", clips, starts)
+    if moved != names - set(check["zero_grad"]):
+        raise AssertionError(f"checkpoint run: moved {sorted(moved)}, zero gradient at step 0 "
+                             f"{check['zero_grad']}")
+    log("training", f"checkpoint: {len(moved)} of {len(names)} tensors moved; no gradient "
+                    f"reaches (card and CPU agree) {check['zero_grad']}")
+
+    # From the live BiLSTM: every parameter moves.
+    live_check = _check_step_against_cpu(cfg, live, clips[0], starts[0][:, :2], "live BiLSTM")
+    if live_check["zero_grad"]:
+        raise AssertionError(f"live BiLSTM: exactly zero gradients {live_check['zero_grad']}")
+    state, live_launches, moved, _ = _train(card, cfg, live, "live BiLSTM", clips, starts)
+    if moved != names:
+        raise AssertionError(f"live BiLSTM: parameters that did not move {sorted(names - moved)}")
+    log("training", f"live BiLSTM: every one of {len(names)} parameter tensors moved")
+
+    # The trained weights, exported in the JAX package's format, serve a request.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trained.npz"
+        export_params_npz(path, state.model)
+        runner = make_cnn_runner(cfg, path, device=DEVICE)
+        audio = speech_like_batch(np.random.default_rng(1), B)
+        before_serve = bilstm_recurrence.launches
+        restored = runner(audio, np.full(B, GAP_START), np.full(B, GAP_LEN))
+        torch.cuda.synchronize()
+    if bilstm_recurrence.launches - before_serve != 3:
+        raise AssertionError("the exported weights' request did not launch lstm_fwd 3 times")
+    if tuple(restored.shape) != (B, cfg.data.max_samples) or not torch.isfinite(restored).all():
+        raise AssertionError("the exported weights' request is not finite or shaped")
+    log("training", f"exported {path.name} (f16 npz, flax keys) served a request of {B} "
+                    f"clips: finite, shape {tuple(restored.shape)}")
+    return {k: launches[k] + live_launches[k] for k in launches}
+
+
 def main() -> int:
     smi = phase_device()
     card = f"{torch.cuda.get_device_name(0)}, power limit {smi.split(',')[-1].strip()}"
     phase_build()
-    kernel = phase_kernel(card)
-    kernel["launches"] = phase_serving(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = [phase_kernel(card), *phase_kernel_bwd(card)]
+    serving = phase_serving(card)
+    training = phase_training(card)
+    for k in kernels:
+        k["launches"] = serving[k["name"]] + training[k["name"]]
+        k["launches_by_path"] = {"serving": serving[k["name"]], "training": training[k["name"]]}
+        if not k["launches"]:
+            raise AssertionError(f"{k['name']} was never launched on the main paths")
     log("done", f"total {time.perf_counter() - T0:.1f} s")
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({
         "ok": True,

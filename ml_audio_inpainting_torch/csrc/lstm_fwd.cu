@@ -13,7 +13,10 @@
 // and writes them into the two halves of one (B, T, 2H) output.  The
 // backward sweep indexes time backwards here, so there is no flip copy and
 // the output stays in input time order: h[b, t, :] is the state after the
-// input at time t.  f32 only.
+// input at time t.  When the caller passes c_out (training saves it for the
+// backward kernel, csrc/lstm_bwd.cu), the cell state goes into a second
+// (B, T, 2H) array laid out the same way; serving passes null and writes
+// nothing more.  f32 only.
 //
 // What bounds it.  At serving shapes (B=32, T=417, H=128) each direction reads
 // xw once (B*T*4H*4 = 27.3 MB), writes h (B*T*H*4 = 6.8 MB) and does
@@ -47,6 +50,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     lstm_fwd_kernel(const float* xw_fwd, const float* w_hh_fwd,  // (B, T, 4H), (H, 4H)
                     const float* xw_bwd, const float* w_hh_bwd,
                     float* __restrict__ h_out,  // (B, T, 2H): forward h, then backward h
+                    float* __restrict__ c_out,  // (B, T, 2H) cell state, or null
                     int B, int T, int H) {
   extern __shared__ __align__(16) float smem[];
   float* h_s = smem;             // (kRows, H)  h_{t-1}
@@ -58,6 +62,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int G = 4 * H;
   const int ldh = 2 * H;
   h_out += blockIdx.y * H;
+  if (c_out != nullptr) c_out += blockIdx.y * H;
   const int j = threadIdx.x;  // gate column; blockDim.x == 4H
   const int b0 = blockIdx.x * kRows;
   const int rows = min(kRows, B - b0);
@@ -114,7 +119,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       const float h = go * tanhf(c);
       c_s[u] = c;
       h_s[u] = h;
-      h_out[(static_cast<size_t>(b0 + r) * T + t) * ldh + n] = h;
+      const size_t at = (static_cast<size_t>(b0 + r) * T + t) * ldh + n;
+      h_out[at] = h;
+      if (c_out != nullptr) c_out[at] = c;
     }
     __syncthreads();
   }
@@ -123,17 +130,18 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 }  // namespace
 
 // Launches the forward sweep of (xw_fwd, w_hh_fwd) and the backward sweep of
-// (xw_bwd, w_hh_bwd) on `stream` into h_out (B, T, 2H), and returns
+// (xw_bwd, w_hh_bwd) on `stream` into h_out (B, T, 2H) and, unless it is
+// null, c_out (B, T, 2H), and returns
 // cudaGetLastError() as an int (0 = launched).  Pointers are device pointers
 // to contiguous f32 arrays; the caller checks shapes, H % 4 == 0 (float4
 // reads of h), 4 <= H <= 128 (4H <= kMaxThreads threads a block) and
 // B, T >= 1.
 extern "C" int lstm_fwd_launch(const float* xw_fwd, const float* w_hh_fwd, const float* xw_bwd,
-                               const float* w_hh_bwd, float* h_out, int B, int T, int H,
-                               void* stream) {
+                               const float* w_hh_bwd, float* h_out, float* c_out, int B, int T,
+                               int H, void* stream) {
   const dim3 grid((B + kRows - 1) / kRows, 2);
   const size_t smem = sizeof(float) * (2 * kRows * H + kRows * 4 * H);
   lstm_fwd_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-      xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_out, B, T, H);
+      xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_out, c_out, B, T, H);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,8 @@ __all__ = ["build_model"]
 
 
 def build_model(cfg: Config, device="cuda") -> StackedBLSTMCNN:
-    """The CNN+BiLSTM of ``cfg`` on ``device``, weights not yet loaded."""
+    """The CNN+BiLSTM of ``cfg`` on ``device`` in eval mode (serving's; the
+    trainer switches it to train mode), weights not yet loaded."""
     m = cfg.model.cnn_blstm
     return StackedBLSTMCNN(
         in_channels=m.in_channels,
@@ -19,4 +20,4 @@ def build_model(cfg: Config, device="cuda") -> StackedBLSTMCNN:
         freq_bins=cfg.data.spectrogram.freq_bins,
         enc_filters=tuple(m.enc_filters),
         dec_filters=tuple(m.dec_filters),
-    ).to(device)
+    ).to(device).eval()

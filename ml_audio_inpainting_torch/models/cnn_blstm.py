@@ -11,12 +11,16 @@ its element order exactly:
 * out of the projection, JAX reads ``(B, T, C*F)`` as ``(B, T, C, F)`` and
   moves it to ``(B, F, T, C)``, so here ``(B, T, C, F) -> (B, C, F, T)``.
 
-BatchNorm runs in inference mode with flax's eps 1e-5; a 3x3 SAME conv is
-padding 1.  Serving only: the module is built in eval mode.
+BatchNorm follows flax's ``nn.BatchNorm`` (:class:`FlaxBatchNorm2d`): eps
+1e-5, and in train mode it normalises with the batch statistics and updates
+the running ones with momentum 0.99 and the *biased* batch variance.  A 3x3
+SAME conv is padding 1.  Like any ``nn.Module`` the model is built in train
+mode; the serving entry points put it in eval mode.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -24,9 +28,50 @@ from torch import nn
 
 from ml_audio_inpainting_torch.ops.lstm import BiLSTM
 
-__all__ = ["StackedBLSTMCNN"]
+__all__ = ["FlaxBatchNorm2d", "StackedBLSTMCNN"]
 
 BN_EPS = 1e-5  # flax.linen.BatchNorm default
+BN_MOMENTUM = 0.99  # flax.linen.BatchNorm default: running = 0.99 * running + 0.01 * batch
+TRUNC_NORMAL_STD = 0.87962566103423978  # std of N(0, 1) truncated to [-2, 2]
+
+
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's train-mode rule, written out here.
+
+    Train mode (``ml_audio_inpainting_tpu/models/cnn_blstm.py:66,90,93``,
+    flax 0.12 defaults): ``mean = E[x]`` and ``var = max(E[x^2] - mean^2, 0)``
+    over (N, H, W) (flax's ``use_fast_variance``), ``y = (x - mean) *
+    (rsqrt(var + eps) * scale) + bias``, and the running statistics move by
+    ``m * running + (1 - m) * batch`` with ``m = 0.99`` and the *biased*
+    ``var`` (torch's own rule takes momentum 0.1 and the unbiased variance).
+    Eval mode is torch's (cuDNN) normalisation with the running statistics.
+    The state-dict keys are ``nn.BatchNorm2d``'s.
+    """
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        dims = (0, 2, 3)
+        mean = x.mean(dim=dims)
+        var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
+            self.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax's default kernel init ``lecun_normal``: a normal truncated to
+    two standard deviations, scaled so its variance is ``1 / fan_in``."""
+    std = math.sqrt(1.0 / fan_in) / TRUNC_NORMAL_STD
+    draw = torch.empty(w.shape)
+    nn.init.trunc_normal_(draw, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+    w.copy_(draw)
 
 
 class StackedBLSTMCNN(nn.Module):
@@ -54,17 +99,37 @@ class StackedBLSTMCNN(nn.Module):
         c_in = in_channels
         for i, ch in enumerate(enc_channels):
             self.add_module(f"enc_conv{i}", nn.Conv2d(c_in, ch, 3, padding=1))
-            self.add_module(f"enc_bn{i}", nn.BatchNorm2d(ch, eps=BN_EPS))
+            self.add_module(f"enc_bn{i}", FlaxBatchNorm2d(ch))
             c_in = ch
         self.num_enc = len(enc_channels)
         self.lstm = BiLSTM(freq_bins * c_in, lstm_hidden_dim, num_lstm_layers)
         self.projection = nn.Linear(2 * lstm_hidden_dim, freq_bins * self.dec_filters[0])
         self.dec_conv0 = nn.Conv2d(self.dec_filters[0], self.dec_filters[1], 3, padding=1)
-        self.dec_bn0 = nn.BatchNorm2d(self.dec_filters[1], eps=BN_EPS)
+        self.dec_bn0 = FlaxBatchNorm2d(self.dec_filters[1])
         self.dec_conv1 = nn.Conv2d(self.dec_filters[1], self.dec_filters[0], 3, padding=1)
-        self.dec_bn1 = nn.BatchNorm2d(self.dec_filters[0], eps=BN_EPS)
+        self.dec_bn1 = FlaxBatchNorm2d(self.dec_filters[0])
         self.dec_conv2 = nn.Conv2d(self.dec_filters[0], in_channels, 3, padding=1)
-        self.eval()
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Fresh weights with the JAX init's distributions (not its stream):
+        ``lecun_normal`` conv and dense kernels with zero biases (flax's
+        defaults), BatchNorm scale 1, bias 0, running mean 0 and variance 1,
+        and the BiLSTM's U[0, 2/sqrt(H)) (:meth:`BiLSTM.init_weights`).  Drawn
+        on the CPU from ``generator``, in module order."""
+        for name, module in self.named_children():
+            if isinstance(module, nn.Conv2d):
+                _lecun_normal_(module.weight, module.weight[0].numel(), generator)
+                module.bias.zero_()
+            elif isinstance(module, nn.Linear):
+                _lecun_normal_(module.weight, module.in_features, generator)
+                module.bias.zero_()
+            elif isinstance(module, FlaxBatchNorm2d):
+                module.reset_parameters()
+            elif isinstance(module, BiLSTM):
+                module.init_weights(generator)
+            else:
+                raise TypeError(f"no init rule for {name}: {type(module).__name__}")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``(B, F, T)`` log spectrograms -> ``(B, F, T)``."""

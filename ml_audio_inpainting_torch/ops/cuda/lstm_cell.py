@@ -1,30 +1,44 @@
-"""Forward LSTM recurrence: the CUDA kernel ``csrc/lstm_fwd.cu`` and its
-plain PyTorch version.
+"""LSTM recurrence, forward and backward: the CUDA kernels ``csrc/lstm_fwd.cu``
+and ``csrc/lstm_bwd.cu``, their plain PyTorch versions, and the
+``torch.autograd.Function`` over them.
 
-The kernel replaces the Pallas TPU kernel
-``ml_audio_inpainting_tpu/ops/pallas/lstm_cell.py::_fwd_kernel`` (through
-``lstm_recurrence_pallas``): given pre-projected inputs ``xw = x @ W_ih + b``
-of shape ``(B, T, 4H)`` and ``W_hh (H, 4H)``, it runs the recurrence from
-``h = c = 0`` in gate order (i, f, g, o) and returns ``h (B, T, H)`` in
-input time order, walking time backwards for the reverse direction.
-:func:`bilstm_recurrence` runs both directions of a BiLSTM layer in one
-launch, side by side, into one ``(B, T, 2H)`` output; its plain version is
-:func:`lstm_recurrence_reference` once per direction.
+The kernels replace the Pallas TPU kernels of
+``ml_audio_inpainting_tpu/ops/pallas/lstm_cell.py``:
 
-It is bound by latency, not by bytes or FLOPs: at serving shapes (B=32,
-T=417, H=128) a direction reads 27.3 MB of ``xw``, writes 6.8 MB of ``h`` and
-does 1.75 GFLOP, but its 417 steps each wait on the last.  So the time loop
-runs inside one launch per layer, the carries stay on chip and ``W_hh`` is
-read from L2 (see the note in the source).
+* ``lstm_fwd`` replaces ``_fwd_kernel``: given pre-projected inputs
+  ``xw = x @ W_ih + b`` of shape ``(B, T, 4H)`` and ``W_hh (H, 4H)``, it runs
+  the recurrence from ``h = c = 0`` in gate order (i, f, g, o) and returns
+  ``h (B, T, H)`` in input time order, walking time backwards for the reverse
+  direction; for training it also writes the cell states ``c``.
+* ``lstm_bwd`` replaces ``_bwd_kernel``: the reverse-time sweep that
+  recomputes the gates and writes ``dxw``; ``lstm_dwhh``, in the same source,
+  then reduces ``dW_hh = sum_{b,t} h_prev^T dxw`` over the batch, which on
+  Hopper is spread over blocks.
 
-Build route: one ``nvcc`` call compiles the source, which has a plain C
-launcher and no PyTorch headers, into a shared library under
+Each kernel runs both directions of a BiLSTM layer in one launch, side by
+side, on the concatenated ``(B, T, 2H)`` layout of the layer's output.
+:func:`bilstm_recurrence` is the entry point: a ``torch.autograd.Function``
+(the counterpart of the ``custom_vjp`` at ``lstm_cell.py:202-238``) whose
+forward launches ``lstm_fwd`` and whose backward launches ``lstm_bwd`` and
+``lstm_dwhh``.  No CUDA path produces a BiLSTM output outside it, so a
+CUDA output always carries its gradient.
+
+They are bound by latency, not by bytes or FLOPs: a sweep has T dependent
+steps (417 at the production shapes), each of which needs the last step's
+``h`` (forward) or ``dh`` (backward) from every hidden unit.  So the time
+loop runs inside one launch per layer, the carries stay on chip and
+``W_hh`` is read from L2 (see the notes in the sources).
+
+Build route: one ``nvcc`` call a source compiles it, with its plain C
+launchers and no PyTorch headers, into a shared library under
 ``ml_audio_inpainting_torch/_build/``; ``ctypes`` loads it.  That happens at
 the first launch on a CUDA tensor, never at import.
 
-The wrapper takes the plain version for CPU tensors only; on CUDA tensors it
-launches the kernel or raises, and counts its launches in
-``bilstm_recurrence.launches``.
+Each kernel has a wrapper that takes its plain version for CPU tensors only;
+on CUDA tensors it launches the kernel or raises.  Launches are counted in
+``bilstm_recurrence.launches`` (``lstm_fwd``, launched by
+:func:`bilstm_forward`), ``bilstm_recurrence_backward.launches``
+(``lstm_bwd``) and ``bilstm_dwhh.launches`` (``lstm_dwhh``).
 """
 
 from __future__ import annotations
@@ -38,20 +52,30 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Optional, Tuple
 
 import torch
 
 __all__ = [
     "NVCC_FLAGS",
+    "SOURCES",
     "KernelLibrary",
     "load_library",
     "lstm_recurrence_reference",
+    "lstm_recurrence_backward_reference",
+    "dwhh_reference",
     "bilstm_recurrence",
     "bilstm_recurrence_reference",
+    "bilstm_forward",
+    "bilstm_recurrence_backward",
+    "bilstm_dwhh",
 ]
 
 _PACKAGE = Path(__file__).resolve().parents[2]
-SOURCE = _PACKAGE / "csrc" / "lstm_fwd.cu"
+SOURCES = {
+    "lstm_fwd": _PACKAGE / "csrc" / "lstm_fwd.cu",
+    "lstm_bwd": _PACKAGE / "csrc" / "lstm_bwd.cu",
+}
 BUILD_DIR = _PACKAGE / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -60,10 +84,25 @@ NVCC_FLAGS = (
 )
 MAX_HIDDEN = 128  # one thread per gate column: 4H <= 512 threads a block (kMaxThreads)
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C launchers of each source: name -> argument types (pointers, then B, T, H, stream).
+_LAUNCHERS = {
+    "lstm_fwd": {
+        # xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_out, c_out (or null)
+        "lstm_fwd_launch": [_P] * 6 + [_I] * 3 + [_P],
+    },
+    "lstm_bwd": {
+        # xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_seq, c_seq, g_out, dxw_fwd, dxw_bwd
+        "lstm_bwd_launch": [_P] * 9 + [_I] * 3 + [_P],
+        # h_seq, dxw_fwd, dxw_bwd, dw_fwd, dw_bwd
+        "lstm_dwhh_launch": [_P] * 5 + [_I] * 3 + [_P],
+    },
+}
+
 
 @dataclass(frozen=True)
 class KernelLibrary:
-    """The loaded shared library and what building it took."""
+    """A loaded shared library and what building it took."""
 
     cdll: ctypes.CDLL
     path: Path
@@ -82,25 +121,27 @@ def _find_nvcc() -> str:
             return c
     raise RuntimeError(
         "nvcc not found (looked on PATH, in $CUDA_HOME/bin, $CUDA_PATH/bin and "
-        "/usr/local/cuda/bin): the LSTM kernel cannot be built"
+        "/usr/local/cuda/bin): the LSTM kernels cannot be built"
     )
 
 
 @functools.cache
-def load_library() -> KernelLibrary:
-    """Build ``csrc/lstm_fwd.cu`` with one ``nvcc`` call (unless a library of
-    the same source and flags is already built) and load it.
+def load_library(name: str) -> KernelLibrary:
+    """Build ``SOURCES[name]`` with one ``nvcc`` call (unless a library of the
+    same source and flags is already built) and load it.  Distinct sources
+    may be built concurrently from threads.
 
     Raises ``RuntimeError`` with the compiler's output if the build fails.
     """
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib_path = BUILD_DIR / f"liblstm_fwd_{digest[:16]}.so"
+    source = SOURCES[name]
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    lib_path = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
     seconds, output = 0.0, ""
     if not lib_path.exists():
         nvcc = _find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
@@ -112,50 +153,115 @@ def load_library() -> KernelLibrary:
             )
         os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
     cdll = ctypes.CDLL(str(lib_path))
-    fn = cdll.lstm_fwd_launch
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p,  # xw_fwd, w_hh_fwd
-        ctypes.c_void_p, ctypes.c_void_p,  # xw_bwd, w_hh_bwd
-        ctypes.c_void_p,  # h_out
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, T, H
-        ctypes.c_void_p,  # stream
-    ]
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in _LAUNCHERS[name].items():
+        fn = getattr(cdll, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return KernelLibrary(cdll, lib_path, seconds, output)
 
 
+# ---------------------------------------------------------------- plain versions
+
+
 def lstm_recurrence_reference(
-    xw: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False
-) -> torch.Tensor:
-    """Plain PyTorch version of one direction of the kernel, ``(B, T, 4H)`` ->
-    ``(B, T, H)``: a Python loop over time with the same math
+    xw: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False, return_c: bool = False
+):
+    """Plain PyTorch version of one direction of ``lstm_fwd``, ``(B, T, 4H)``
+    -> ``h (B, T, H)`` (and ``c (B, T, H)`` too with ``return_c``): a Python
+    loop over time with the same math
     (``ml_audio_inpainting_tpu/ops/lstm.py::lstm_scan`` from a zero state)."""
     B, T, _ = xw.shape
     H = w_hh.shape[0]
     h = xw.new_zeros((B, H))
     c = xw.new_zeros((B, H))
-    out = xw.new_empty((B, T, H))
+    h_seq = xw.new_empty((B, T, H))
+    c_seq = xw.new_empty((B, T, H)) if return_c else None
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
         gates = xw[:, t] + h @ w_hh
         i, f, g, o = gates.chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
-        out[:, t] = h
-    return out
+        h_seq[:, t] = h
+        if return_c:
+            c_seq[:, t] = c
+    return (h_seq, c_seq) if return_c else h_seq
 
 
 def bilstm_recurrence_reference(
-    xw_fwd: torch.Tensor, w_hh_fwd: torch.Tensor, xw_bwd: torch.Tensor, w_hh_bwd: torch.Tensor
+    xw_fwd: torch.Tensor,
+    w_hh_fwd: torch.Tensor,
+    xw_bwd: torch.Tensor,
+    w_hh_bwd: torch.Tensor,
+    return_c: bool = False,
+):
+    """Plain version of ``lstm_fwd``: the two directions one after the other,
+    concatenated to ``(B, T, 2H)`` (``h``, or ``(h, c)`` with ``return_c``)."""
+    fwd = lstm_recurrence_reference(xw_fwd, w_hh_fwd, reverse=False, return_c=return_c)
+    bwd = lstm_recurrence_reference(xw_bwd, w_hh_bwd, reverse=True, return_c=return_c)
+    if not return_c:
+        return torch.cat([fwd, bwd], dim=-1)
+    return torch.cat([fwd[0], bwd[0]], dim=-1), torch.cat([fwd[1], bwd[1]], dim=-1)
+
+
+def _shift_prev(seq: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """``seq`` at each step's forward predecessor, zero where there is none:
+    ``seq[:, t-1]`` (forward) or ``seq[:, t+1]`` (reverse)."""
+    zero = seq.new_zeros(seq[:, :1].shape)
+    if reverse:
+        return torch.cat([seq[:, 1:], zero], dim=1)
+    return torch.cat([zero, seq[:, :-1]], dim=1)
+
+
+def lstm_recurrence_backward_reference(
+    xw: torch.Tensor,
+    w_hh: torch.Tensor,
+    h: torch.Tensor,
+    c: torch.Tensor,
+    g: torch.Tensor,
+    reverse: bool = False,
 ) -> torch.Tensor:
-    """Plain version of :func:`bilstm_recurrence`: the two directions one
-    after the other, concatenated."""
-    return torch.cat(
-        [
-            lstm_recurrence_reference(xw_fwd, w_hh_fwd, reverse=False),
-            lstm_recurrence_reference(xw_bwd, w_hh_bwd, reverse=True),
-        ],
-        dim=-1,
-    )
+    """Plain version of one direction of ``lstm_bwd``: ``dxw (B, T, 4H)``, the
+    gradient of ``sum(h * g)`` for the direction's saved ``h``, ``c`` and
+    incoming ``g``, all ``(B, T, H)``.  A Python loop over time with
+    ``_bwd_kernel``'s math, sweeping against the forward recurrence's order;
+    :func:`dwhh_reference` of its result is ``_bwd_kernel``'s ``dW_hh``."""
+    B, T, _ = xw.shape
+    H = w_hh.shape[0]
+    h_prev = _shift_prev(h, reverse)
+    c_prev = _shift_prev(c, reverse)
+    dh_carry = xw.new_zeros((B, H))
+    dc_carry = xw.new_zeros((B, H))
+    dxw = xw.new_empty(xw.shape)
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        gates = xw[:, t] + h_prev[:, t] @ w_hh
+        i, f, gg, o = gates.chunk(4, dim=-1)
+        i, f, gg, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(gg), torch.sigmoid(o)
+        dh = dh_carry + g[:, t]
+        tc = torch.tanh(c[:, t])
+        dc = dc_carry + dh * o * (1.0 - tc * tc)
+        dgates = torch.cat(
+            [
+                dc * gg * i * (1.0 - i),
+                dc * c_prev[:, t] * f * (1.0 - f),
+                dc * i * (1.0 - gg * gg),
+                dh * tc * o * (1.0 - o),
+            ],
+            dim=-1,
+        )
+        dxw[:, t] = dgates
+        dh_carry = dgates @ w_hh.T
+        dc_carry = dc * f
+    return dxw
+
+
+def dwhh_reference(h: torch.Tensor, dxw: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Plain version of one direction of ``lstm_dwhh``:
+    ``sum_{b,t} h_prev[b, t]^T dxw[b, t]`` for the direction's ``h (B, T, H)``."""
+    h_prev = _shift_prev(h, reverse)
+    return h_prev.reshape(-1, h.shape[-1]).T @ dxw.reshape(-1, dxw.shape[-1])
+
+
+# ---------------------------------------------------------------- kernel wrappers
 
 
 def _check_kernel_args(xw: torch.Tensor, w_hh: torch.Tensor) -> None:
@@ -177,36 +283,187 @@ def _check_kernel_args(xw: torch.Tensor, w_hh: torch.Tensor) -> None:
         raise ValueError("LSTM kernel takes contiguous xw and w_hh")
 
 
+def _check_pair(xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd) -> None:
+    _check_kernel_args(xw_fwd, w_hh_fwd)
+    _check_kernel_args(xw_bwd, w_hh_bwd)
+    if (xw_bwd.shape, w_hh_bwd.shape, xw_bwd.device) != (xw_fwd.shape, w_hh_fwd.shape, xw_fwd.device):
+        raise ValueError("LSTM kernel: the two directions differ in shape or device")
+
+
+def _check_layer_seq(name: str, t: torch.Tensor, like: torch.Tensor, width: int) -> None:
+    """A ``(B, T, width)`` f32 contiguous tensor on ``like``'s device."""
+    B, T, _ = like.shape
+    if t.device != like.device or t.dtype != torch.float32:
+        raise ValueError(f"LSTM kernel: {name} is {t.dtype} on {t.device}, expected "
+                         f"float32 on {like.device}")
+    if tuple(t.shape) != (B, T, width) or not t.is_contiguous():
+        raise ValueError(f"LSTM kernel: {name} must be contiguous {(B, T, width)}, "
+                         f"got {tuple(t.shape)}")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def bilstm_forward(
+    xw_fwd: torch.Tensor,
+    w_hh_fwd: torch.Tensor,
+    xw_bwd: torch.Tensor,
+    w_hh_bwd: torch.Tensor,
+    with_c: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``(h, c)`` of both directions of a BiLSTM layer, each ``(B, T, 2H)``
+    as :func:`bilstm_recurrence` lays out ``h``; ``c`` is None unless
+    ``with_c``.  Not differentiable: :func:`bilstm_recurrence` is the entry
+    point, and this is its forward.
+
+    CPU tensors take :func:`bilstm_recurrence_reference`; CUDA tensors launch
+    ``lstm_fwd`` once for both directions (counted in
+    ``bilstm_recurrence.launches``), or raise.
+    """
+    tensors = (xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd)
+    if all(t.device.type == "cpu" for t in tensors):
+        if with_c:
+            return bilstm_recurrence_reference(*tensors, return_c=True)
+        return bilstm_recurrence_reference(*tensors), None
+    _check_pair(*tensors)
+    B, T, _ = xw_fwd.shape
+    H = w_hh_fwd.shape[0]
+    h = torch.empty((B, T, 2 * H), device=xw_fwd.device, dtype=xw_fwd.dtype)
+    c = torch.empty_like(h) if with_c else None
+    if B == 0 or T == 0:
+        return h, c
+    launch = load_library("lstm_fwd").cdll.lstm_fwd_launch
+    with torch.cuda.device(h.device):
+        rc = launch(*(t.data_ptr() for t in (*tensors, h)), None if c is None else c.data_ptr(),
+                    B, T, H, _stream(h.device))
+    if rc != 0:
+        raise RuntimeError(f"lstm_fwd launch failed with CUDA error {rc} (B={B}, T={T}, H={H})")
+    bilstm_recurrence.launches += 1
+    return h, c
+
+
+def bilstm_recurrence_backward(
+    xw_fwd: torch.Tensor,
+    w_hh_fwd: torch.Tensor,
+    xw_bwd: torch.Tensor,
+    w_hh_bwd: torch.Tensor,
+    h: torch.Tensor,
+    c: torch.Tensor,
+    g: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dxw_fwd, dxw_bwd)``, the gradients of ``sum(h * g)`` with respect to
+    a BiLSTM layer's projected inputs, given its forward inputs, its
+    ``(B, T, 2H)`` outputs ``h`` and ``c`` (:func:`bilstm_forward`) and the
+    incoming gradient ``g``.  :func:`bilstm_dwhh` then gives ``dW_hh``.
+
+    CPU tensors take :func:`lstm_recurrence_backward_reference` per
+    direction; CUDA tensors launch ``lstm_bwd`` once for both directions, or
+    raise.
+    """
+    tensors = (xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h, c, g)
+    if all(t.device.type == "cpu" for t in tensors):
+        H = w_hh_fwd.shape[0]
+        return (
+            lstm_recurrence_backward_reference(
+                xw_fwd, w_hh_fwd, h[..., :H], c[..., :H], g[..., :H], reverse=False),
+            lstm_recurrence_backward_reference(
+                xw_bwd, w_hh_bwd, h[..., H:], c[..., H:], g[..., H:], reverse=True),
+        )
+    _check_pair(xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd)
+    B, T, _ = xw_fwd.shape
+    H = w_hh_fwd.shape[0]
+    for name, t in (("h", h), ("c", c), ("g", g)):
+        _check_layer_seq(name, t, xw_fwd, 2 * H)
+    if any(w.data_ptr() % 16 for w in (w_hh_fwd, w_hh_bwd)):
+        raise ValueError("lstm_bwd reads rows of w_hh as float4: it must be 16-byte aligned")
+    dxw_f = torch.empty_like(xw_fwd)
+    dxw_b = torch.empty_like(xw_bwd)
+    if B == 0 or T == 0:
+        return dxw_f, dxw_b
+    launch = load_library("lstm_bwd").cdll.lstm_bwd_launch
+    with torch.cuda.device(h.device):
+        rc = launch(*(t.data_ptr() for t in (*tensors, dxw_f, dxw_b)), B, T, H, _stream(h.device))
+    if rc != 0:
+        raise RuntimeError(f"lstm_bwd launch failed with CUDA error {rc} (B={B}, T={T}, H={H})")
+    bilstm_recurrence_backward.launches += 1
+    return dxw_f, dxw_b
+
+
+def bilstm_dwhh(
+    h: torch.Tensor, dxw_fwd: torch.Tensor, dxw_bwd: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dW_hh_fwd, dW_hh_bwd)``, each ``sum_{b,t} h_prev[b, t]^T dxw[b, t]``
+    for its half of ``h (B, T, 2H)``.
+
+    CPU tensors take :func:`dwhh_reference`; CUDA tensors launch
+    ``lstm_dwhh`` once for both directions (a fixed summation order, so the
+    result does not change from run to run), or raise.
+    """
+    H = h.shape[-1] // 2
+    if all(t.device.type == "cpu" for t in (h, dxw_fwd, dxw_bwd)):
+        return (dwhh_reference(h[..., :H], dxw_fwd, reverse=False),
+                dwhh_reference(h[..., H:], dxw_bwd, reverse=True))
+    if h.device.type != "cuda":
+        raise ValueError(f"lstm_dwhh: h on {h.device}; the kernel needs CUDA tensors")
+    for name, t in (("dxw_fwd", dxw_fwd), ("dxw_bwd", dxw_bwd)):
+        _check_layer_seq(name, t, h, 4 * H)
+    _check_layer_seq("h", h, h, 2 * H)
+    B, T, _ = h.shape
+    dw_f = torch.empty((H, 4 * H), device=h.device, dtype=torch.float32)
+    dw_b = torch.empty_like(dw_f)
+    if B == 0 or T == 0:
+        return dw_f.zero_(), dw_b.zero_()
+    launch = load_library("lstm_bwd").cdll.lstm_dwhh_launch
+    with torch.cuda.device(h.device):
+        rc = launch(*(t.data_ptr() for t in (h, dxw_fwd, dxw_bwd, dw_f, dw_b)), B, T, H,
+                    _stream(h.device))
+    if rc != 0:
+        raise RuntimeError(f"lstm_dwhh launch failed with CUDA error {rc} (B={B}, T={T}, H={H})")
+    bilstm_dwhh.launches += 1
+    return dw_f, dw_b
+
+
+class _BiLSTMRecurrence(torch.autograd.Function):
+    """``lstm_fwd`` forward, ``lstm_bwd`` + ``lstm_dwhh`` backward (the
+    ``custom_vjp`` of ``lstm_recurrence_pallas``, for both directions)."""
+
+    @staticmethod
+    def forward(ctx, xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, save: bool):
+        h, c = bilstm_forward(xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, with_c=save)
+        if save:
+            ctx.save_for_backward(xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h, c)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h, c = ctx.saved_tensors
+        dxw_f, dxw_b = bilstm_recurrence_backward(
+            xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h, c, g.contiguous())
+        dw_f, dw_b = bilstm_dwhh(h, dxw_f, dxw_b)
+        return dxw_f, dw_f, dxw_b, dw_b, None
+
+
 def bilstm_recurrence(
     xw_fwd: torch.Tensor, w_hh_fwd: torch.Tensor, xw_bwd: torch.Tensor, w_hh_bwd: torch.Tensor
 ) -> torch.Tensor:
     """Both directions of a BiLSTM layer -> ``(B, T, 2H)``: the forward
     direction's ``h`` in ``[..., :H]``, the backward (reverse) one's in
-    ``[..., H:]``, both in input time order.
+    ``[..., H:]``, both in input time order.  Differentiable in all four
+    inputs.
 
-    CPU tensors take :func:`bilstm_recurrence_reference`; CUDA tensors launch
-    the kernel once for both directions on the current stream, or raise.
+    CPU tensors take the plain versions; CUDA tensors launch ``lstm_fwd``
+    once for both directions on the current stream (and, in backward,
+    ``lstm_bwd`` and ``lstm_dwhh``), or raise.  The cell states are kept for
+    backward only when grad mode is on and an input requires grad; otherwise
+    (serving, ``torch.inference_mode``) the kernel writes ``h`` alone.
     """
-    tensors = (xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd)
-    if all(t.device.type == "cpu" for t in tensors):
-        return bilstm_recurrence_reference(*tensors)
-    _check_kernel_args(xw_fwd, w_hh_fwd)
-    _check_kernel_args(xw_bwd, w_hh_bwd)
-    if (xw_bwd.shape, w_hh_bwd.shape, xw_bwd.device) != (xw_fwd.shape, w_hh_fwd.shape, xw_fwd.device):
-        raise ValueError("bilstm_recurrence: the two directions differ in shape or device")
-    B, T, _ = xw_fwd.shape
-    H = w_hh_fwd.shape[0]
-    h = torch.empty((B, T, 2 * H), device=xw_fwd.device, dtype=xw_fwd.dtype)
-    if B == 0 or T == 0:
-        return h
-    launch = load_library().cdll.lstm_fwd_launch
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        rc = launch(*(t.data_ptr() for t in (*tensors, h)), B, T, H, stream)
-    if rc != 0:
-        raise RuntimeError(f"lstm_fwd launch failed with CUDA error {rc} (B={B}, T={T}, H={H})")
-    bilstm_recurrence.launches += 1
-    return h
+    save = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd)
+    )
+    return _BiLSTMRecurrence.apply(xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, save)
 
 
 bilstm_recurrence.launches = 0
+bilstm_recurrence_backward.launches = 0
+bilstm_dwhh.launches = 0

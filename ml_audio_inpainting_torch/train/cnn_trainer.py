@@ -1,0 +1,173 @@
+"""CNN+BiLSTM training step (port of
+``ml_audio_inpainting_tpu/train/cnn_trainer.py``).
+
+One step: features from waveforms and gap positions, the forward pass in
+train mode (batch statistics in BatchNorm, the BiLSTM through the
+``lstm_fwd`` kernel with its cell states kept), the gap L1 loss, the backward
+pass (``lstm_bwd`` and ``lstm_dwhh`` on the card), Adam, and the EMA of the
+parameters.  The JAX step is a pure function of its state; this one updates
+the state's model, optimizer and EMA in place and returns the same state.
+
+Adam is ``torch.optim.Adam`` with optax's defaults (b1 0.9, b2 0.999, eps
+1e-8 added outside the square root, bias-corrected), which compute the same
+update as ``optax.adam``; ``optax.exponential_decay(lr, 1, d)`` becomes an
+``ExponentialLR(gamma=d)`` stepped after every update, so step k uses
+``lr * d**k`` in both.  The JAX package's initial weights come from its own
+``jax.random`` stream, which cannot be reproduced: pass them as flat flax
+variables (``params``) to start from the same point, or let the port draw
+fresh ones from the same distributions.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ml_audio_inpainting_torch.models.build import build_model
+from ml_audio_inpainting_torch.models.cnn_blstm import StackedBLSTMCNN
+from ml_audio_inpainting_torch.train.features import cnn_features
+from ml_audio_inpainting_torch.train.losses import cnn_gap_l1_loss
+from ml_audio_inpainting_torch.utils.config import Config
+from ml_audio_inpainting_torch.weights import cnn_blstm_state_dict
+
+__all__ = ["CNNTrainState", "create_cnn_state", "make_cnn_train_step", "make_cnn_eval_step"]
+
+ADAM_BETAS = (0.9, 0.999)  # optax.adam defaults
+ADAM_EPS = 1e-8
+
+
+@dataclass
+class CNNTrainState:
+    """The model (parameters and BatchNorm running statistics), its Adam
+    optimizer and learning-rate schedule, the parameters' EMA (``None`` when
+    off; serving weights the optimizer never sees) and the step count."""
+
+    model: StackedBLSTMCNN
+    optimizer: torch.optim.Adam
+    scheduler: Optional[torch.optim.lr_scheduler.ExponentialLR]
+    ema_params: Optional[Dict[str, torch.Tensor]]
+    step: int = 0
+
+
+def create_cnn_state(
+    cfg: Config,
+    device="cuda",
+    params: Optional[Mapping[str, np.ndarray]] = None,
+    ema: float = 0.0,
+    seed: int = 0,
+) -> CNNTrainState:
+    """Model, Adam (lr ``cfg.training.starter_learning_rate``) and, with
+    ``ema > 0``, an EMA seeded with a copy of the initial parameters.
+
+    ``params`` are flat flax variables (``params/...`` and
+    ``batch_stats/...`` keys, as :func:`~ml_audio_inpainting_torch.weights.load_params_npz`
+    returns them), loaded strictly; without them the weights are drawn with
+    the JAX init's distributions from a ``torch.Generator`` seeded with
+    ``seed``.
+    """
+    if cfg.training.optimizer_type != "adam":
+        raise ValueError(f"optimizer_type {cfg.training.optimizer_type!r}: the CNN+BiLSTM "
+                         "recipe trains with adam")
+    model = build_model(cfg, device)
+    if params is not None:
+        model.load_state_dict(cnn_blstm_state_dict(params))
+    else:
+        model.init_weights(torch.Generator().manual_seed(seed))
+    model.train()
+    optimizer = torch.optim.Adam(
+        model.parameters(), lr=cfg.training.starter_learning_rate, betas=ADAM_BETAS,
+        eps=ADAM_EPS,
+    )
+    scheduler = None
+    if cfg.training.lr_decay != 1.0:
+        scheduler = torch.optim.lr_scheduler.ExponentialLR(optimizer, gamma=cfg.training.lr_decay)
+    ema_params = None
+    if ema > 0:
+        ema_params = {k: p.detach().clone() for k, p in model.named_parameters()}
+    return CNNTrainState(model, optimizer, scheduler, ema_params)
+
+
+def _check_supported(compute_dtype, phase_mode: bool) -> None:
+    if compute_dtype is not None:
+        raise NotImplementedError(
+            "compute_dtype (bf16 training: lstm_fwd/lstm_bwd in bf16 with the saved c "
+            "rounded to bf16) waits for a later slice of the port"
+        )
+    if phase_mode:
+        raise NotImplementedError("phase_mode (the complex 2-channel CNN) waits for a later "
+                                  "slice of the port")
+
+
+def _batch(cfg: Config, audio: torch.Tensor, gap_start: torch.Tensor) -> Dict[str, torch.Tensor]:
+    return cnn_features(
+        audio,
+        gap_start,
+        cfg.data.spectrogram,
+        gap_len_s=cfg.data.gap_len_s,
+        sample_rate=cfg.data.sample_rate,
+        n_gaps=cfg.data.train_n_gaps,
+    )
+
+
+def make_cnn_train_step(
+    cfg: Config, ema: float = 0.0, compute_dtype=None, phase_mode: bool = False
+) -> Callable[[CNNTrainState, torch.Tensor, torch.Tensor], Tuple[CNNTrainState, Dict]]:
+    """``step(state, audio, gap_start) -> (state, {"loss": loss})``: gaps ->
+    STFTs -> forward (train mode) -> gap L1 -> backward -> Adam -> EMA.
+
+    ``audio`` is ``(B, S)`` f32 waveforms and ``gap_start`` ``(B, G)`` int64
+    gap positions in samples, on the model's device (``G`` is the recipe's
+    ``gaps_per_audio``).  The BatchNorm running statistics move during the
+    forward pass, as the JAX step's ``mutable=["batch_stats"]`` output
+    replaces them after it.  ``loss`` is a 0-d tensor on the device; the
+    step's gradients stay in the parameters' ``.grad`` until the next step.
+
+    ``ema`` > 0 blends ``ema * ema_params + (1 - ema) * params`` after the
+    optimizer step.  ``compute_dtype`` and ``phase_mode`` wait for later
+    slices of the port and raise ``NotImplementedError``.
+    """
+    _check_supported(compute_dtype, phase_mode)
+
+    def step(state: CNNTrainState, audio: torch.Tensor, gap_start: torch.Tensor):
+        model = state.model
+        model.train()
+        with torch.no_grad():
+            batch = _batch(cfg, audio, gap_start)
+        state.optimizer.zero_grad(set_to_none=True)
+        pred = model(batch["log_gap"])
+        loss = cnn_gap_l1_loss(pred, batch["target_mag"], batch["gap_mask"])
+        loss.backward()
+        state.optimizer.step()
+        if state.scheduler is not None:
+            state.scheduler.step()
+        if ema > 0 and state.ema_params is not None:
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    e = state.ema_params[name]
+                    e.copy_(ema * e + (1.0 - ema) * p)
+        state.step += 1
+        return state, {"loss": loss.detach()}
+
+    return step
+
+
+def make_cnn_eval_step(
+    cfg: Config, phase_mode: bool = False
+) -> Callable[[CNNTrainState, torch.Tensor, torch.Tensor], Dict]:
+    """``step(state, audio, gap_start) -> {"loss": loss}``: the validation
+    loss of the live parameters with BatchNorm's running statistics (eval
+    mode), under ``torch.inference_mode``.  The model is left in eval mode;
+    the train step switches it back."""
+    _check_supported(None, phase_mode)
+
+    @torch.inference_mode()
+    def step(state: CNNTrainState, audio: torch.Tensor, gap_start: torch.Tensor):
+        state.model.eval()
+        batch = _batch(cfg, audio, gap_start)
+        pred = state.model(batch["log_gap"])
+        return {"loss": cnn_gap_l1_loss(pred, batch["target_mag"], batch["gap_mask"])}
+
+    return step

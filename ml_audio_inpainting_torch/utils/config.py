@@ -1,10 +1,10 @@
-"""Configuration tree of the port: the CNN+BiLSTM serving subset.
+"""Configuration tree of the port: the CNN+BiLSTM serving and training subset.
 
 A copy of the dataclasses of ``ml_audio_inpainting_tpu/utils/config.py``
-that the CNN+BiLSTM serving path reads, with the same field names, defaults
-and YAML key layout, so a config file loads the same in both packages.
-Sections the path does not read (GAN model, training, paths, logging, mesh)
-are ignored by :meth:`Config.from_dict`.
+that the CNN+BiLSTM serving and training paths read, with the same field
+names, defaults and YAML key layout, so a config file loads the same in both
+packages.  Sections and keys the paths do not read (GAN model and its
+optimizers, paths, logging, mesh) are ignored by :meth:`Config.from_dict`.
 
 ``yaml`` is imported only inside :meth:`Config.from_yaml`: code that builds
 its config in Python needs no YAML package.
@@ -22,6 +22,7 @@ __all__ = [
     "DataConfig",
     "CNNBLSTMConfig",
     "ModelConfig",
+    "TrainingConfig",
     "Config",
     "DEFAULT_SAMPLE_RATE",
     "DEFAULT_N_FFT",
@@ -114,9 +115,21 @@ class ModelConfig:
 
 
 @dataclass
+class TrainingConfig:
+    """The CNN+BiLSTM optimizer keys (``cnn_blstm.yaml:32-37``)."""
+
+    batch_size: int = 8
+    optimizer_type: str = "adam"
+    starter_learning_rate: float = 1e-4
+    lr_decay: float = 1.0
+    max_n_epochs: int = 50
+
+
+@dataclass
 class Config:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    training: TrainingConfig = field(default_factory=TrainingConfig)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "Config":
@@ -125,6 +138,8 @@ class Config:
             cfg.data = DataConfig.from_dict(d["data"])
         if "model" in d:
             cfg.model = ModelConfig.from_dict(d["model"])
+        if "training" in d:
+            cfg.training = TrainingConfig(**_filtered(TrainingConfig, d["training"]))
         return cfg
 
     @classmethod

@@ -11,6 +11,9 @@ memory.  This module turns such a flat dict into the port's modules:
 * ``batch_stats/*/mean|var`` become BatchNorm running stats;
 * f16 values are widened to f32, as ``load_params_npz`` does there;
 * BiLSTM parameters keep their names and ``(in, out)`` layouts.
+
+:func:`cnn_blstm_flat_variables` goes the other way, so weights trained by
+the port load in the JAX package (``train/checkpoints.py`` writes them).
 """
 
 from __future__ import annotations
@@ -23,9 +26,15 @@ import torch
 
 from ml_audio_inpainting_torch.models.cnn_blstm import StackedBLSTMCNN
 
-__all__ = ["load_params_npz", "cnn_blstm_state_dict", "cnn_blstm_from_numpy"]
+__all__ = [
+    "load_params_npz",
+    "cnn_blstm_state_dict",
+    "cnn_blstm_flat_variables",
+    "cnn_blstm_from_numpy",
+]
 
 _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+_BN_KEYS = {v: k for k, v in _BN_LEAVES.items()}
 
 
 def _widen(arr) -> np.ndarray:
@@ -66,10 +75,44 @@ def cnn_blstm_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tens
     return sd
 
 
+def cnn_blstm_flat_variables(tensors: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`cnn_blstm_state_dict`: flat flax variables (f32
+    numpy) from a :class:`StackedBLSTMCNN` ``state_dict``, or from any subset
+    of its entries (a dict of parameter gradients maps the same way).
+
+    OIHW conv kernels go to HWIO, ``nn.Linear`` weights ``(out, in)`` to dense
+    kernels ``(in, out)``, running statistics to ``batch_stats/*/mean|var``;
+    ``num_batches_tracked`` has no flax counterpart and is dropped.
+    """
+    flat: Dict[str, np.ndarray] = {}
+    for name, value in tensors.items():
+        module, leaf = name.split(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if module == "lstm":
+            key = f"params/lstm/{leaf}"
+        elif module == "projection":
+            key, arr = f"params/projection/{'kernel' if leaf == 'weight' else leaf}", (
+                arr.T if leaf == "weight" else arr)
+        elif "_conv" in module:
+            if leaf == "weight":
+                key, arr = f"params/{module}/kernel", arr.transpose(2, 3, 1, 0)
+            else:
+                key = f"params/{module}/{leaf}"
+        elif "_bn" in module and leaf in _BN_KEYS:
+            collection = "batch_stats" if leaf.startswith("running_") else "params"
+            key = f"{collection}/{module}/{_BN_KEYS[leaf]}"
+        else:
+            raise ValueError(f"unexpected CNN+BiLSTM tensor {name!r}")
+        flat[key] = np.ascontiguousarray(arr)
+    return flat
+
+
 def cnn_blstm_from_numpy(flat: Mapping[str, np.ndarray], device="cuda") -> StackedBLSTMCNN:
-    """:class:`StackedBLSTMCNN` on ``device`` with its widths read off the
-    weights' shapes and the weights loaded (strictly: a missing or extra key
-    raises)."""
+    """:class:`StackedBLSTMCNN` on ``device`` in eval mode, with its widths
+    read off the weights' shapes and the weights loaded (strictly: a missing
+    or extra key raises)."""
     p = "params/"
     n_enc = 0
     while f"{p}enc_conv{n_enc}/kernel" in flat:
@@ -91,4 +134,4 @@ def cnn_blstm_from_numpy(flat: Mapping[str, np.ndarray], device="cuda") -> Stack
         ),
     )
     model.load_state_dict(cnn_blstm_state_dict(flat))
-    return model.to(device)
+    return model.to(device).eval()

@@ -80,7 +80,8 @@ def test_port_package_has_every_slice_module():
     for mod in (
         "utils.config", "ops.gaps", "ops.stft", "ops.masking", "ops.cuda.lstm_cell",
         "ops.lstm", "models.cnn_blstm", "models.build", "weights", "runtime.inference",
-        "runtime.serve",
+        "runtime.serve", "train.features", "train.losses", "train.cnn_trainer",
+        "train.checkpoints",
     ):
         assert f"ml_audio_inpainting_torch.{mod}" in names
 

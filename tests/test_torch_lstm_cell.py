@@ -99,6 +99,7 @@ def test_import_does_not_invoke_nvcc(tmp_path):
         import ml_audio_inpainting_torch.ops.cuda.lstm_cell
         import ml_audio_inpainting_torch.ops.lstm
         import ml_audio_inpainting_torch.runtime.serve
+        import ml_audio_inpainting_torch.train.cnn_trainer
         """
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)
@@ -110,5 +111,5 @@ def test_failed_build_raises_with_compiler_output(tmp_path, monkeypatch):
     monkeypatch.setenv("PATH", f"{tmp_path / 'bin'}:{os.environ['PATH']}")
     monkeypatch.setattr(lstm_cell, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="fake compiler message"):
-        lstm_cell.load_library.__wrapped__()
+        lstm_cell.load_library.__wrapped__("lstm_fwd")
     assert not list((tmp_path / "build").glob("*.so"))
