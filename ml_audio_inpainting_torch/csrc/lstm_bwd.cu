@@ -1,7 +1,8 @@
 // Backward LSTM recurrence over pre-projected inputs, CUDA C++ for sm_90a.
 //
 // Replaces the Pallas TPU kernel ml_audio_inpainting_tpu/ops/pallas/lstm_cell.py
-// ::_bwd_kernel (driven by _backward and the custom_vjp's _bwd).  Two kernels:
+// ::_bwd_kernel (driven by _backward and the custom_vjp's _bwd).  Three
+// kernels, behind two C launchers:
 //
 // lstm_bwd_kernel -- the reverse-time sweep.  For each direction it walks the
 //   forward recurrence backwards and, per step, recomputes the gates from
@@ -20,84 +21,158 @@
 //   the incoming gradient from the (B, T, 2H) gradient of the layer output;
 //   no flipped or shifted copies are made.
 //
-// lstm_dwhh_kernel -- dW_hh = sum over (b, t) of h_prev[b, t]^T (x) dxw[b, t],
-//   a product of depth K = B*T.  On the TPU one core sees every batch row
-//   and accumulates dW_hh in one resident output; here the batch is spread
-//   over blocks, so this second kernel reduces over K in a fixed order (one
-//   block a 32x32 tile of dW_hh, both directions in one launch): the result
-//   does not change from run to run.
+// lstm_dwhh_partial_kernel + lstm_dwhh_reduce_kernel -- dW_hh = sum over
+//   (b, t) of h_prev[b, t]^T (x) dxw[b, t] (_bwd_kernel's accumulation at
+//   :109-111), a product of depth K = B*T.  On the TPU one core sees every
+//   batch row and accumulates dW_hh in one resident output; here the batch
+//   is spread over clusters, so dW_hh is a split-K product of its own.
 //
 // What bounds them.  At the training shapes (B=25, T=417, H=128, both
 // directions) the sweep reads xw, h, c and g and writes dxw, about 118 MB
 // (35 us at 3.35 TB/s), and does two (B,H)x(H,4H) products a step, 5.5 GFLOP
 // of f32 FMA (82 us at 67 TFLOP/s).  It is bound by latency instead: 417
-// dependent steps, each with two dependent products (gates from h_prev, then
-// dh from dgates), where the forward kernel has one.  The design is the
-// forward kernel's: one launch per layer, the time loop inside the kernel,
-// carries on chip, W_hh read from L2 (256 KB f32 does not fit a block's
-// shared memory) -- twice a step here, once by gate column for the gates and
-// once by hidden unit for dh.  The reduction is a plain shared-memory tiled
-// product, 2.7 GFLOP over 54 MB, bound by operations.
+// dependent steps, where only dh_carry = dgates @ W_hh^T and dc link one
+// step to the next.  The reduction is 2.7 GFLOP over 54 MB, bound by f32
+// FMA (41 us).
 //
-// Layout of the sweep.  Block (x, y) owns kRows = 4 batch rows of direction y
-// and runs 4H threads.  Per step:
-//   A. thread j (a gate column) dots the block's h_prev rows (shared memory)
-//      with W_hh[:, j] and parks the gate pre-activation in shared memory;
-//      in the same phase thread (q, n) (q = j / H a quarter of the gate
-//      columns, n = j % H a hidden unit) dots the previous step's dgates
-//      over that quarter with row n of W_hh (contiguous, read as float4),
-//      a partial of dh_carry;
-//   -- barrier --
-//   B. thread (r, n) = (j / H, j % H) sums the four partials into dh, does
-//      the elementwise step for batch row r and unit n, writes dxw and its
-//      dgates to shared memory, and stages h_prev of the next step;
-//   -- barrier --
-// so a step costs two barriers, as in the forward kernel, with twice its
-// loads of W_hh.  f32 only.
+// The sweep's design.  One thread-block cluster of C CTAs (C = 8 when
+// H % 8 == 0, else 4) runs kRows batch rows of one direction.  CTA r owns
+// the hidden units [r*u, (r+1)*u), u = H / C, and their 4u gate columns; at
+// launch it copies W_hh[:, own columns] (128 x 64 f32, 32 KB at H=128) into
+// shared memory, and that slice serves both products of every step, so
+// W_hh is never read from global memory or L2 inside the time loop.  Per
+// step s (one cluster barrier, split into arrive and wait):
+//   A. partial dh of every unit from this CTA's columns of the last step's
+//      dgates (local): part[b, k] = sum_{own cols} dg[b, col] W[k, col];
+//   -- cluster arrive (release) --
+//   B. off the chain, while the barrier completes: the gate partials of
+//      step s+1 over k-slices, from h_prev(s+1), which cp.async staged into
+//      shared memory a step earlier (the recomputation needs only saved
+//      data, never the carry);
+//   -- cluster wait (acquire) --
+//   C. thread (b, m) sums the C partials of its unit from the peers' shared
+//      memory (distributed shared memory, in rank order), adds xw and the
+//      gate partials, does the elementwise step, writes dxw and its dgates
+//      (for the next A) and keeps dc in a register;
+//   -- __syncthreads --
+// The dh partials are double-buffered, so one cluster barrier a step is
+// enough: a CTA rewrites a buffer only after every peer has arrived at the
+// next step's barrier, which each does after reading it.  No atomics: the
+// result does not change from run to run.
+//
+// The reduction's design.  K is cut into fixed slices; block (tile, slice,
+// direction) computes a 64 x 64 tile of dW_hh over its slice, 4 x 4 outputs
+// a thread, through two cp.async stages of 32 rows of h_prev and dxw.  A
+// second kernel of the same launcher sums each output's partials in slice
+// order, so the result is deterministic.  The caller allocates the
+// partials; the kernels allocate nothing.
+//
+// The element type is a template parameter; only f32 is instantiated (bf16
+// adds its to_f32/load4_f32 overloads and instantiations).  No tensor cores:
+// every product is f32 FMA, as _bwd_kernel's f32 accumulation.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kRows = 4;          // batch rows per block; kRows * H == 4H threads
-constexpr int kChunk = 32;        // W_hh values a thread loads before using them
-constexpr int kMaxThreads = 512;  // 4H for H <= 128; caps registers at 128 a thread
-constexpr int kTile = 32;         // dW_hh tile edge in the reduction
-constexpr int kDepth = 32;        // rows of K a reduction block stages at a time
+constexpr int kRows = 4;          // batch rows a cluster of the sweep
+constexpr int kThreads = 256;     // threads a CTA, sweep and reduction
+constexpr int kMaxCluster = 8;    // CTAs a cluster (the portable maximum)
+constexpr int kTile = 64;         // dW_hh tile edge of the reduction
+constexpr int kDepth = 32;        // rows of K a stage of the reduction
 constexpr int kReduceThreads = 256;
 
-static_assert(kRows == 4, "the elementwise phase maps thread j to (row j / H, unit j % H)");
+static_assert(kRows % 2 == 0, "phase A gives each thread a pair of batch rows");
+static_assert(kTile == 16 * 4, "16 x 16 threads of 4 x 4 outputs cover a tile");
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-__global__ void __launch_bounds__(kMaxThreads, 1)
-    lstm_bwd_kernel(const float* xw_fwd, const float* w_hh_fwd,  // (B, T, 4H), (H, 4H)
-                    const float* xw_bwd, const float* w_hh_bwd,
-                    const float* __restrict__ h_seq,  // (B, T, 2H) forward kernel's h
-                    const float* __restrict__ c_seq,  // (B, T, 2H) forward kernel's c
-                    const float* __restrict__ g_out,  // (B, T, 2H) gradient of h
-                    float* dxw_fwd, float* dxw_bwd,   // (B, T, 4H)
-                    int B, int T, int H) {
-  extern __shared__ __align__(16) float smem[];
-  float* h_s = smem;                  // (kRows, H)  h_prev of the current step
-  float* dc_s = h_s + kRows * H;      // (kRows, H)  dc carry
-  float* g_s = dc_s + kRows * H;      // (kRows, 4H) gate pre-activations
-  float* dg_s = g_s + kRows * 4 * H;  // (kRows, 4H) dgates of the last step
-  float* p_s = dg_s + kRows * 4 * H;  // (4, kRows, H) partials of dh by gate quarter
+// The f32 forms of the element-type helpers.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float4 load4_f32(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid (src is
+// then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The two halves of a cluster barrier; every thread of every CTA calls both
+// (the forms without .aligned: a warp need not be converged).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Shared memory of a sweep CTA, byte offsets.  The W_hh slice's row stride
+// ldw pads the 4u columns so that ldw / 4 is odd: float4 reads by threads of
+// consecutive k then fall in distinct banks.
+struct BwdLayout {
+  int units, ncol, ldw;
+  size_t w, h, part, gp, dg, bytes;
+  __host__ __device__ BwdLayout(int H, int cluster, int ksplit, int elem_bytes) {
+    units = H / cluster;
+    ncol = 4 * units;
+    ldw = 4 * ((units + 1) | 1);
+    w = 0;                                                          // f32 (H, ldw)
+    h = w + sizeof(float) * H * ldw;                                // Elem 2 x (kRows, H)
+    part = h + (static_cast<size_t>(elem_bytes) * 2 * kRows * H + 15) / 16 * 16;  // f32 2 x (kRows, H)
+    gp = part + sizeof(float) * 2 * kRows * H;                      // f32 2 x (ksplit, kRows, 4u)
+    dg = gp + sizeof(float) * 2 * ksplit * kRows * ncol;            // f32 (kRows, 4u)
+    bytes = dg + sizeof(float) * kRows * ncol;
+  }
+};
+
+template <typename Elem>
+__global__ void __launch_bounds__(kThreads)
+    lstm_bwd_kernel(const Elem* xw_fwd, const Elem* w_hh_fwd,  // (B, T, 4H), (H, 4H)
+                    const Elem* xw_bwd, const Elem* w_hh_bwd,
+                    const Elem* __restrict__ h_seq,  // (B, T, 2H) forward kernel's h
+                    const Elem* __restrict__ c_seq,  // (B, T, 2H) forward kernel's c
+                    const Elem* __restrict__ g_out,  // (B, T, 2H) gradient of h
+                    Elem* dxw_fwd, Elem* dxw_bwd,    // (B, T, 4H)
+                    int B, int T, int H, int csize, int ksplit) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const BwdLayout lay(H, csize, ksplit, sizeof(Elem));
+  const int units = lay.units, ncol = lay.ncol, ldw = lay.ldw;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* w_s = reinterpret_cast<float*>(smem + lay.w);     // W_hh[:, own columns]
+  Elem* h_s = reinterpret_cast<Elem*>(smem + lay.h);       // h_prev, by step parity
+  float* part_s = reinterpret_cast<float*>(smem + lay.part);  // dh partials, by parity
+  float* gp_s = reinterpret_cast<float*>(smem + lay.gp);   // gate partials, by parity
+  float* dg_s = reinterpret_cast<float*>(smem + lay.dg);   // last step's dgates
+
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n0 = rank * units;  // own units [n0, n0 + units); own column lc is
+                                // gate lc / units, unit n0 + lc % units
   const bool reverse = blockIdx.y == 1;
-  const float* __restrict__ xw = reverse ? xw_bwd : xw_fwd;
-  const float* __restrict__ w_hh = reverse ? w_hh_bwd : w_hh_fwd;
-  float* __restrict__ dxw = reverse ? dxw_bwd : dxw_fwd;
+  const Elem* __restrict__ xw = reverse ? xw_bwd : xw_fwd;
+  const Elem* __restrict__ w_hh = reverse ? w_hh_bwd : w_hh_fwd;
+  Elem* __restrict__ dxw = reverse ? dxw_bwd : dxw_fwd;
   const int G = 4 * H;
   const int ldh = 2 * H;
   const int off = blockIdx.y * H;  // this direction's half of h, c and g_out
-  const int j = threadIdx.x;       // gate column in phase A; blockDim.x == 4H
-  const int q = j / H;             // (q, n): gate quarter and unit for the dh partials,
-  const int n = j - q * H;         //   and (row q, unit n) in phase B
-  const int b0 = blockIdx.x * kRows;
+  const int b0 = (blockIdx.x / csize) * kRows;
   const int rows = min(kRows, B - b0);
-  const bool active = q < rows;    // phase B has a batch row for this thread
-  const size_t row_base = static_cast<size_t>(b0 + q) * T;
+  const int tid = threadIdx.x;
+  const int kspan = ((H + ksplit - 1) / ksplit + 3) / 4 * 4;  // k per gate partial
 
   // Step s handles time t(s); its forward predecessor is t - 1 (forward) or
   // t + 1 (backward), absent at the end of the range.
@@ -105,227 +180,354 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   auto prev_of = [&](int t) { return reverse ? t + 1 : t - 1; };
   auto in_range = [&](int t) { return t >= 0 && t < T; };
 
-  for (int u = j; u < kRows * 4 * H; u += blockDim.x) {
-    g_s[u] = 0.0f;
-    dg_s[u] = 0.0f;
-    p_s[u] = 0.0f;  // 4 * kRows * H == kRows * 4H
+  // h_prev of step s, all H units of the cluster's rows -> h_s[s & 1].
+  constexpr int kVec = 16 / sizeof(Elem);
+  auto stage_h = [&](int s) {
+    Elem* dst = h_s + (s & 1) * kRows * H;
+    const int tp = prev_of(time_of(s));
+    const int per_row = H / kVec;
+    for (int e = tid; e < kRows * per_row; e += kThreads) {
+      const int r = e / per_row;
+      const int k = (e - r * per_row) * kVec;
+      const bool valid = r < rows && in_range(tp);
+      const Elem* src = valid ? h_seq + (static_cast<size_t>(b0 + r) * T + tp) * ldh + off + k
+                              : h_seq;
+      cp_async16(dst + r * H + k, src, valid);
+    }
+    cp_async_commit();
+  };
+
+  // B: gate partials of step s over k-slice kq for own column lc, all rows.
+  auto gate_partials = [&](int s) {
+    if (tid < ncol * ksplit) {
+      const int lc = tid % ncol;
+      const int kq = tid / ncol;
+      const int k_end = min(H, (kq + 1) * kspan);
+      const Elem* hb = h_s + (s & 1) * kRows * H;
+      float acc[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
+#pragma unroll 4
+      for (int k = kq * kspan; k < k_end; k += 4) {  // H % 4 == 0 and kspan % 4 == 0
+        const float w0 = w_s[k * ldw + lc];
+        const float w1 = w_s[(k + 1) * ldw + lc];
+        const float w2 = w_s[(k + 2) * ldw + lc];
+        const float w3 = w_s[(k + 3) * ldw + lc];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const float4 hv = load4_f32(hb + r * H + k);
+          acc[r] = fmaf(hv.x, w0, acc[r]);
+          acc[r] = fmaf(hv.y, w1, acc[r]);
+          acc[r] = fmaf(hv.z, w2, acc[r]);
+          acc[r] = fmaf(hv.w, w3, acc[r]);
+        }
+      }
+      float* gp = gp_s + ((s & 1) * ksplit + kq) * kRows * ncol + lc;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) gp[r * ncol] = acc[r];
+    }
+  };
+
+  // A: partial dh of unit k, rows 2rp and 2rp+1, from own columns.
+  auto dh_partials = [&](int s) {
+    if (tid < H * (kRows / 2)) {
+      const int k = tid % H;
+      const int rp = tid / H;
+      const float* w_row = w_s + k * ldw;
+      const float* d0 = dg_s + 2 * rp * ncol;
+      const float* d1 = d0 + ncol;
+      float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll 4
+      for (int lc = 0; lc < ncol; lc += 4) {
+        const float4 w = *reinterpret_cast<const float4*>(w_row + lc);
+        const float4 x0 = *reinterpret_cast<const float4*>(d0 + lc);
+        const float4 x1 = *reinterpret_cast<const float4*>(d1 + lc);
+        a0 = fmaf(x0.x, w.x, a0);
+        a0 = fmaf(x0.y, w.y, a0);
+        a0 = fmaf(x0.z, w.z, a0);
+        a0 = fmaf(x0.w, w.w, a0);
+        a1 = fmaf(x1.x, w.x, a1);
+        a1 = fmaf(x1.y, w.y, a1);
+        a1 = fmaf(x1.z, w.z, a1);
+        a1 = fmaf(x1.w, w.w, a1);
+      }
+      float* part = part_s + (s & 1) * kRows * H;
+      part[2 * rp * H + k] = a0;
+      part[(2 * rp + 1) * H + k] = a1;
+    }
+  };
+
+  // Set-up: the W_hh slice, zero dgates, h_prev of steps 0 and 1, gates of step 0.
+  for (int e = tid; e < H * ncol; e += kThreads) {
+    const int k = e / ncol;
+    const int lc = e - k * ncol;
+    const int q = lc / units;
+    w_s[k * ldw + lc] = to_f32(w_hh[static_cast<size_t>(k) * G + q * H + n0 + lc - q * units]);
   }
-  {
-    const int tp = prev_of(time_of(0));
-    h_s[j] = active && in_range(tp) ? h_seq[(row_base + tp) * ldh + off + n] : 0.0f;
-    dc_s[j] = 0.0f;
-  }
+  for (int e = tid; e < kRows * ncol; e += kThreads) dg_s[e] = 0.0f;
+  stage_h(0);
+  if (T > 1) stage_h(1);
+  cp_async_wait<0>();
   __syncthreads();
+  gate_partials(0);
+  __syncthreads();
+
+  // Phase C's thread: batch row cr of the cluster, own unit cm (n = n0 + cm).
+  const bool c_thread = tid < kRows * units;
+  const int cr = c_thread ? tid / units : 0;
+  const int cm = tid - cr * units;
+  const int cn = n0 + cm;
+  const bool c_active = c_thread && cr < rows;
+  const size_t c_base = static_cast<size_t>(b0 + cr) * T;
+  float dc_carry = 0.0f;
 
   for (int s = 0; s < T; ++s) {
     const int t = time_of(s);
-    const int tp = prev_of(t);  // the next step's t
-    // This thread's phase-B inputs, loaded now so they arrive during phase A.
-    float c_t = 0.0f, c_prev = 0.0f, g_in = 0.0f, h_next = 0.0f;
-    if (active) {
-      c_t = c_seq[(row_base + t) * ldh + off + n];
-      g_in = g_out[(row_base + t) * ldh + off + n];
-      if (in_range(tp)) {
-        c_prev = c_seq[(row_base + tp) * ldh + off + n];
-        const int tpp = prev_of(tp);
-        if (in_range(tpp)) h_next = h_seq[(row_base + tpp) * ldh + off + n];
-      }
+    const int tp = prev_of(t);
+    // Phase C's global inputs, loaded now so they arrive during A and B.
+    float c_t = 0.0f, c_prev = 0.0f, g_in = 0.0f, x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (c_active) {
+      const size_t at = (c_base + t) * ldh + off + cn;
+      c_t = to_f32(c_seq[at]);
+      g_in = to_f32(g_out[at]);
+      if (in_range(tp)) c_prev = to_f32(c_seq[(c_base + tp) * ldh + off + cn]);
+      const Elem* xr = xw + (c_base + t) * G + cn;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) x[q] = to_f32(xr[q * H]);
     }
+    if (s + 2 < T) stage_h(s + 2);  // into h_s[s & 1], last read by B of step s - 1
 
-    // Phase A, gates: h_prev (shared, broadcast) . W_hh[:, j] (coalesced).
-    float x[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      x[r] = r < rows ? xw[(static_cast<size_t>(b0 + r) * T + t) * G + j] : 0.0f;
-    }
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-    for (int k0 = 0; k0 < H; k0 += kChunk) {
-      float w[kChunk];
-#pragma unroll
-      for (int i = 0; i < kChunk; ++i) {
-        w[i] = k0 + i < H ? w_hh[static_cast<size_t>(k0 + i) * G + j] : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < kChunk; i += 4) {
-        if (k0 + i < H) {  // H % 4 == 0: the whole group of 4 is in range
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            const float4 hv = *reinterpret_cast<const float4*>(h_s + r * H + k0 + i);
-            acc[r] = fmaf(hv.x, w[i], acc[r]);
-            acc[r] = fmaf(hv.y, w[i + 1], acc[r]);
-            acc[r] = fmaf(hv.z, w[i + 2], acc[r]);
-            acc[r] = fmaf(hv.w, w[i + 3], acc[r]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) g_s[r * G + j] = x[r] + acc[r];
+    if (s > 0) dh_partials(s);
+    cluster_arrive();
+    if (s + 1 < T) gate_partials(s + 1);
+    cluster_wait();
 
-    // Phase A, dh partials of the last step: dgates[:, qH:(q+1)H] (shared,
-    // broadcast) . W_hh[n, qH:(q+1)H] (contiguous row, float4).
-    if (s > 0) {
-      const float* __restrict__ w_row = w_hh + static_cast<size_t>(n) * G + q * H;
-      float part[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) part[r] = 0.0f;
-      for (int k0 = 0; k0 < H; k0 += kChunk) {
-        float4 w4[kChunk / 4];
-#pragma unroll
-        for (int i = 0; i < kChunk / 4; ++i) {
-          w4[i] = k0 + 4 * i < H ? *reinterpret_cast<const float4*>(w_row + k0 + 4 * i)
-                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        }
-#pragma unroll
-        for (int i = 0; i < kChunk / 4; ++i) {
-          if (k0 + 4 * i < H) {
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-              const float4 d = *reinterpret_cast<const float4*>(dg_s + r * G + q * H + k0 + 4 * i);
-              part[r] = fmaf(d.x, w4[i].x, part[r]);
-              part[r] = fmaf(d.y, w4[i].y, part[r]);
-              part[r] = fmaf(d.z, w4[i].z, part[r]);
-              part[r] = fmaf(d.w, w4[i].w, part[r]);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) p_s[(q * kRows + r) * H + n] = part[r];
-    }
-    __syncthreads();
-
-    // Phase B: the elementwise step of batch row q, unit n.
-    if (active) {
-      const float* g = g_s + q * G;
-      const float gi = sigmoid_f(g[n]);
-      const float gf = sigmoid_f(g[H + n]);
-      const float gg = tanhf(g[2 * H + n]);
-      const float go = sigmoid_f(g[3 * H + n]);
+    if (c_active) {
       float dh_carry = 0.0f;
       if (s > 0) {
-        dh_carry = p_s[(0 * kRows + q) * H + n] + p_s[(1 * kRows + q) * H + n];
-        dh_carry += p_s[(2 * kRows + q) * H + n];
-        dh_carry += p_s[(3 * kRows + q) * H + n];
+        const float* part = part_s + (s & 1) * kRows * H + cr * H + cn;
+        float v[kMaxCluster];
+#pragma unroll
+        for (int r = 0; r < kMaxCluster; ++r) {
+          v[r] = r < csize ? *cluster.map_shared_rank(part, r) : 0.0f;
+        }
+#pragma unroll
+        for (int r = 0; r < kMaxCluster; ++r) {
+          if (r < csize) dh_carry += v[r];  // rank order
+        }
       }
+      const float* gp = gp_s + (s & 1) * ksplit * kRows * ncol + cr * ncol + cm;
+      float pre[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float a = x[q];
+        for (int kq = 0; kq < ksplit; ++kq) a += gp[kq * kRows * ncol + q * units];
+        pre[q] = a;
+      }
+      const float gi = sigmoid_f(pre[0]);
+      const float gf = sigmoid_f(pre[1]);
+      const float gg = tanhf(pre[2]);
+      const float go = sigmoid_f(pre[3]);
       const float dh = dh_carry + g_in;
       const float tc = tanhf(c_t);
-      const float dc = dc_s[j] + dh * go * (1.0f - tc * tc);
-      const float d_i = dc * gg * gi * (1.0f - gi);
-      const float d_f = dc * c_prev * gf * (1.0f - gf);
-      const float d_g = dc * gi * (1.0f - gg * gg);
-      const float d_o = dh * tc * go * (1.0f - go);
-      float* dg = dg_s + q * G;
-      dg[n] = d_i;
-      dg[H + n] = d_f;
-      dg[2 * H + n] = d_g;
-      dg[3 * H + n] = d_o;
-      float* out = dxw + (row_base + t) * G;
-      out[n] = d_i;
-      out[H + n] = d_f;
-      out[2 * H + n] = d_g;
-      out[3 * H + n] = d_o;
-      dc_s[j] = dc * gf;
-      h_s[j] = h_next;
+      const float dc = dc_carry + dh * go * (1.0f - tc * tc);
+      const float d[4] = {dc * gg * gi * (1.0f - gi), dc * c_prev * gf * (1.0f - gf),
+                          dc * gi * (1.0f - gg * gg), dh * tc * go * (1.0f - go)};
+      Elem* out = dxw + (c_base + t) * G + cn;
+      float* dg = dg_s + cr * ncol + cm;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        out[q * H] = static_cast<Elem>(d[q]);
+        dg[q * units] = d[q];
+      }
+      dc_carry = dc * gf;
     }
+    cp_async_wait<0>();  // h_prev of step s + 2, for B of step s + 1
     __syncthreads();
   }
+  cluster.sync();  // no CTA leaves while a peer may still read its dh partials
 }
 
-// dW_hh of both directions (blockIdx.z): block (x, y) computes the 32x32 tile
-// dW[y*32 .., x*32 ..] over all K = B*T rows, kDepth rows at a time, in order.
-__global__ void __launch_bounds__(kReduceThreads)
-    lstm_dwhh_kernel(const float* __restrict__ h_seq,  // (B, T, 2H)
-                     const float* dxw_fwd, const float* dxw_bwd,  // (B, T, 4H)
-                     float* dw_fwd, float* dw_bwd,                // (H, 4H)
-                     int B, int T, int H) {
-  __shared__ float a_s[kDepth][kTile];  // h_prev rows, units i0 ..
-  __shared__ float b_s[kDepth][kTile];  // dxw rows, gate columns j0 ..
-  const bool reverse = blockIdx.z == 1;
-  const float* __restrict__ dxw = reverse ? dxw_bwd : dxw_fwd;
-  float* __restrict__ dw = reverse ? dw_bwd : dw_fwd;
+// Block (tile, slice, direction): a kTile x kTile tile of dW_hh over the rows
+// [slice * rows_per_slice, ..) of K = B*T, into part[direction, slice].
+template <typename Elem>
+__global__ void __launch_bounds__(kThreads)
+    lstm_dwhh_partial_kernel(const Elem* __restrict__ h_seq,                // (B, T, 2H)
+                             const Elem* dxw_fwd, const Elem* dxw_bwd,      // (B, T, 4H)
+                             float* __restrict__ part,  // (2, slices, H, 4H)
+                             int B, int T, int H, int rows_per_slice) {
+  __shared__ __align__(16) Elem a_s[2][kDepth][kTile];  // h_prev rows, units i0 ..
+  __shared__ __align__(16) Elem b_s[2][kDepth][kTile];  // dxw rows, gate columns j0 ..
   const int G = 4 * H;
   const int ldh = 2 * H;
+  const int tiles_j = (G + kTile - 1) / kTile;
+  const int i0 = (blockIdx.x / tiles_j) * kTile;
+  const int j0 = (blockIdx.x % tiles_j) * kTile;
+  const int slice = blockIdx.y;
+  const bool reverse = blockIdx.z == 1;
+  const Elem* __restrict__ dxw = reverse ? dxw_bwd : dxw_fwd;
   const int off = blockIdx.z * H;
   const int M = B * T;
-  const int j0 = blockIdx.x * kTile;
-  const int i0 = blockIdx.y * kTile;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  float acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  const int m_begin = slice * rows_per_slice;
+  const int m_end = min(M, m_begin + rows_per_slice);
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  constexpr int kVec = 16 / sizeof(Elem);
+  constexpr int kPerRow = kTile / kVec;
 
-  for (int m0 = 0; m0 < M; m0 += kDepth) {
-#pragma unroll
-    for (int l = 0; l < kDepth * kTile / kReduceThreads; ++l) {
-      const int e = threadIdx.x + kReduceThreads * l;
-      const int k = e / kTile;
-      const int col = e - k * kTile;
+  auto load_stage = [&](int st, int m0) {
+    for (int e = tid; e < kDepth * kPerRow; e += kThreads) {
+      const int k = e / kPerRow;
+      const int c = (e - k * kPerRow) * kVec;
       const int m = m0 + k;
-      float av = 0.0f, bv = 0.0f;
-      if (m < M) {
+      bool va = false, vb = false;
+      const Elem* sa = h_seq;
+      const Elem* sb = dxw;
+      if (m < m_end) {
         const int b = m / T;
         const int t = m - b * T;
         const int tp = reverse ? t + 1 : t - 1;  // h_prev is zero where tp is out of range
-        if (i0 + col < H && tp >= 0 && tp < T) {
-          av = h_seq[(static_cast<size_t>(b) * T + tp) * ldh + off + i0 + col];
-        }
-        if (j0 + col < G) bv = dxw[static_cast<size_t>(m) * G + j0 + col];
+        va = i0 + c < H && tp >= 0 && tp < T;
+        if (va) sa = h_seq + (static_cast<size_t>(b) * T + tp) * ldh + off + i0 + c;
+        vb = j0 + c < G;
+        if (vb) sb = dxw + static_cast<size_t>(m) * G + j0 + c;
       }
-      a_s[k][col] = av;
-      b_s[k][col] = bv;
+      cp_async16(&a_s[st][k][c], sa, va);
+      cp_async16(&b_s[st][k][c], sb, vb);
+    }
+    cp_async_commit();
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  }
+  const int chunks = (m_end - m_begin + kDepth - 1) / kDepth;
+  if (chunks > 0) load_stage(0, m_begin);
+  for (int ch = 0; ch < chunks; ++ch) {
+    if (ch + 1 < chunks) {
+      load_stage((ch + 1) & 1, m_begin + (ch + 1) * kDepth);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const int st = ch & 1;
 #pragma unroll 8
     for (int k = 0; k < kDepth; ++k) {
-      const float a0 = a_s[k][ty], a1 = a_s[k][ty + 16];
-      const float v0 = b_s[k][tx], v1 = b_s[k][tx + 16];
-      acc[0][0] = fmaf(a0, v0, acc[0][0]);
-      acc[0][1] = fmaf(a0, v1, acc[0][1]);
-      acc[1][0] = fmaf(a1, v0, acc[1][0]);
-      acc[1][1] = fmaf(a1, v1, acc[1][1]);
+      const float4 a = load4_f32(&a_s[st][k][ty * 4]);
+      const float4 v = load4_f32(&b_s[st][k][tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
     }
     __syncthreads();
   }
+  float* out = part + (static_cast<size_t>(blockIdx.z) * gridDim.y + slice) * H * G;
+  const int col = j0 + tx * 4;
 #pragma unroll
-  for (int a = 0; a < 2; ++a) {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int i = i0 + ty + 16 * a;
-      const int jj = j0 + tx + 16 * c;
-      if (i < H && jj < G) dw[static_cast<size_t>(i) * G + jj] = acc[a][c];
+  for (int i = 0; i < 4; ++i) {
+    const int row = i0 + ty * 4 + i;
+    if (row < H && col < G) {
+      *reinterpret_cast<float4*>(out + static_cast<size_t>(row) * G + col) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     }
   }
+}
+
+// dw_{fwd,bwd} = sum over slices, in slice order, of part[direction, slice];
+// n4 = H * 4H / 4 float4s a direction.
+__global__ void __launch_bounds__(kReduceThreads)
+    lstm_dwhh_reduce_kernel(const float* __restrict__ part, float* dw_fwd, float* dw_bwd,
+                            int slices, int n4) {
+  const int e = blockIdx.x * kReduceThreads + threadIdx.x;
+  if (e >= 2 * n4) return;
+  const int d = e / n4;
+  const int i = e - d * n4;
+  const float4* p = reinterpret_cast<const float4*>(part) + static_cast<size_t>(d) * slices * n4 + i;
+  float4 s = p[0];
+  for (int sl = 1; sl < slices; ++sl) {
+    const float4 v = p[static_cast<size_t>(sl) * n4];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  reinterpret_cast<float4*>(d == 0 ? dw_fwd : dw_bwd)[i] = s;
 }
 
 }  // namespace
 
+// Dynamic shared memory, in bytes, of one lstm_bwd CTA.
+extern "C" int lstm_bwd_smem_bytes(int H, int cluster, int ksplit) {
+  return static_cast<int>(BwdLayout(H, cluster, ksplit, sizeof(float)).bytes);
+}
+
 // Launches the backward sweep of both directions of a layer on `stream`:
 // (xw_fwd, w_hh_fwd) and (xw_bwd, w_hh_bwd) as given to lstm_fwd_launch,
 // h_seq and c_seq its (B, T, 2H) outputs, g_out the (B, T, 2H) gradient of
-// h_seq; writes dxw_fwd and dxw_bwd (B, T, 4H).  Returns cudaGetLastError()
-// as an int (0 = launched).  Pointers are device pointers to contiguous f32
-// arrays; the caller checks shapes, H % 4 == 0, 4 <= H <= 128 and B, T >= 1.
+// h_seq; writes dxw_fwd and dxw_bwd (B, T, 4H).  The grid is (cluster *
+// ceil(B / kRows), 2) CTAs of kThreads in clusters of `cluster` along x;
+// ksplit is the number of k-slices of the gate partials.  Returns the CUDA
+// error as an int (0 = launched).  Pointers are 16-byte aligned device
+// pointers to contiguous f32 arrays; the caller checks shapes, H % 4 == 0,
+// 4 <= H <= 128, cluster in {4, 8} dividing H, ksplit * 4H / cluster <=
+// kThreads, and B, T >= 1.
 extern "C" int lstm_bwd_launch(const float* xw_fwd, const float* w_hh_fwd, const float* xw_bwd,
                                const float* w_hh_bwd, const float* h_seq, const float* c_seq,
                                const float* g_out, float* dxw_fwd, float* dxw_bwd, int B, int T,
-                               int H, void* stream) {
-  const dim3 grid((B + kRows - 1) / kRows, 2);
-  const size_t smem = sizeof(float) * (kRows * H * 2 + kRows * 4 * H * 2 + 4 * kRows * H);
-  lstm_bwd_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-      xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_seq, c_seq, g_out, dxw_fwd, dxw_bwd, B, T, H);
+                               int H, int cluster, int ksplit, void* stream) {
+  if (cluster < 1 || cluster > kMaxCluster || H % cluster != 0 || ksplit < 1 ||
+      ksplit * 4 * (H / cluster) > kThreads || 2 * H > kThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = lstm_bwd_kernel<float>;
+  const size_t smem = BwdLayout(H, cluster, ksplit, sizeof(float)).bytes;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(cluster * ((B + kRows - 1) / kRows), 2, 1);
+  config.blockDim = dim3(kThreads, 1, 1);
+  config.dynamicSmemBytes = smem;
+  config.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_seq, c_seq,
+                           g_out, dxw_fwd, dxw_bwd, B, T, H, cluster, ksplit);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches the dW_hh reduction of both directions on `stream`: dw_fwd and
-// dw_bwd (H, 4H) from h_seq (B, T, 2H) and dxw_fwd, dxw_bwd (B, T, 4H).
-// Returns cudaGetLastError() as an int.
+// Launches the dW_hh reduction of both directions on `stream`: the partial
+// products of `slices` slices of rows_per_slice rows of K = B*T into part
+// (2, slices, H, 4H), then their sums in slice order into dw_fwd and dw_bwd
+// (H, 4H), from h_seq (B, T, 2H) and dxw_fwd, dxw_bwd (B, T, 4H).  Pointers
+// are 16-byte aligned; slices * rows_per_slice >= B*T > (slices - 1) *
+// rows_per_slice.  Returns the CUDA error as an int.
 extern "C" int lstm_dwhh_launch(const float* h_seq, const float* dxw_fwd, const float* dxw_bwd,
-                                float* dw_fwd, float* dw_bwd, int B, int T, int H,
-                                void* stream) {
-  const dim3 grid((4 * H + kTile - 1) / kTile, (H + kTile - 1) / kTile, 2);
-  lstm_dwhh_kernel<<<grid, kReduceThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      h_seq, dxw_fwd, dxw_bwd, dw_fwd, dw_bwd, B, T, H);
+                                float* part, float* dw_fwd, float* dw_bwd, int B, int T, int H,
+                                int slices, int rows_per_slice, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tiles = ((H + kTile - 1) / kTile) * ((4 * H + kTile - 1) / kTile);
+  lstm_dwhh_partial_kernel<float><<<dim3(tiles, slices, 2), kThreads, 0, st>>>(
+      h_seq, dxw_fwd, dxw_bwd, part, B, T, H, rows_per_slice);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n4 = H * H;  // H * 4H / 4
+  lstm_dwhh_reduce_kernel<<<(2 * n4 + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0,
+                            st>>>(part, dw_fwd, dw_bwd, slices, n4);
   return static_cast<int>(cudaGetLastError());
 }

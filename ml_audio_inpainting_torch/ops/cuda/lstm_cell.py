@@ -23,11 +23,14 @@ forward launches ``lstm_fwd`` and whose backward launches ``lstm_bwd`` and
 ``lstm_dwhh``.  No CUDA path produces a BiLSTM output outside it, so a
 CUDA output always carries its gradient.
 
-They are bound by latency, not by bytes or FLOPs: a sweep has T dependent
-steps (417 at the production shapes), each of which needs the last step's
-``h`` (forward) or ``dh`` (backward) from every hidden unit.  So the time
-loop runs inside one launch per layer, the carries stay on chip and
-``W_hh`` is read from L2 (see the notes in the sources).
+The sweeps are bound by latency, not by bytes or FLOPs: a sweep has T
+dependent steps (417 at the production shapes), each of which needs the
+last step's ``h`` (forward) or ``dh`` (backward) from every hidden unit.  So
+the time loop runs inside one launch per layer and the carries stay on
+chip.  ``lstm_fwd`` reads ``W_hh`` from L2; ``lstm_bwd`` holds it in the
+shared memory of a thread-block cluster (see the notes in the sources).
+The launch plans of the backward kernels, :func:`bwd_plan` and
+:func:`dwhh_plan`, are computed here and passed to the launchers.
 
 Build route: one ``nvcc`` call a source compiles it, with its plain C
 launchers and no PyTorch headers, into a shared library under
@@ -64,6 +67,10 @@ __all__ = [
     "lstm_recurrence_reference",
     "lstm_recurrence_backward_reference",
     "dwhh_reference",
+    "BwdPlan",
+    "bwd_plan",
+    "DwhhPlan",
+    "dwhh_plan",
     "bilstm_recurrence",
     "bilstm_recurrence_reference",
     "bilstm_forward",
@@ -82,7 +89,21 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-MAX_HIDDEN = 128  # one thread per gate column: 4H <= 512 threads a block (kMaxThreads)
+MAX_HIDDEN = 128  # lstm_fwd: one thread per gate column, 4H <= 512 threads a block
+
+# Constants of csrc/lstm_bwd.cu that the launch plans depend on.
+BWD_ROWS = 4  # kRows: batch rows a cluster of the sweep
+BWD_THREADS = 256  # kThreads: threads a CTA of the sweep and of the reduction
+DWHH_TILE = 64  # kTile: dW_hh tile edge of the reduction
+DWHH_DEPTH = 32  # kDepth: rows of K a stage of the reduction
+# Blocks the reduction aims at (K is cut into as many slices as that takes):
+# about two on each of an H100's 132 SMs.
+DWHH_TARGET_BLOCKS = 256
+# Most rows of K a slice sums in one sequential f32 chain: at B=128 (K =
+# 53 376) 8 slices of 6688 rows put dW_hh 8.7e-5 of its largest entry from
+# cuBLAS's product, near the 1e-4 bound; chains of at most 1344 rows keep
+# the error where B=25's 8 slices of 1312 rows have it (1.8e-5).
+DWHH_MAX_SLICE_ROWS = 1344
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C launchers of each source: name -> argument types (pointers, then B, T, H, stream).
@@ -92,10 +113,13 @@ _LAUNCHERS = {
         "lstm_fwd_launch": [_P] * 6 + [_I] * 3 + [_P],
     },
     "lstm_bwd": {
-        # xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_seq, c_seq, g_out, dxw_fwd, dxw_bwd
-        "lstm_bwd_launch": [_P] * 9 + [_I] * 3 + [_P],
-        # h_seq, dxw_fwd, dxw_bwd, dw_fwd, dw_bwd
-        "lstm_dwhh_launch": [_P] * 5 + [_I] * 3 + [_P],
+        # xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_seq, c_seq, g_out, dxw_fwd, dxw_bwd;
+        # B, T, H, cluster, ksplit
+        "lstm_bwd_launch": [_P] * 9 + [_I] * 5 + [_P],
+        # h_seq, dxw_fwd, dxw_bwd, part, dw_fwd, dw_bwd; B, T, H, slices, rows_per_slice
+        "lstm_dwhh_launch": [_P] * 6 + [_I] * 5 + [_P],
+        # H, cluster, ksplit -> dynamic shared memory of a sweep CTA, bytes
+        "lstm_bwd_smem_bytes": [_I] * 3,
     },
 }
 
@@ -261,6 +285,95 @@ def dwhh_reference(h: torch.Tensor, dxw: torch.Tensor, reverse: bool = False) ->
     return h_prev.reshape(-1, h.shape[-1]).T @ dxw.reshape(-1, dxw.shape[-1])
 
 
+# ---------------------------------------------------------------- launch plans
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """How ``lstm_bwd`` lays a layer of hidden size ``H`` and batch ``B``
+    over the card: one cluster of ``cluster`` CTAs per ``BWD_ROWS`` batch
+    rows and direction; CTA ``r`` owns ``units`` hidden units and their 4
+    gate columns, and splits its gate recomputation over ``ksplit`` slices
+    of the ``H`` inputs."""
+
+    H: int
+    cluster: int
+    units: int
+    ksplit: int
+    groups: int
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        return (self.cluster * self.groups, 2)
+
+    def units_of(self, rank: int) -> range:
+        return range(rank * self.units, (rank + 1) * self.units)
+
+    def columns_of(self, rank: int) -> list:
+        """Gate columns of CTA ``rank``, in the order of its W_hh slice."""
+        return [q * self.H + n for q in range(4) for n in self.units_of(rank)]
+
+    def k_parts(self) -> list:
+        """The ``ksplit`` slices ``[begin, end)`` of the inputs of a gate."""
+        span = _cdiv(_cdiv(self.H, self.ksplit), 4) * 4
+        return [(min(self.H, q * span), min(self.H, (q + 1) * span)) for q in range(self.ksplit)]
+
+
+def bwd_plan(B: int, H: int) -> BwdPlan:
+    """The plan of :class:`BwdPlan` for ``H % 4 == 0``, ``4 <= H <= 128``: a
+    cluster of 8 CTAs (the portable maximum) where 8 divides ``H``, else 4,
+    and as many k-slices (multiples of 4 inputs, none empty) as
+    ``BWD_THREADS`` threads of (column, slice) pairs can take."""
+    cluster = 8 if H % 8 == 0 else 4
+    units = H // cluster
+    most = max(1, min(BWD_THREADS // (4 * units), H // 4))
+    span = _cdiv(_cdiv(H, most), 4) * 4
+    return BwdPlan(H, cluster, units, _cdiv(H, span), _cdiv(B, BWD_ROWS))
+
+
+@dataclass(frozen=True)
+class DwhhPlan:
+    """How ``lstm_dwhh`` splits ``dW_hh = h_prev^T dxw`` of depth ``K = B*T``:
+    ``tiles_i x tiles_j`` output tiles of ``DWHH_TILE`` squared per
+    direction, times ``slices`` fixed slices of ``rows_per_slice`` rows of
+    K, each block writing one partial; a second pass sums the partials in
+    slice order."""
+
+    H: int
+    K: int
+    tiles_i: int
+    tiles_j: int
+    slices: int
+    rows_per_slice: int
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        return (self.tiles_i * self.tiles_j, self.slices, 2)
+
+    @property
+    def partial_shape(self) -> Tuple[int, int, int, int]:
+        return (2, self.slices, self.H, 4 * self.H)
+
+    def rows_of(self, s: int) -> range:
+        return range(s * self.rows_per_slice, min(self.K, (s + 1) * self.rows_per_slice))
+
+
+def dwhh_plan(B: int, T: int, H: int) -> DwhhPlan:
+    """Slices enough for about ``DWHH_TARGET_BLOCKS`` blocks and for at most
+    ``DWHH_MAX_SLICE_ROWS`` rows a slice, each a whole number of
+    ``DWHH_DEPTH``-row stages, none empty."""
+    K = B * T
+    tiles_i, tiles_j = _cdiv(H, DWHH_TILE), _cdiv(4 * H, DWHH_TILE)
+    want = max(1, min(_cdiv(DWHH_TARGET_BLOCKS, 2 * tiles_i * tiles_j), _cdiv(K, DWHH_DEPTH)),
+               _cdiv(K, DWHH_MAX_SLICE_ROWS))
+    rows = _cdiv(_cdiv(K, want), DWHH_DEPTH) * DWHH_DEPTH
+    return DwhhPlan(H, K, tiles_i, tiles_j, _cdiv(K, rows), rows)
+
+
 # ---------------------------------------------------------------- kernel wrappers
 
 
@@ -303,6 +416,12 @@ def _check_layer_seq(name: str, t: torch.Tensor, like: torch.Tensor, width: int)
 
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it if its data does not start on 16 bytes (the
+    backward kernels read 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def bilstm_forward(
@@ -375,17 +494,19 @@ def bilstm_recurrence_backward(
     H = w_hh_fwd.shape[0]
     for name, t in (("h", h), ("c", c), ("g", g)):
         _check_layer_seq(name, t, xw_fwd, 2 * H)
-    if any(w.data_ptr() % 16 for w in (w_hh_fwd, w_hh_bwd)):
-        raise ValueError("lstm_bwd reads rows of w_hh as float4: it must be 16-byte aligned")
     dxw_f = torch.empty_like(xw_fwd)
     dxw_b = torch.empty_like(xw_bwd)
     if B == 0 or T == 0:
         return dxw_f, dxw_b
+    plan = bwd_plan(B, H)
     launch = load_library("lstm_bwd").cdll.lstm_bwd_launch
+    inputs = [_aligned16(t) for t in tensors]
     with torch.cuda.device(h.device):
-        rc = launch(*(t.data_ptr() for t in (*tensors, dxw_f, dxw_b)), B, T, H, _stream(h.device))
+        rc = launch(*(t.data_ptr() for t in (*inputs, dxw_f, dxw_b)), B, T, H, plan.cluster,
+                    plan.ksplit, _stream(h.device))
     if rc != 0:
-        raise RuntimeError(f"lstm_bwd launch failed with CUDA error {rc} (B={B}, T={T}, H={H})")
+        raise RuntimeError(f"lstm_bwd launch failed with CUDA error {rc} (B={B}, T={T}, H={H}, "
+                           f"{plan})")
     bilstm_recurrence_backward.launches += 1
     return dxw_f, dxw_b
 
@@ -397,7 +518,8 @@ def bilstm_dwhh(
     for its half of ``h (B, T, 2H)``.
 
     CPU tensors take :func:`dwhh_reference`; CUDA tensors launch
-    ``lstm_dwhh`` once for both directions (a fixed summation order, so the
+    ``lstm_dwhh`` once for both directions (its partial products over the
+    slices of :func:`dwhh_plan`, then their sum in slice order, so the
     result does not change from run to run), or raise.
     """
     H = h.shape[-1] // 2
@@ -414,12 +536,16 @@ def bilstm_dwhh(
     dw_b = torch.empty_like(dw_f)
     if B == 0 or T == 0:
         return dw_f.zero_(), dw_b.zero_()
+    plan = dwhh_plan(B, T, H)
+    part = torch.empty(plan.partial_shape, device=h.device, dtype=torch.float32)
     launch = load_library("lstm_bwd").cdll.lstm_dwhh_launch
+    inputs = [_aligned16(t) for t in (h, dxw_fwd, dxw_bwd)]
     with torch.cuda.device(h.device):
-        rc = launch(*(t.data_ptr() for t in (h, dxw_fwd, dxw_bwd, dw_f, dw_b)), B, T, H,
-                    _stream(h.device))
+        rc = launch(*(t.data_ptr() for t in (*inputs, part, dw_f, dw_b)), B, T, H, plan.slices,
+                    plan.rows_per_slice, _stream(h.device))
     if rc != 0:
-        raise RuntimeError(f"lstm_dwhh launch failed with CUDA error {rc} (B={B}, T={T}, H={H})")
+        raise RuntimeError(f"lstm_dwhh launch failed with CUDA error {rc} (B={B}, T={T}, H={H}, "
+                           f"{plan})")
     bilstm_dwhh.launches += 1
     return dw_f, dw_b
 

@@ -49,6 +49,9 @@ def make_cnn_inpaint_fn(cfg: Config, model: torch.nn.Module, phase: str = "oracl
     ``(B,)`` integer sample counts on the same device.  ``restored`` is
     ``(B, S)``; ``composited`` is the ``(B, F, N)`` log10 magnitude with the
     prediction inside the gap frames.  The model's weights stay in ``model``.
+    The model is applied in eval mode (BatchNorm's running statistics, left
+    as they are), as the JAX function applies it with ``train=False``,
+    whatever mode the caller left it in; that mode is restored after.
     """
     spec_cfg = cfg.data.spectrogram
     _check_phase(phase)
@@ -77,7 +80,12 @@ def make_cnn_inpaint_fn(cfg: Config, model: torch.nn.Module, phase: str = "oracl
         gmask = hole.to(audio.dtype)[:, None, :].expand(-1, F, -1)
 
         log_impaired = torch.log10(base.abs() * (1.0 - gmask) + masking.LOG10_EPS)
-        pred = model(log_impaired)
+        was_training = model.training
+        model.eval()
+        try:
+            pred = model(log_impaired)
+        finally:
+            model.train(was_training)
         composited = pred * gmask + log_impaired * (1.0 - gmask)
         out_mag = masking.log10_denorm(composited)
         # Bins of frames that lie wholly in the gap are exactly zero, and an

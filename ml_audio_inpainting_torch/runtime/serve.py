@@ -12,6 +12,7 @@ import torch
 from ml_audio_inpainting_torch.models.build import build_model
 from ml_audio_inpainting_torch.runtime.inference import make_cnn_inpaint_fn
 from ml_audio_inpainting_torch.utils.config import Config
+from ml_audio_inpainting_torch.utils.precision import full_f32_convolutions
 from ml_audio_inpainting_torch.weights import cnn_blstm_state_dict, load_params_npz
 
 __all__ = ["make_cnn_runner"]
@@ -29,8 +30,9 @@ def make_cnn_runner(
     ``(B,)`` sample counts, as numpy arrays or tensors; ``restored`` is a
     ``(B, S)`` tensor on ``device``.  The model is built from ``cfg`` and
     loads ``checkpoint`` strictly, so a config that does not match the
-    weights raises.  ``runner.inpaint_fn`` and ``runner.cfg`` expose the
-    pieces.
+    weights raises.  The convolutions run in full f32 (TF32 off in a
+    scope), as the JAX reference on the CPU does.  ``runner.inpaint_fn`` and
+    ``runner.cfg`` expose the pieces.
     """
     if not str(checkpoint).endswith(".npz"):
         raise ValueError(f"expected an exported .npz checkpoint, got {checkpoint!r}")
@@ -42,7 +44,8 @@ def make_cnn_runner(
         audio = torch.as_tensor(audio, dtype=torch.float32, device=device)
         gs = torch.as_tensor(gap_start, dtype=torch.int64, device=device)
         gl = torch.as_tensor(gap_len, dtype=torch.int64, device=device)
-        restored, _ = fn(audio, gs, gl)
+        with full_f32_convolutions():
+            restored, _ = fn(audio, gs, gl)
         return restored
 
     runner.inpaint_fn = fn

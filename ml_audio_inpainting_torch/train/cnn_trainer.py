@@ -5,7 +5,8 @@ One step: features from waveforms and gap positions, the forward pass in
 train mode (batch statistics in BatchNorm, the BiLSTM through the
 ``lstm_fwd`` kernel with its cell states kept), the gap L1 loss, the backward
 pass (``lstm_bwd`` and ``lstm_dwhh`` on the card), Adam, and the EMA of the
-parameters.  The JAX step is a pure function of its state; this one updates
+parameters.  The forward and backward passes run their convolutions in full
+f32 (TF32 off in a scope), as the JAX reference on the CPU does.  The JAX step is a pure function of its state; this one updates
 the state's model, optimizer and EMA in place and returns the same state.
 
 Adam is ``torch.optim.Adam`` with optax's defaults (b1 0.9, b2 0.999, eps
@@ -31,6 +32,7 @@ from ml_audio_inpainting_torch.models.cnn_blstm import StackedBLSTMCNN
 from ml_audio_inpainting_torch.train.features import cnn_features
 from ml_audio_inpainting_torch.train.losses import cnn_gap_l1_loss
 from ml_audio_inpainting_torch.utils.config import Config
+from ml_audio_inpainting_torch.utils.precision import full_f32_convolutions
 from ml_audio_inpainting_torch.weights import cnn_blstm_state_dict
 
 __all__ = ["CNNTrainState", "create_cnn_state", "make_cnn_train_step", "make_cnn_eval_step"]
@@ -137,9 +139,10 @@ def make_cnn_train_step(
         with torch.no_grad():
             batch = _batch(cfg, audio, gap_start)
         state.optimizer.zero_grad(set_to_none=True)
-        pred = model(batch["log_gap"])
-        loss = cnn_gap_l1_loss(pred, batch["target_mag"], batch["gap_mask"])
-        loss.backward()
+        with full_f32_convolutions():  # forward and backward, as the f32 reference
+            pred = model(batch["log_gap"])
+            loss = cnn_gap_l1_loss(pred, batch["target_mag"], batch["gap_mask"])
+            loss.backward()
         state.optimizer.step()
         if state.scheduler is not None:
             state.scheduler.step()
@@ -167,7 +170,8 @@ def make_cnn_eval_step(
     def step(state: CNNTrainState, audio: torch.Tensor, gap_start: torch.Tensor):
         state.model.eval()
         batch = _batch(cfg, audio, gap_start)
-        pred = state.model(batch["log_gap"])
+        with full_f32_convolutions():
+            pred = state.model(batch["log_gap"])
         return {"loss": cnn_gap_l1_loss(pred, batch["target_mag"], batch["gap_mask"])}
 
     return step

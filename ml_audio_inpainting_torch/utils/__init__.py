@@ -1,1 +1,1 @@
-"""Host utilities of the port (configuration)."""
+"""Host utilities of the port (configuration, numeric precision)."""

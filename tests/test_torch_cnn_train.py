@@ -62,6 +62,7 @@ from ml_audio_inpainting_torch.train.cnn_trainer import (
 )
 from ml_audio_inpainting_torch.train.features import cnn_features
 from ml_audio_inpainting_torch.train.losses import cnn_gap_l1_loss
+from ml_audio_inpainting_torch.train.recipe import gap_starts, live_bilstm, recipe_config
 from ml_audio_inpainting_torch.utils.config import Config, TrainingConfig
 from ml_audio_inpainting_torch.weights import (
     cnn_blstm_flat_variables,
@@ -70,6 +71,7 @@ from ml_audio_inpainting_torch.weights import (
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CKPT = os.path.join(REPO, "results", "checkpoints", "cnn_blstm_formant_v2_r2.npz")
 SR = 16000
 CLIP_S, GAP_S = 0.5, 0.05
 N_SAMPLES = int(SR * CLIP_S)
@@ -395,6 +397,37 @@ def test_training_config_defaults_and_parsing(tmp_path):
     cfg = Config.from_yaml(path)
     assert (cfg.training.batch_size, cfg.training.starter_learning_rate) == (1, 1e-4)
     assert cfg.data.gaps_per_audio == 25
+
+
+def test_recipe_matches_the_yaml_config():
+    """The recipe the card runs (``train/recipe.py``, built in Python) is
+    ``configs/cnn_blstm.yaml``'s data, model and training sections, but for
+    where the LibriSpeech files lie and how many to read: the card trains on
+    seeded clips."""
+    want = Config.from_yaml(os.path.join(REPO, "configs", "cnn_blstm.yaml")).to_dict()
+    got = recipe_config().to_dict()
+    for d in (want, got):
+        for key in ("root_path", "n_files"):
+            d["data"].pop(key)
+    for section in ("data", "model", "training"):
+        assert got[section] == want[section], section
+
+
+def test_recipe_gap_starts_and_live_bilstm():
+    cfg = recipe_config()
+    a = gap_starts(torch.Generator().manual_seed(5), cfg, 2, 25)
+    b = gap_starts(torch.Generator().manual_seed(5), cfg, 2, 25)
+    assert a.shape == (2, 25) and a.dtype == torch.int64 and torch.equal(a, b)
+    assert ((a >= 0) & (a + round(cfg.data.gap_len_s * cfg.data.sample_rate)
+                        <= cfg.data.max_samples)).all()
+    flat = load_params_npz(CKPT)
+    live = live_bilstm(flat, seed=6)
+    assert live.keys() == flat.keys()
+    for key, value in flat.items():
+        redrawn = key.startswith("params/lstm/") and not key.endswith("_b")
+        assert np.array_equal(live[key], value) != redrawn, key
+        if redrawn:
+            assert np.abs(live[key]).max() <= value.shape[0] ** -0.5
 
 
 def test_random_gap_mask_edge_cases():

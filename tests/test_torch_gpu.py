@@ -8,9 +8,12 @@ Tolerances: the forward kernel against its plain version, ``atol=1e-4``
 (f32 dots over H in the kernel's sequential order against cuBLAS', through
 up to 417 steps).  The backward kernel's ``dxw``, ``atol=1e-4`` (the same,
 over the reverse sweep); the dW_hh reduction, within 1e-4 of the largest
-entry of dW_hh (a sum over B*T terms in another order).  The serving path on
-the card against the same path on the CPU, ``atol=1e-4`` on waveforms of
-peak 1 (every sum in another order; TF32 off).  A training step on the card
+entry of dW_hh (a sum over B*T terms in another order).  Two launches of the
+backward kernels on the same inputs agree bit for bit (no atomics, fixed
+summation orders).  The serving path on the card against the same path on
+the CPU, ``atol=1e-4`` on waveforms of peak 1 (every sum in another order;
+TF32 off, and also with torch's global TF32 defaults, which the serving
+entry point overrides for its convolutions).  A training step on the card
 against the CPU: the loss to 1e-4 relative and each gradient within 1e-3 of
 its largest entry (conv biases in front of BatchNorm, whose exact gradient is
 zero, within 1e-3 of the model's largest gradient entry).
@@ -95,17 +98,51 @@ def test_serving_on_card_matches_cpu(cuda_device, phase):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,T,H", [(25, 417, 128), (5, 29, 16)])
-def test_backward_kernels_match_plain_on_card(cuda_device, B, T, H):
-    """lstm_bwd and lstm_dwhh at the training shapes, and at a batch that is
-    not a multiple of 4 rows with H=16, against the plain backward of each
-    direction, on h and c written by lstm_fwd."""
+def test_serving_runs_full_f32_under_global_tf32_defaults(cuda_device):
+    """With torch's own defaults (cuDNN convolutions in TF32, matmuls in
+    f32) the runner still matches the CPU within the f32 tolerance: it runs
+    its convolutions with TF32 off, whatever the global switch says."""
+    rng = np.random.default_rng(14)
+    audio = (rng.standard_normal((2, 16000)) * 0.1).astype(np.float32)
+    starts, lens = np.array([3000, 8000]), np.array([1280, 1280])
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = make_cnn_runner(Config(), CKPT, device=cuda_device)(audio, starts, lens).cpu().numpy()
+        assert torch.backends.cudnn.allow_tf32  # the global switch is left as it was
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    want = make_cnn_runner(Config(), CKPT, device="cpu")(audio, starts, lens).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def _backward_inputs(device, B, T, H):
+    """Seeded xw, W_hh of both directions and the incoming gradient g on the
+    card, and h, c written by lstm_fwd."""
     rng = np.random.default_rng(B + T)
     xw_f, xw_b = (rng.standard_normal((B, T, 4 * H)).astype(np.float32) for _ in range(2))
     w_f, w_b = ((rng.standard_normal((H, 4 * H)) * 0.1).astype(np.float32) for _ in range(2))
     g = rng.standard_normal((B, T, 2 * H)).astype(np.float32)
-    xw_f, w_f, xw_b, w_b, g = _on_card(cuda_device, xw_f, w_f, xw_b, w_b, g)
+    xw_f, w_f, xw_b, w_b, g = _on_card(device, xw_f, w_f, xw_b, w_b, g)
     h, c = lstm_cell.bilstm_forward(xw_f, w_f, xw_b, w_b, with_c=True)
+    return xw_f, w_f, xw_b, w_b, g, h, c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H", [
+    (25, 417, 128),  # the training shapes: 7 clusters of 8 CTAs a direction
+    (5, 29, 16),  # B not a multiple of the 4 rows of a cluster; 2 units a CTA
+    (1, 33, 128),  # B=1: a cluster with one live row
+    (6, 1, 128),  # T=1: no carry, no h_prev
+    (3, 11, 4),  # H=4: clusters of 4 CTAs, 1 unit each, one k-slice
+    (7, 23, 12),  # H=12: 3 units a CTA (odd), 3 k-slices
+    (128, 417, 128),  # the batch of cnn_blstm_formant_v2_b128_r4.npz: 64 clusters
+])
+def test_backward_kernels_match_plain_on_card(cuda_device, B, T, H):
+    """lstm_bwd and lstm_dwhh against the plain backward of each direction,
+    on h and c written by lstm_fwd, at shapes that reach the edges of the
+    cluster layout and of the split-K reduction."""
+    xw_f, w_f, xw_b, w_b, g, h, c = _backward_inputs(cuda_device, B, T, H)
     want_h = lstm_cell.bilstm_recurrence_reference(xw_f, w_f, xw_b, w_b, return_c=True)
     np.testing.assert_allclose(c.cpu().numpy(), want_h[1].cpu().numpy(), rtol=0, atol=1e-4)
     before = (lstm_cell.bilstm_recurrence_backward.launches, lstm_cell.bilstm_dwhh.launches)
@@ -123,6 +160,20 @@ def test_backward_kernels_match_plain_on_card(cuda_device, B, T, H):
         scale = want_dw.abs().max().item()
         np.testing.assert_allclose(dw.cpu().numpy(), want_dw.cpu().numpy(), rtol=0,
                                    atol=1e-4 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H", [(25, 417, 128), (5, 29, 16)])
+def test_backward_kernels_are_deterministic(cuda_device, B, T, H):
+    """Two launches on the same inputs give the same dxw and dW_hh, bit for bit."""
+    xw_f, w_f, xw_b, w_b, g, h, c = _backward_inputs(cuda_device, B, T, H)
+    runs = []
+    for _ in range(2):
+        dxw_f, dxw_b = lstm_cell.bilstm_recurrence_backward(xw_f, w_f, xw_b, w_b, h, c, g)
+        runs.append((dxw_f, dxw_b, *lstm_cell.bilstm_dwhh(h, dxw_f, dxw_b)))
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
 
 
 def _narrow_live_model(device, seed=0, freq_bins=65):

@@ -78,10 +78,10 @@ def test_checker_flags_forbidden_imports(source, bad):
 def test_port_package_has_every_slice_module():
     names = {m.name for m in pkgutil.walk_packages([PORT], "ml_audio_inpainting_torch.")}
     for mod in (
-        "utils.config", "ops.gaps", "ops.stft", "ops.masking", "ops.cuda.lstm_cell",
+        "utils.config", "utils.precision", "ops.gaps", "ops.stft", "ops.masking", "ops.cuda.lstm_cell",
         "ops.lstm", "models.cnn_blstm", "models.build", "weights", "runtime.inference",
         "runtime.serve", "train.features", "train.losses", "train.cnn_trainer",
-        "train.checkpoints",
+        "train.checkpoints", "train.recipe",
     ):
         assert f"ml_audio_inpainting_torch.{mod}" in names
 

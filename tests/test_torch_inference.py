@@ -52,6 +52,7 @@ from ml_audio_inpainting_torch.ops.stft import stft
 from ml_audio_inpainting_torch.runtime.inference import make_cnn_inpaint_fn
 from ml_audio_inpainting_torch.runtime.serve import make_cnn_runner
 from ml_audio_inpainting_torch.runtime import synthetic
+from ml_audio_inpainting_torch.train.cnn_trainer import create_cnn_state
 from ml_audio_inpainting_torch.utils.config import Config
 from ml_audio_inpainting_torch.weights import cnn_blstm_from_numpy, load_params_npz
 
@@ -155,6 +156,28 @@ def test_committed_checkpoint_matches_jax(speech_like, phase):
     model = cnn_blstm_from_numpy(load_params_npz(CKPT), device="cpu")
     want, got = _jax_vs_port(JaxCNN(freq_bins=257), jax_load_npz(CKPT), model, audio, phase)
     _check(want, got, audio, phase)
+
+
+def test_training_model_is_served_in_eval_mode(speech_like):
+    """A model fresh from ``create_cnn_state`` is in train mode.  The inpaint
+    fn still applies it with BatchNorm's running statistics, as the JAX
+    function applies the same variables with ``train=False``, and leaves
+    the running statistics and the model's mode as they were.  (Applied in
+    train mode, the batch's statistics would replace the running ones, which
+    ``_narrow_model`` draws far from any batch's, and move them.)"""
+    audio = _clips(speech_like)
+    jmodel, variables = _narrow_model(np.random.default_rng(22))
+    cfg = Config.from_dict({"model": {"num_lstm_layers": 2, "lstm_hidden_dim": 16,
+                                      "enc_filters": [4, 8], "dec_filters": [4, 8]}})
+    model = create_cnn_state(cfg, device="cpu", params=_flatten(variables)).model
+    assert model.training
+    stats = {k: v.clone() for k, v in model.state_dict().items() if k.endswith(("_mean", "_var"))}
+    assert stats
+    want, got = _jax_vs_port(jmodel, variables, model, audio, "oracle")
+    _check(want, got, audio, "oracle")
+    assert model.training
+    for k, v in stats.items():
+        torch.testing.assert_close(model.state_dict()[k], v, rtol=0, atol=0)
 
 
 def test_frame_mask_floor_rule(speech_like):
