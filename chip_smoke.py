@@ -11,10 +11,17 @@ Phases, each printing one flushed line per step with the seconds since start:
                  ``csrc/lstm_bwd.cu``, started together; prints the times and
                  ptxas' register / shared-memory / spill reports;
 3. kernel     -- the forward LSTM kernel ``lstm_fwd`` (both directions of a
-                 layer in one launch) against its plain PyTorch version at the
-                 serving shapes (B=32, T=417, H=128), TF32 off; CUDA-event
-                 times of both, and of cuDNN's ``nn.LSTM`` on layer 1's shapes
-                 as the library yardstick (the port never calls it);
+                 layer in one launch, on thread-block clusters of 8 CTAs
+                 that hold W_hh on chip) against its plain PyTorch version,
+                 h and c of both directions, at B=32 (serving), B=25
+                 (training) and B=128 (T=417, H=128), TF32 off; two launches
+                 must agree bit for bit; the launch plans (rows a cluster,
+                 cluster, grid, shared memory) and ptxas' registers, spills
+                 and stack; CUDA-event times of each batch as its path runs
+                 it and at every choice of rows a cluster, of the plain
+                 version, and of cuDNN's ``nn.LSTM`` on layer 1's
+                 shapes as the library yardstick (the port never calls it)
+                 beside the port's projection + ``lstm_fwd``;
 4. kernel_bwd -- the backward kernels ``lstm_bwd`` (reverse-time sweep, one
                  thread-block cluster per 4 batch rows and direction) and
                  ``lstm_dwhh`` (split-K dW_hh reduction, two passes) against
@@ -73,6 +80,8 @@ import torch
 from ml_audio_inpainting_torch.ops.cuda import lstm_cell
 from ml_audio_inpainting_torch.ops.cuda.lstm_cell import (
     BWD_THREADS,
+    FWD_ROW_CHOICES,
+    FWD_THREADS,
     bilstm_dwhh,
     bilstm_forward,
     bilstm_recurrence,
@@ -81,9 +90,10 @@ from ml_audio_inpainting_torch.ops.cuda.lstm_cell import (
     bwd_plan,
     dwhh_plan,
     dwhh_reference,
+    fwd_plan,
+    fwd_smem_bytes,
     load_library,
     lstm_recurrence_backward_reference,
-    lstm_recurrence_reference,
 )
 from ml_audio_inpainting_torch.ops.lstm import BiLSTM
 from ml_audio_inpainting_torch.runtime.serve import make_cnn_runner
@@ -177,13 +187,19 @@ def phase_device() -> str:
 
 def ptxas_report(output: str) -> dict:
     """Kernel name -> registers, static shared memory, stack frame and
-    spills, from ptxas' ``-v`` report."""
+    spills, from ptxas' ``-v`` report.  An instance of a kernel template is
+    named with its integer arguments, e.g. ``lstm_fwd_kernel<2,4>`` (Rows,
+    KQ); the element type is left out."""
     report, name = {}, None
     for line in output.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:  # the mangled name holds <length><name>
-            found = re.search(r"(\d+)(lstm_\w+)", m.group(1))
-            name = found.group(2)[: int(found.group(1))] if found else m.group(1)
+        if m:  # the mangled name holds <name>[I<template arguments>E]
+            found = re.search(r"(lstm_[a-z_]*?kernel)(I(?:f|Li\d+E)*E)?(?=[EI])", m.group(1))
+            if found:
+                ints = re.findall(r"Li(\d+)E", found.group(2) or "")
+                name = found.group(1) + (f"<{','.join(ints)}>" if ints else "")
+            else:
+                name = m.group(1)
             report[name] = {"registers": 0, "smem_bytes": 0}
             continue
         if name is None:
@@ -229,21 +245,86 @@ def roofline(bytes_moved: float, flops: float) -> tuple:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernel(card: str, ptxas: dict) -> dict:
+def _forward_inputs(b: int, seed: int) -> tuple:
+    """Seeded (xw_f, w_f, xw_b, w_b) of a layer on the card: xw ~ N(0, 1),
+    W_hh ~ U(-1/sqrt(H), 1/sqrt(H))."""
     dev = torch.device(DEVICE)
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     bound = 1.0 / math.sqrt(H)
-    xw_f, xw_b = (
-        torch.tensor(rng.standard_normal((B, T, 4 * H)).astype(np.float32), device=dev)
-        for _ in range(2)
-    )
-    w_f, w_b = (
-        torch.tensor(rng.uniform(-bound, bound, (H, 4 * H)).astype(np.float32), device=dev)
-        for _ in range(2)
-    )
+    xw_f, xw_b = (torch.tensor(rng.standard_normal((b, T, 4 * H)).astype(np.float32), device=dev)
+                  for _ in range(2))
+    w_f, w_b = (torch.tensor(rng.uniform(-bound, bound, (H, 4 * H)).astype(np.float32), device=dev)
+                for _ in range(2))
+    return xw_f, w_f, xw_b, w_b
 
-    # cuDNN's bidirectional LSTM on layer 1's shapes (input 2H=256), and the
-    # port's projection + kernel for the same work, weights carried across.
+
+def _forward_bound(b: int, with_c: bool) -> tuple:
+    """(ms, by) of lstm_fwd at batch b, both directions: xw and W_hh read
+    once, h (and c) written once; h @ W_hh each step."""
+    bytes_moved = 2 * 4 * (b * T * 4 * H + H * 4 * H + (2 if with_c else 1) * b * T * H)
+    flops = 2 * 2 * b * T * H * 4 * H
+    return roofline(bytes_moved, flops)
+
+
+def phase_kernel(card: str, ptxas: dict) -> dict:
+    """lstm_fwd against its plain version, h and c of both directions, at
+    the serving batch (B=32), the training batch (B=25) and B=128; two
+    launches bitwise equal; its launch plans, ptxas reports and times, each
+    batch as its path runs it (serving h alone, training h and c), and at
+    every choice of rows a cluster; cuDNN's layer-1 forward as the library
+    yardstick."""
+    dev = torch.device(DEVICE)
+    smem_of = load_library("lstm_fwd").cdll.lstm_fwd_smem_bytes
+    runs = {}
+    for b, seed, with_c in ((B, 0, False), (B_TRAIN, 1, True), (B_LARGE, 3, True)):
+        layer = _forward_inputs(b, seed)
+        plan = fwd_plan(b, H)
+        smem = smem_of(H, plan.rows, plan.cluster, plan.ksplit)
+        if smem != fwd_smem_bytes(plan):
+            raise AssertionError(f"lstm_fwd shared memory: source {smem}, plan "
+                                 f"{fwd_smem_bytes(plan)} bytes")
+        launch = {"rows": plan.rows, "cluster": plan.cluster, "grid": list(plan.grid),
+                  "threads": FWD_THREADS, "dynamic_smem_bytes": smem,
+                  "units_per_cta": plan.units, "ksplit": plan.ksplit}
+        instance = ptxas.get(f"lstm_fwd_kernel<{plan.rows},{plan.ksplit}>")
+        log("kernel", f"lstm_fwd launch at B={b}: {launch}; ptxas {instance}")
+        with torch.inference_mode():
+            h, c = bilstm_forward(*layer, with_c=True)
+            again = bilstm_forward(*layer, with_c=True)
+            torch.cuda.synchronize()
+            want_h, want_c = bilstm_recurrence_reference(*layer, return_c=True)
+            err = 0.0
+            for name, sl in (("forward", slice(0, H)), ("backward", slice(H, 2 * H))):
+                e_h = (h[..., sl] - want_h[..., sl]).abs().max().item()
+                e_c = (c[..., sl] - want_c[..., sl]).abs().max().item()
+                log("kernel", f"B={b} {name}: max |kernel - plain| h {e_h:.3e}, c {e_c:.3e} "
+                              f"(atol {KERNEL_ATOL})")
+                if not (e_h <= KERNEL_ATOL and e_c <= KERNEL_ATOL):
+                    raise AssertionError(f"lstm_fwd (B={b} {name}) disagrees with its plain "
+                                         f"version: h {e_h}, c {e_c} > {KERNEL_ATOL}")
+                err = max(err, e_h, e_c)
+            if not (torch.equal(h, again[0]) and torch.equal(c, again[1])):
+                raise AssertionError(f"lstm_fwd is not deterministic at B={b}")
+            del h, c, again, want_h, want_c
+            ms = cuda_ms(lambda: bilstm_forward(*layer, with_c=with_c), reps=20)
+            rows_ms = {r: cuda_ms(lambda: bilstm_forward(*layer, with_c=with_c, rows=r), reps=20)
+                       for r in FWD_ROW_CHOICES}
+            plain_ms = None
+            if b == B:
+                plain_ms = cuda_ms(lambda: bilstm_recurrence_reference(*layer), reps=3, warmup=1)
+        bound_ms, bound_by = _forward_bound(b, with_c)
+        log("kernel", f"B={b}, {'h and c' if with_c else 'h'}: second launch bitwise equal; "
+                      f"kernel {ms:.4f} ms (bound {bound_ms:.5f} by {bound_by}); by rows a "
+                      f"cluster {rows_ms}" + (f"; plain version {plain_ms:.3f} ms" if plain_ms else "")
+                      + f" ({card})")
+        runs[b] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+                   "with_c": with_c, "launch": launch, "ptxas": instance, "rows_ms": rows_ms,
+                   "plain_ms": plain_ms}
+
+    # Library yardstick: cuDNN's bidirectional LSTM on layer 1's shapes
+    # (input 2H=256), and the port's projection + kernel for the same work,
+    # weights carried across.
+    rng = np.random.default_rng(0)
     torch.manual_seed(0)
     x1 = torch.tensor(rng.standard_normal((B, T, 2 * H)).astype(np.float32), device=dev)
     cudnn = torch.nn.LSTM(2 * H, H, batch_first=True, bidirectional=True).to(dev)
@@ -258,29 +339,7 @@ def phase_kernel(card: str, ptxas: dict) -> dict:
                 ("b", getattr(cudnn, f"bias_ih_l0{suffix}") + getattr(cudnn, f"bias_hh_l0{suffix}")),
             )
         })
-
     with torch.inference_mode():
-        # Each half of the kernel's output against the plain version of its
-        # direction, then the times of both.
-        got = bilstm_recurrence(xw_f, w_f, xw_b, w_b)
-        torch.cuda.synchronize()
-        max_err = 0.0
-        for name, half, want in (
-            ("forward", got[..., :H], lstm_recurrence_reference(xw_f, w_f, reverse=False)),
-            ("backward", got[..., H:], lstm_recurrence_reference(xw_b, w_b, reverse=True)),
-        ):
-            err = (half - want).abs().max().item()
-            log("kernel", f"{name}: max |kernel - plain| = {err:.3e} (atol {KERNEL_ATOL})")
-            if not err <= KERNEL_ATOL:
-                raise AssertionError(f"lstm_fwd ({name}) disagrees with its plain version: "
-                                     f"{err} > {KERNEL_ATOL}")
-            max_err = max(max_err, err)
-        ms = cuda_ms(lambda: bilstm_recurrence(xw_f, w_f, xw_b, w_b), reps=50)
-        plain_ms = cuda_ms(lambda: bilstm_recurrence_reference(xw_f, w_f, xw_b, w_b), reps=3, warmup=1)
-        log("kernel", f"both directions, one launch: kernel {ms:.4f} ms, plain version "
-                      f"{plain_ms:.3f} ms ({card})")
-
-        # Library yardstick: cuDNN's bidirectional LSTM on layer 1's shapes.
         err = (port(x1) - cudnn(x1)[0]).abs().max().item()
         log("kernel", f"port BiLSTM layer vs cuDNN nn.LSTM: max abs err {err:.3e} (atol {CUDNN_ATOL})")
         if not err <= CUDNN_ATOL:
@@ -290,29 +349,31 @@ def phase_kernel(card: str, ptxas: dict) -> dict:
     log("kernel", f"layer-1 BiLSTM (B={B}, T={T}, 256->2x{H}): cuDNN nn.LSTM {library_ms:.4f} ms, "
                   f"port projection + kernel {port_layer_ms:.4f} ms ({card})")
 
-    # Both directions: xw and W_hh read once, h written once; h @ W_hh each step.
-    bytes_moved = 2 * 4 * (B * T * 4 * H + H * 4 * H + B * T * H)
-    flops = 2 * 2 * B * T * H * 4 * H
-    bound_ms, bound_by = roofline(bytes_moved, flops)
-    log("kernel", f"bound {bound_ms:.5f} ms by {bound_by} ({bytes_moved / 1e6:.1f} MB, "
-                  f"{flops / 1e9:.3f} GFLOP at H100 SXM peaks)")
+    main = runs[B]
     return {
         "name": "lstm_fwd",
         "route": "cuda",
         "source": "ml_audio_inpainting_torch/csrc/lstm_fwd.cu",
         "replaces": "ml_audio_inpainting_tpu/ops/pallas/lstm_cell.py:40",
         "launches": None,  # filled from the main paths' runs
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "max_abs_err": main["max_abs_err"],
+        "max_abs_err_is": "h and c, both directions, B=32",
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
         "library_ms": library_ms,
         "library_call": "torch.nn.LSTM(256, 128, bidirectional=True), layer-1 shapes: "
                         "projection and both directions",
         "port_same_work_ms": port_layer_ms,
         "shapes": {"B": B, "T": T, "H": H, "directions": 2},
-        "ptxas": ptxas.get("lstm_fwd_kernel"),
+        "launch": main["launch"],
+        "ptxas": main["ptxas"],
+        "deterministic": True,
+        "rows_ms": {f"B={b}": runs[b]["rows_ms"] for b in runs},
+        **{f"b{b}": {k: runs[b][k] for k in ("ms", "bound_ms", "max_abs_err", "with_c", "launch",
+                                             "ptxas")}
+           for b in (B_TRAIN, B_LARGE)},
     }
 
 

@@ -7,8 +7,9 @@ sits at the same relative path as the function it is held against.
 It serves the CNN+BiLSTM family -- DSP core (``ops/``), the model
 (``models/``), the committed npz weights (``weights.py``) and the serving
 path (``runtime/``) -- and trains it in f32 (``train/``).  The BiLSTM
-recurrence runs in hand-written CUDA kernels (``csrc/lstm_fwd.cu`` forward,
-``csrc/lstm_bwd.cu`` backward), built with ``nvcc`` at first CUDA use and
+recurrence runs in hand-written CUDA kernels on thread-block clusters
+(``csrc/lstm_fwd.cu`` forward, ``csrc/lstm_bwd.cu`` backward), built with
+``nvcc`` at first CUDA use and
 bound with ``ctypes`` behind one ``torch.autograd.Function``
 (``ops/cuda/lstm_cell.py``).
 """

@@ -27,10 +27,11 @@ The sweeps are bound by latency, not by bytes or FLOPs: a sweep has T
 dependent steps (417 at the production shapes), each of which needs the
 last step's ``h`` (forward) or ``dh`` (backward) from every hidden unit.  So
 the time loop runs inside one launch per layer and the carries stay on
-chip.  ``lstm_fwd`` reads ``W_hh`` from L2; ``lstm_bwd`` holds it in the
-shared memory of a thread-block cluster (see the notes in the sources).
-The launch plans of the backward kernels, :func:`bwd_plan` and
-:func:`dwhh_plan`, are computed here and passed to the launchers.
+chip.  ``lstm_fwd`` and ``lstm_bwd`` each spread ``W_hh`` over the CTAs of a
+thread-block cluster, which keep it on chip for the whole sweep (see the
+notes in the sources).  The launch plans,
+:func:`fwd_plan`, :func:`bwd_plan` and :func:`dwhh_plan`, are computed here
+and passed to the launchers, which refuse a plan they cannot run.
 
 Build route: one ``nvcc`` call a source compiles it, with its plain C
 launchers and no PyTorch headers, into a shared library under
@@ -67,7 +68,9 @@ __all__ = [
     "lstm_recurrence_reference",
     "lstm_recurrence_backward_reference",
     "dwhh_reference",
-    "BwdPlan",
+    "ClusterPlan",
+    "fwd_plan",
+    "fwd_smem_bytes",
     "bwd_plan",
     "DwhhPlan",
     "dwhh_plan",
@@ -89,7 +92,19 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-MAX_HIDDEN = 128  # lstm_fwd: one thread per gate column, 4H <= 512 threads a block
+# The largest H the kernels take: lstm_bwd's phase A runs a thread per
+# (hidden unit, pair of batch rows), 2H <= 256 threads a CTA, and lstm_fwd
+# holds a k-slice of W_hh in FWD_MAX_HIDDEN / ksplit registers a lane.
+MAX_HIDDEN = 128
+
+# Constants of csrc/lstm_fwd.cu that its launch plan depends on.
+FWD_THREADS = 256  # kThreads: threads a CTA
+FWD_MAX_CLUSTER = 8  # kMaxCluster: CTAs a cluster (the portable maximum)
+FWD_STAGES = 3  # kStages: xw buffers a CTA
+FWD_MAX_HIDDEN = 128  # kMaxHidden: the largest H (a k-slice's W_hh in 128 / ksplit registers)
+FWD_ROW_CHOICES = (2, 4, 8)  # the Rows (batch rows a cluster) the launcher instantiates
+# CTAs that fwd_plan aims the grid at: two on each of an H100's 132 SMs.
+FWD_TARGET_CTAS = 256
 
 # Constants of csrc/lstm_bwd.cu that the launch plans depend on.
 BWD_ROWS = 4  # kRows: batch rows a cluster of the sweep
@@ -109,8 +124,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C launchers of each source: name -> argument types (pointers, then B, T, H, stream).
 _LAUNCHERS = {
     "lstm_fwd": {
-        # xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_out, c_out (or null)
-        "lstm_fwd_launch": [_P] * 6 + [_I] * 3 + [_P],
+        # xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_out, c_out (or null);
+        # B, T, H, rows, cluster, ksplit, groups
+        "lstm_fwd_launch": [_P] * 6 + [_I] * 7 + [_P],
+        # H, rows, cluster, ksplit -> dynamic shared memory of a CTA, bytes
+        "lstm_fwd_smem_bytes": [_I] * 4,
     },
     "lstm_bwd": {
         # xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_seq, c_seq, g_out, dxw_fwd, dxw_bwd;
@@ -293,14 +311,16 @@ def _cdiv(a: int, b: int) -> int:
 
 
 @dataclass(frozen=True)
-class BwdPlan:
-    """How ``lstm_bwd`` lays a layer of hidden size ``H`` and batch ``B``
-    over the card: one cluster of ``cluster`` CTAs per ``BWD_ROWS`` batch
-    rows and direction; CTA ``r`` owns ``units`` hidden units and their 4
-    gate columns, and splits its gate recomputation over ``ksplit`` slices
-    of the ``H`` inputs."""
+class ClusterPlan:
+    """How a sweep kernel (``lstm_fwd``, ``lstm_bwd``) lays a layer of hidden
+    size ``H`` and batch ``B`` over the card: one cluster of ``cluster`` CTAs
+    per ``rows`` batch rows and direction; CTA ``r`` owns ``units`` hidden
+    units and their 4 gate columns, and splits its gate product over
+    ``ksplit`` slices of the ``H`` inputs."""
 
+    B: int
     H: int
+    rows: int
     cluster: int
     units: int
     ksplit: int
@@ -322,17 +342,55 @@ class BwdPlan:
         span = _cdiv(_cdiv(self.H, self.ksplit), 4) * 4
         return [(min(self.H, q * span), min(self.H, (q + 1) * span)) for q in range(self.ksplit)]
 
+    def batch_rows_of(self, group: int) -> range:
+        """The batch rows cluster ``group`` runs (of each direction)."""
+        return range(group * self.rows, min(self.B, (group + 1) * self.rows))
 
-def bwd_plan(B: int, H: int) -> BwdPlan:
-    """The plan of :class:`BwdPlan` for ``H % 4 == 0``, ``4 <= H <= 128``: a
+
+def fwd_plan(B: int, H: int, rows: Optional[int] = None) -> ClusterPlan:
+    """The plan of ``lstm_fwd`` for ``H % 4 == 0``, ``4 <= H <= 128``: a
+    cluster of 8 CTAs where 8 divides ``H``, else 4; a gate's product split
+    over 4 k-slices, a lane each (2 where 16 lanes a unit would exceed
+    ``FWD_THREADS``); clusters of ``rows`` batch rows, one of
+    ``FWD_ROW_CHOICES``.  By default the fewest rows that keep the grid
+    within ``FWD_TARGET_CTAS`` CTAs, else the most: a step is bound by
+    latency, and two clusters on the same SMs hide part of each other's.
+    The rows do not change the result, only the time."""
+    cluster = FWD_MAX_CLUSTER if H % FWD_MAX_CLUSTER == 0 else 4
+    units = H // cluster
+    ksplit = 4 if 16 * units <= FWD_THREADS else 2
+    if rows is None:
+        rows = next((r for r in FWD_ROW_CHOICES
+                     if 2 * cluster * _cdiv(B, r) <= FWD_TARGET_CTAS), FWD_ROW_CHOICES[-1])
+    if rows not in FWD_ROW_CHOICES:
+        raise ValueError(f"lstm_fwd runs {FWD_ROW_CHOICES} batch rows a cluster, not {rows}")
+    return ClusterPlan(B, H, rows, cluster, units, ksplit, _cdiv(B, rows))
+
+
+def fwd_smem_bytes(plan: ClusterPlan) -> int:
+    """Dynamic shared memory of an ``lstm_fwd`` CTA under ``plan`` (f32), as
+    ``FwdLayout`` in ``csrc/lstm_fwd.cu`` lays it out: the W_hh slice (row
+    stride padded to an odd multiple of 4), two h buffers (each row's
+    k-slices in segments of ``FWD_MAX_HIDDEN / ksplit + 4`` floats) and
+    ``FWD_STAGES`` xw buffers."""
+    ldw = 4 * ((plan.units + 1) | 1)
+    ncol = 4 * plan.units
+    hrow = plan.ksplit * (FWD_MAX_HIDDEN // plan.ksplit + 4)
+    floats = plan.H * ldw + 2 * plan.rows * hrow
+    return 4 * floats + _cdiv(4 * FWD_STAGES * plan.rows * ncol, 16) * 16
+
+
+def bwd_plan(B: int, H: int) -> ClusterPlan:
+    """The plan of ``lstm_bwd`` for ``H % 4 == 0``, ``4 <= H <= 128``: a
     cluster of 8 CTAs (the portable maximum) where 8 divides ``H``, else 4,
-    and as many k-slices (multiples of 4 inputs, none empty) as
-    ``BWD_THREADS`` threads of (column, slice) pairs can take."""
+    of ``BWD_ROWS`` batch rows; as many k-slices (multiples of 4 inputs,
+    none empty) as ``BWD_THREADS`` threads of (column, slice) pairs can
+    take."""
     cluster = 8 if H % 8 == 0 else 4
     units = H // cluster
     most = max(1, min(BWD_THREADS // (4 * units), H // 4))
     span = _cdiv(_cdiv(H, most), 4) * 4
-    return BwdPlan(H, cluster, units, _cdiv(H, span), _cdiv(B, BWD_ROWS))
+    return ClusterPlan(B, H, BWD_ROWS, cluster, units, _cdiv(H, span), _cdiv(B, BWD_ROWS))
 
 
 @dataclass(frozen=True)
@@ -420,7 +478,7 @@ def _stream(device: torch.device) -> int:
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it if its data does not start on 16 bytes (the
-    backward kernels read 16 bytes at a time)."""
+    kernels read 16 bytes at a time)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -430,6 +488,7 @@ def bilstm_forward(
     xw_bwd: torch.Tensor,
     w_hh_bwd: torch.Tensor,
     with_c: bool = False,
+    rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``(h, c)`` of both directions of a BiLSTM layer, each ``(B, T, 2H)``
     as :func:`bilstm_recurrence` lays out ``h``; ``c`` is None unless
@@ -437,8 +496,10 @@ def bilstm_forward(
     point, and this is its forward.
 
     CPU tensors take :func:`bilstm_recurrence_reference`; CUDA tensors launch
-    ``lstm_fwd`` once for both directions (counted in
-    ``bilstm_recurrence.launches``), or raise.
+    ``lstm_fwd`` once for both directions on the clusters of
+    :func:`fwd_plan` (``rows`` batch rows a cluster, by default the plan's
+    choice; the result does not depend on it), counted in
+    ``bilstm_recurrence.launches``, or raise.
     """
     tensors = (xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd)
     if all(t.device.type == "cpu" for t in tensors):
@@ -452,12 +513,16 @@ def bilstm_forward(
     c = torch.empty_like(h) if with_c else None
     if B == 0 or T == 0:
         return h, c
+    plan = fwd_plan(B, H, rows)
     launch = load_library("lstm_fwd").cdll.lstm_fwd_launch
+    xw_f, xw_b = _aligned16(xw_fwd), _aligned16(xw_bwd)
     with torch.cuda.device(h.device):
-        rc = launch(*(t.data_ptr() for t in (*tensors, h)), None if c is None else c.data_ptr(),
-                    B, T, H, _stream(h.device))
+        rc = launch(*(t.data_ptr() for t in (xw_f, w_hh_fwd, xw_b, w_hh_bwd, h)),
+                    None if c is None else c.data_ptr(), B, T, H, plan.rows, plan.cluster,
+                    plan.ksplit, plan.groups, _stream(h.device))
     if rc != 0:
-        raise RuntimeError(f"lstm_fwd launch failed with CUDA error {rc} (B={B}, T={T}, H={H})")
+        raise RuntimeError(f"lstm_fwd launch failed with CUDA error {rc} (B={B}, T={T}, H={H}, "
+                           f"{plan})")
     bilstm_recurrence.launches += 1
     return h, c
 

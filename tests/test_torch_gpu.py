@@ -4,9 +4,9 @@ it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances: the forward kernel against its plain version, ``atol=1e-4``
-(f32 dots over H in the kernel's sequential order against cuBLAS', through
-up to 417 steps).  The backward kernel's ``dxw``, ``atol=1e-4`` (the same,
+Tolerances: the forward kernel's h and c against its plain version,
+``atol=1e-4`` (f32 dots over H in the kernel's k-slice order against
+cuBLAS', through up to 417 steps); two launches of it agree bit for bit.  The backward kernel's ``dxw``, ``atol=1e-4`` (the same,
 over the reverse sweep); the dW_hh reduction, within 1e-4 of the largest
 entry of dW_hh (a sum over B*T terms in another order).  Two launches of the
 backward kernels on the same inputs agree bit for bit (no atomics, fixed
@@ -19,6 +19,7 @@ its largest entry (conv biases in front of BatchNorm, whose exact gradient is
 zero, within 1e-3 of the model's largest gradient entry).
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -50,25 +51,103 @@ def _on_card(device, *arrays):
     return [torch.tensor(a, device=device) for a in arrays]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("B,T,H", [(32, 417, 128), (5, 29, 16)])
-def test_kernel_matches_plain_on_card(cuda_device, B, T, H):
-    """The serving shapes, and a batch that is not a multiple of the
-    kernel's 4 rows a block with H=16 (64 threads): each half of the output
-    against the plain version of its direction."""
+def _forward_inputs(device, B, T, H):
+    """Seeded xw and W_hh of both directions on the card."""
     rng = np.random.default_rng(B)
     xw_f, xw_b = (rng.standard_normal((B, T, 4 * H)).astype(np.float32) for _ in range(2))
     w_f, w_b = ((rng.standard_normal((H, 4 * H)) * 0.1).astype(np.float32) for _ in range(2))
-    xw_f, w_f, xw_b, w_b = _on_card(cuda_device, xw_f, w_f, xw_b, w_b)
+    return _on_card(device, xw_f, w_f, xw_b, w_b)
+
+
+def _check_forward(got_h, got_c, xw_f, w_f, xw_b, w_b):
+    want_h, want_c = lstm_cell.bilstm_recurrence_reference(xw_f, w_f, xw_b, w_b, return_c=True)
+    np.testing.assert_allclose(got_h.cpu().numpy(), want_h.cpu().numpy(), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got_c.cpu().numpy(), want_c.cpu().numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H", [
+    (32, 417, 128),  # serving: 8 clusters of 8 CTAs a direction
+    (25, 417, 128),  # training: 7 clusters, the last with one live row
+    (128, 417, 128),  # the batch of cnn_blstm_formant_v2_b128_r4.npz
+    (5, 29, 16),  # B not a multiple of the rows of a cluster; 2 units a CTA
+    (1, 33, 128),  # B=1: a cluster with one live row
+    (6, 1, 128),  # T=1: no carry
+    (3, 11, 4),  # H=4: clusters of 4 CTAs, 1 unit each, 4-byte xw copies
+    (7, 23, 12),  # H=12: 3 units a CTA (odd), the last k-slice empty
+    (3, 19, 124),  # H=124: 31 units a CTA, 2 k-slices of 64
+])
+def test_kernel_matches_plain_on_card(cuda_device, B, T, H):
+    """h and c of both directions (each half of the (B, T, 2H) outputs)
+    against the plain version of its direction, at shapes that reach the
+    edges of the cluster plan; and the entry point's h is the same launch's."""
+    xw_f, w_f, xw_b, w_b = _forward_inputs(cuda_device, B, T, H)
     before = lstm_cell.bilstm_recurrence.launches
+    h, c = lstm_cell.bilstm_forward(xw_f, w_f, xw_b, w_b, with_c=True)
     got = lstm_cell.bilstm_recurrence(xw_f, w_f, xw_b, w_b)
     torch.cuda.synchronize()
-    assert lstm_cell.bilstm_recurrence.launches == before + 1
-    assert got.shape == (B, T, 2 * H)
-    for half, (xw, w, reverse) in zip((got[..., :H], got[..., H:]),
-                                      ((xw_f, w_f, False), (xw_b, w_b, True))):
-        want = lstm_cell.lstm_recurrence_reference(xw, w, reverse)
-        np.testing.assert_allclose(half.cpu().numpy(), want.cpu().numpy(), rtol=0, atol=1e-4)
+    assert lstm_cell.bilstm_recurrence.launches == before + 2
+    assert h.shape == c.shape == got.shape == (B, T, 2 * H)
+    assert torch.equal(got, h)
+    _check_forward(h, c, xw_f, w_f, xw_b, w_b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", lstm_cell.FWD_ROW_CHOICES)
+@pytest.mark.parametrize("B,T,H", [(25, 417, 128), (7, 23, 12), (3, 19, 124)])
+def test_forward_kernel_row_choices_match_plain(cuda_device, rows, B, T, H):
+    """Every number of batch rows a cluster the launcher instantiates gives
+    the plain version's h and c, and the default plan's bit for bit."""
+    xw_f, w_f, xw_b, w_b = _forward_inputs(cuda_device, B, T, H)
+    h, c = lstm_cell.bilstm_forward(xw_f, w_f, xw_b, w_b, with_c=True, rows=rows)
+    default = lstm_cell.bilstm_forward(xw_f, w_f, xw_b, w_b, with_c=True)
+    torch.cuda.synchronize()
+    _check_forward(h, c, xw_f, w_f, xw_b, w_b)
+    assert torch.equal(h, default[0]) and torch.equal(c, default[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H", [(32, 417, 128), (7, 23, 12)])
+def test_forward_kernel_is_deterministic(cuda_device, B, T, H):
+    """Two launches on the same inputs give the same h and c, bit for bit."""
+    xw_f, w_f, xw_b, w_b = _forward_inputs(cuda_device, B, T, H)
+    first = lstm_cell.bilstm_forward(xw_f, w_f, xw_b, w_b, with_c=True)
+    second = lstm_cell.bilstm_forward(xw_f, w_f, xw_b, w_b, with_c=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("change", [
+    {"rows": 3, "groups": 11},  # no such instantiation (11 x 3 rows cover B=32)
+    {"cluster": 3},  # does not divide H
+    {"cluster": 16},  # above the portable cluster size
+    {"ksplit": 3},  # the kernel splits a gate over 4 or 2 lanes
+    {"ksplit": 8},  # 8 lanes x 64 columns > 256 threads
+    {"groups": 1},  # too few clusters for B=32
+    {"groups": 17},  # more clusters than B=32 needs at 2 rows a cluster
+])
+def test_forward_launcher_refuses_a_plan_it_cannot_run(cuda_device, monkeypatch, change):
+    """The launcher checks the plan it is given and launches nothing on one
+    it cannot run; the wrapper raises with the plan in the message."""
+    xw_f, w_f, xw_b, w_b = _forward_inputs(cuda_device, 32, 5, 128)
+    good = lstm_cell.fwd_plan(32, 128)
+    bad = dataclasses.replace(good, **change)
+    monkeypatch.setattr(lstm_cell, "fwd_plan", lambda b, hh, rows: bad)
+    before = lstm_cell.bilstm_recurrence.launches
+    with pytest.raises(RuntimeError, match=r"lstm_fwd launch failed with CUDA error 1 .*ClusterPlan"):
+        lstm_cell.bilstm_forward(xw_f, w_f, xw_b, w_b)
+    assert lstm_cell.bilstm_recurrence.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [4, 12, 16, 100, 124, 128])
+def test_forward_plan_shared_memory_matches_the_source(cuda_device, H):
+    """The Python mirror of FwdLayout gives the bytes the launcher asks for."""
+    smem = lstm_cell.load_library("lstm_fwd").cdll.lstm_fwd_smem_bytes
+    for rows in lstm_cell.FWD_ROW_CHOICES:
+        plan = lstm_cell.fwd_plan(32, H, rows)
+        assert smem(H, rows, plan.cluster, plan.ksplit) == lstm_cell.fwd_smem_bytes(plan)
 
 
 @pytest.mark.gpu
