@@ -41,7 +41,26 @@ Phases, each printing one flushed line per step with the seconds since start:
                  must launch 3 times a request (one a layer, both directions in
                  one launch) and the backward kernels never; clip 0 is held
                  against the port on the CPU;
-6. training   -- the recipe of ``configs/cnn_blstm.yaml`` (1 clip x 25 gap
+6. gan_serving -- the JAX package's main path, ``bench.py``'s canonical line:
+                 the GAN runner (``make_gan_runner``, PConv U-Net at its
+                 default widths) with the committed
+                 ``results/checkpoints/gan_formant_v2_r2.npz``, STFT
+                 512/128/512, ``mode="enhanced"``, ``phase="oracle"``, through
+                 the gap-only PCM16 transport (2048-sample window), on B=32
+                 clips of 5 s from the port's ``SyntheticSpeechDataset`` with
+                 an 80 ms gap at 2.0 s; in f32 (TF32 off) and in bf16: the
+                 first request's seconds, 3 warm requests, 5 repeats of a
+                 10-deep pipelined loop (request i+1 launched before request
+                 i's payload is read on the host) as s-audio/s, peak memory,
+                 host syncs inside a request, the bound from the shapes;
+                 ``mode="parity"``: one timed request.  Checks: clip 0 in
+                 both modes on the card against the port on the CPU (f32) and
+                 in bf16 against the card's f32; the generator's output
+                 finite; the composited clip equal to the input outside the
+                 gap bit for bit; the host composite of the payload equal to
+                 a full-clip PCM16 fetch, int16 for int16; no hand-written
+                 kernel launched (the path has none);
+7. training   -- the recipe of ``configs/cnn_blstm.yaml`` (1 clip x 25 gap
                  variants of 0.2 s, Adam at lr 1e-4, full width) takes 5 steps
                  on seeded clips and gap starts, twice: from the committed
                  checkpoint, and from it with its BiLSTM weights redrawn
@@ -71,6 +90,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -95,14 +115,19 @@ from ml_audio_inpainting_torch.ops.cuda.lstm_cell import (
     load_library,
     lstm_recurrence_backward_reference,
 )
+from ml_audio_inpainting_torch.ops.gaps import gap_mask
 from ml_audio_inpainting_torch.ops.lstm import BiLSTM
-from ml_audio_inpainting_torch.runtime.serve import make_cnn_runner
+from ml_audio_inpainting_torch.ops.pcm import to_pcm16
+from ml_audio_inpainting_torch.runtime.serve import make_cnn_runner, make_gan_runner
+from ml_audio_inpainting_torch.runtime.transport import DEFAULT_PATCH_WINDOW, composite_gap_patch
 from ml_audio_inpainting_torch.runtime.synthetic import (
     BATCH,
     GAP_LEN,
     GAP_START,
     SAMPLE_RATE,
+    gan_config,
     speech_like_batch,
+    synthetic_dataset_batch,
 )
 from ml_audio_inpainting_torch.train.checkpoints import export_params_npz
 from ml_audio_inpainting_torch.train.cnn_trainer import create_cnn_state, make_cnn_train_step
@@ -113,12 +138,14 @@ from ml_audio_inpainting_torch.weights import load_params_npz
 DEVICE = "cuda"
 REPO = Path(__file__).resolve().parent
 CHECKPOINT = REPO / "results" / "checkpoints" / "cnn_blstm_formant_v2_r2.npz"
+GAN_CHECKPOINT = REPO / "results" / "checkpoints" / "gan_formant_v2_r2.npz"
 T0 = time.perf_counter()
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, at the full 700 W):
 # HBM bandwidth, and f32 FMA outside the tensor cores (the kernel's math).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12  # dense, on the tensor cores
 
 B, T, H = BATCH, 417, 128  # serving shapes of one sweep
 B_TRAIN = 25  # the training recipe's 1 clip x 25 gap variants
@@ -152,6 +179,16 @@ F32_EPS = float(np.finfo(np.float32).eps)
 NOISE_GRAD = {"enc_conv0.bias", "enc_conv1.bias", "enc_conv2.bias", "dec_conv0.bias",
               "dec_conv1.bias"}
 TRAIN_STEPS = 5
+# GAN serving.  Clip 0 on the card in f32 (TF32 off) against the port on the
+# CPU: every sum in another order (the CPU tests hold the port to JAX within
+# 2e-5 on the waveform).  bf16 against the card's f32: the generator in bf16
+# moves its Tanh output by ~2e-2 and the waveform by ~4e-4 (the port on the
+# CPU, one 5 s clip of this batch, both modes); 5e-3 leaves room for cuDNN's
+# own bf16 algorithms.
+GAN_CPU_ATOL = 1e-4
+GAN_BF16_ATOL = 5e-3
+GAN_WARM = 3
+GAN_DEPTH, GAN_REPEATS = 10, 5
 
 
 def log(phase: str, msg: str) -> None:
@@ -680,6 +717,205 @@ def phase_serving(card: str) -> dict:
     return launches
 
 
+def generator_work(generator, b: int, freq: int, frames: int, elem_bytes: int) -> dict:
+    """Multiply-adds of the PConv U-Net on a (b, freq, frames) input, from its
+    layers' shapes (each partial conv's convolution and its 1-channel mask
+    convolution), and the bytes of its largest activations (final_pconv1's
+    input and output, each written once and read once)."""
+    f = generator.total_downsampling
+    h, w = -(-freq // f) * f, -(-frames // f) * f
+    macs, sizes = 0, [(h, w)]
+    for i in range(generator.n_enc):
+        conv = getattr(generator, f"enc{i}").pconv.conv
+        sizes.append((-(-sizes[-1][0] // conv.stride[0]), -(-sizes[-1][1] // conv.stride[1])))
+    layers = [(getattr(generator, f"enc{i}").pconv.conv, sizes[i + 1])
+              for i in range(generator.n_enc)]
+    layers += [(getattr(generator, f"dec{i}").pconv.conv, sizes[generator.n_enc - 1 - i])
+               for i in range(generator.n_dec)]
+    layers += [(generator.final_pconv1.conv, (h, w)), (generator.final_pconv2.conv, (h, w))]
+    for conv, (ho, wo) in layers:
+        k = conv.kernel_size[0] * conv.kernel_size[1]
+        macs += b * ho * wo * k * (conv.in_channels * conv.out_channels + 1)
+    c1 = generator.final_pconv1.conv
+    act_bytes = 2 * b * h * w * (c1.in_channels + c1.out_channels) * elem_bytes
+    return {"padded": (h, w), "macs": macs, "flop": 2 * macs, "largest_activation_bytes": act_bytes}
+
+
+def phase_gan_serving(card: str) -> dict:
+    """The GAN main path, ``bench.py``'s canonical line, in f32 and bf16."""
+    cfg = gan_config()
+    n_samples = cfg.data.max_samples
+    audio = synthetic_dataset_batch(B, cfg.data.max_len_s)
+    gap_start, gap_len = np.full(B, GAP_START), np.full(B, GAP_LEN)
+    audio_d = torch.tensor(audio, device=DEVICE)
+    gs_d = torch.tensor(gap_start, device=DEVICE)
+    gl_d = torch.tensor(gap_len, device=DEVICE)
+    seconds_of_audio = B * n_samples / SAMPLE_RATE
+    spec = cfg.data.spectrogram
+    freq, frames = spec.freq_bins, spec.frames(n_samples)
+    log("gan_serving", f"{GAN_CHECKPOINT.name}; batch {audio.shape} from SyntheticSpeechDataset, "
+                       f"gap [{GAP_START}, {GAP_START + GAP_LEN}); STFT {spec.n_fft}/"
+                       f"{spec.hop_length}/{spec.win_length} -> {freq} x {frames}; patch window "
+                       f"{DEFAULT_PATCH_WINDOW}")
+    counts_before = _counts()
+    summary = {"batch": B, "clip_s": cfg.data.max_len_s, "card": card}
+    restored = {}
+    for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        runner = make_gan_runner(cfg, GAN_CHECKPOINT, device=DEVICE, mode="enhanced",
+                                 phase="oracle", compute_dtype=dtype,
+                                 transport_window=DEFAULT_PATCH_WINDOW)
+        work = generator_work(runner.generator, B, freq, frames, 2 if dtype else 4)
+        peak_rate = BF16_FLOP_PER_S if dtype else F32_FLOP_PER_S
+        io_bytes = audio.nbytes + B * DEFAULT_PATCH_WINDOW * 2 + B * 4
+        bound_ms, bound_by = 1e3 * max(work["flop"] / peak_rate, io_bytes / HBM_BYTES_PER_S), (
+            "operations" if work["flop"] / peak_rate >= io_bytes / HBM_BYTES_PER_S else "bytes")
+        act_ms = 1e3 * work["largest_activation_bytes"] / HBM_BYTES_PER_S
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        patch, start = runner(audio_d, gs_d, gl_d)
+        patch_h, start_h = patch.cpu().numpy(), start.cpu().numpy()
+        first_s = time.perf_counter() - t0
+        warm_ms = []
+        for _ in range(GAN_WARM):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            patch, start = runner(audio_d, gs_d, gl_d)
+            patch.cpu(), start.cpu()
+            torch.cuda.synchronize()
+            warm_ms.append(1e3 * (time.perf_counter() - t0))
+        if not (np.array_equal(patch.cpu().numpy(), patch_h)
+                and np.array_equal(start.cpu().numpy(), start_h)):
+            raise AssertionError(f"gan_serving {label}: two requests gave different payloads")
+
+        # Host syncs inside one request (a pipelined loop needs none).
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            runner(audio_d, gs_d, gl_d)
+        torch.cuda.set_sync_debug_mode("default")
+        syncs = [str(w.message).splitlines()[0] for w in caught]
+
+        rates = [seconds_of_audio / _pipelined(runner, audio_d, gs_d, gl_d, GAN_DEPTH)
+                 for _ in range(GAN_REPEATS)]
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        q1, med, q3 = np.percentile(rates, [25, 50, 75])
+        log("gan_serving", f"{label}: first request {first_s:.3f} s; warm requests "
+                           f"{', '.join(f'{t:.2f}' for t in warm_ms)} ms "
+                           f"({seconds_of_audio / (min(warm_ms) / 1e3):.1f} s-audio/s at the best); "
+                           f"pipelined {GAN_DEPTH}-deep, {GAN_REPEATS} repeats: median {med:.1f} "
+                           f"s-audio/s (IQR {q1:.1f}-{q3:.1f}, all {[round(r, 1) for r in rates]}); "
+                           f"peak device memory {peak:.1f} MiB ({card})")
+        log("gan_serving", f"{label}: bound {bound_ms:.3f} ms by {bound_by}: {work['flop'] / 1e12:.3f} "
+                           f"TFLOP at {peak_rate / 1e12:.0f} TFLOP/s on {work['padded']} (padded) "
+                           f"x {B}; the request's I/O {io_bytes / 1e6:.2f} MB; final_pconv1's input "
+                           f"and output, each written and read once, "
+                           f"{work['largest_activation_bytes'] / 1e9:.2f} GB = {act_ms:.3f} ms at "
+                           f"HBM rate; host syncs in a request: {len(syncs)} {syncs[:3]}")
+        summary[label] = {"first_request_s": first_s, "warm_request_ms": warm_ms,
+                          "pipelined_s_audio_per_s": rates, "pipelined_median": med,
+                          "peak_mib": peak, "bound_ms": bound_ms, "bound_by": bound_by,
+                          "tflop": work["flop"] / 1e12, "activation_ms": act_ms,
+                          "host_syncs": len(syncs)}
+        restored[label] = _gan_checks(label, runner, audio, audio_d, gs_d, gl_d)
+        del runner
+
+    # mode="parity": one timed request, f32.
+    parity = make_gan_runner(cfg, GAN_CHECKPOINT, device=DEVICE, mode="parity")
+    parity(audio_d, gs_d, gl_d)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parity(audio_d, gs_d, gl_d)
+    torch.cuda.synchronize()
+    parity_ms = 1e3 * (time.perf_counter() - t0)
+    log("gan_serving", f"parity f32: a warm request {parity_ms:.2f} ms ({card})")
+    summary["parity_warm_request_ms"] = parity_ms
+    restored["parity f32"] = parity.inpaint_fn(audio_d[:1], gs_d[:1], gl_d[:1])[0]
+    parity_bf16 = make_gan_runner(cfg, GAN_CHECKPOINT, device=DEVICE, mode="parity",
+                                  compute_dtype=torch.bfloat16)
+    restored["parity bf16"] = parity_bf16.inpaint_fn(audio_d[:1], gs_d[:1], gl_d[:1])[0]
+
+    # Clip 0: the card in f32 against the port on the CPU, bf16 against the
+    # card's f32, in both modes.
+    for mode in ("enhanced", "parity"):
+        cpu = make_gan_runner(cfg, GAN_CHECKPOINT, device="cpu", mode=mode)
+        want = cpu(audio[:1], gap_start[:1], gap_len[:1])
+        f32 = restored["f32" if mode == "enhanced" else "parity f32"][:1].cpu()
+        bf16 = restored["bf16" if mode == "enhanced" else "parity bf16"][:1].cpu()
+        err, err_bf16 = (f32 - want).abs().max().item(), (bf16 - f32).abs().max().item()
+        log("gan_serving", f"clip 0 ({mode}): card f32 vs CPU max abs err {err:.3e} (atol "
+                           f"{GAN_CPU_ATOL}); card bf16 vs card f32 {err_bf16:.3e} (atol "
+                           f"{GAN_BF16_ATOL})")
+        if not err <= GAN_CPU_ATOL:
+            raise AssertionError(f"GAN clip 0 ({mode}): card and CPU disagree: {err}")
+        if not err_bf16 <= GAN_BF16_ATOL:
+            raise AssertionError(f"GAN clip 0 ({mode}): bf16 and f32 disagree: {err_bf16}")
+        summary[f"clip0_{mode}"] = {"f32_vs_cpu": err, "bf16_vs_f32": err_bf16}
+    if _counts() != counts_before:
+        raise AssertionError(f"GAN serving launched a hand-written kernel: {counts_before} -> "
+                             f"{_counts()}")
+    log("gan_serving", json.dumps(summary))
+    return summary
+
+
+def _pipelined(runner, audio_d, gs_d, gl_d, depth: int) -> float:
+    """Seconds a request of a ``depth``-deep loop in which request i+1 is
+    launched before request i's payload is read on the host: each payload
+    is copied into pinned host memory behind its request, and read after
+    the next request is launched."""
+    torch.cuda.synchronize()
+    bufs, pending = [None, None], None
+    t0 = time.perf_counter()
+    for i in range(depth + 1):
+        if i < depth:
+            patch, start = runner(audio_d, gs_d, gl_d)
+            if bufs[i % 2] is None:
+                bufs[i % 2] = (torch.empty(patch.shape, dtype=patch.dtype, pin_memory=True),
+                               torch.empty(start.shape, dtype=start.dtype, pin_memory=True))
+            host_patch, host_start = bufs[i % 2]
+            host_patch.copy_(patch, non_blocking=True)
+            host_start.copy_(start, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        if pending is not None:
+            pending[0].synchronize()
+            pending[1].numpy().copy(), pending[2].numpy().copy()
+        pending = (done, host_patch, host_start) if i < depth else None
+    return (time.perf_counter() - t0) / depth
+
+
+def _gan_checks(label: str, runner, audio: np.ndarray, audio_d, gs_d, gl_d) -> torch.Tensor:
+    """The generator's output finite; the composited clip equal to the input
+    outside the gap; the host composite of the payload equal to a full-clip
+    PCM16 fetch.  Returns the restored batch."""
+    with torch.inference_mode():
+        restored, generated = runner.inpaint_fn(audio_d, gs_d, gl_d)
+        patch, start = runner(audio_d, gs_d, gl_d)
+        tmask = gap_mask(audio_d.shape[-1], gs_d, gl_d)
+        composited = audio_d * tmask + restored * (1.0 - tmask)
+        full = to_pcm16(composited).cpu().numpy()
+    bad = (~torch.isfinite(generated)).sum().item()
+    if bad or not torch.isfinite(restored).all():
+        raise AssertionError(f"gan_serving {label}: {bad} non-finite generator outputs")
+    outside = tmask.bool()
+    if not torch.equal(composited[outside], audio_d[outside]):
+        raise AssertionError(f"gan_serving {label}: output differs from the input outside the gap")
+    client = to_pcm16(torch.tensor(audio)).numpy()
+    host = composite_gap_patch(client, patch.cpu().numpy(), start.cpu().numpy())
+    if not np.array_equal(host, full):
+        raise AssertionError(f"gan_serving {label}: host composite differs from the full fetch in "
+                             f"{np.count_nonzero(host != full)} samples")
+    if not np.array_equal(host[outside.cpu().numpy()], client[outside.cpu().numpy()]):
+        raise AssertionError(f"gan_serving {label}: delivered PCM differs from the input's outside "
+                             "the gap")
+    log("gan_serving", f"{label}: generator output {tuple(generated.shape)} finite (range "
+                       f"{generated.min().item():.4f}..{generated.max().item():.4f}); composited "
+                       f"clip equal to the input outside the gap; host composite of the payload "
+                       f"equal to a full-clip PCM16 fetch, {host.size} int16 samples")
+    return restored
+
+
 def _check_step_against_cpu(cfg: Config, flat: dict, audio: np.ndarray, starts: torch.Tensor,
                             label: str) -> dict:
     """Step 0 of a reduced batch on the card in f32 and on the CPU in f64
@@ -817,6 +1053,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     kernels = [phase_kernel(card, ptxas), *phase_kernel_bwd(card, ptxas)]
     serving = phase_serving(card)
+    phase_gan_serving(card)
     training = phase_training(card)
     for k in kernels:
         k["launches"] = serving[k["name"]] + training[k["name"]]

@@ -4,9 +4,12 @@ Beside ``ml_audio_inpainting_tpu`` (the JAX reference, which this package
 never imports): module names mirror the JAX package's, so each port module
 sits at the same relative path as the function it is held against.
 
-It serves the CNN+BiLSTM family -- DSP core (``ops/``), the model
-(``models/``), the committed npz weights (``weights.py``) and the serving
-path (``runtime/``) -- and trains it in f32 (``train/``).  The BiLSTM
+It serves the GAN family, the JAX package's main path (the PConv U-Net in
+``models/pconv_unet.py``, ``runtime/inference.py::make_gan_inpaint_fn`` and
+the gap-only PCM16 transport of ``runtime/transport.py``), and the
+CNN+BiLSTM family -- DSP core (``ops/``), the models (``models/``), the
+committed npz weights (``weights.py``) and the serving paths
+(``runtime/``) -- and trains the CNN+BiLSTM in f32 (``train/``).  The BiLSTM
 recurrence runs in hand-written CUDA kernels on thread-block clusters
 (``csrc/lstm_fwd.cu`` forward, ``csrc/lstm_bwd.cu`` backward), built with
 ``nvcc`` at first CUDA use and

@@ -1,1 +1,1 @@
-"""Model families of the port (CNN+BiLSTM in this slice)."""
+"""Model families of the port: CNN+BiLSTM and the PConv U-Net generator."""

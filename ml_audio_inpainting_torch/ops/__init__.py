@@ -1,1 +1,1 @@
-"""Tensor ops of the port: gap masks, STFT/iSTFT, normalisation, BiLSTM."""
+"""Tensor ops of the port: gap masks, STFT/iSTFT, normalisation, PCM16, BiLSTM."""

@@ -1,7 +1,7 @@
 """Batched STFT / iSTFT (port of ``ml_audio_inpainting_tpu/ops/stft.py``).
 
-Explicit framing, ``torch.fft.rfft``/``irfft`` and a scatter overlap-add,
-with the JAX package's numerics:
+Explicit framing, ``torch.fft.rfft``/``irfft`` and an overlap-add by
+``F.fold`` (deterministic on the card), with the JAX package's numerics:
 
 * the periodic Hann window, of ``win_length`` samples zero-padded centrally to
   ``n_fft``;
@@ -15,9 +15,9 @@ Waveforms ``(..., T)`` go in, complex spectrograms ``(..., F, N)`` come out.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -28,12 +28,13 @@ def get_window(
     window: str, win_length: int, dtype: torch.dtype = torch.float32, device=None
 ) -> torch.Tensor:
     """The periodic (DFT-even) Hann window, as scipy/librosa give it.  The
-    serving path's STFT uses no other window, as in the JAX package."""
+    serving path's STFT uses no other window, as in the JAX package.  It is
+    computed in f64 where it is used: a copy from host memory would make the
+    host wait for the card's queue on every call."""
     if window != "hann":
         raise ValueError(f"Unsupported window type: {window!r} (the port has only 'hann')")
-    n = np.arange(win_length, dtype=np.float64)
-    w = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)
-    return torch.as_tensor(w, dtype=dtype, device=device)
+    n = torch.arange(win_length, dtype=torch.float64, device=device)
+    return (0.5 - 0.5 * torch.cos(2.0 * math.pi * n / win_length)).to(dtype)
 
 
 def pad_center(window: torch.Tensor, size: int) -> torch.Tensor:
@@ -72,6 +73,17 @@ def stft(
     return spec.transpose(-1, -2)
 
 
+def _overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
+    """Sum of ``(B, N, L)`` frames placed ``hop_length`` apart: ``(B, 1, 1,
+    L + hop_length * (N - 1))``.  ``F.fold`` gathers each output sample's
+    terms in frame order, so the sum is the same on every call (a scatter
+    with ``index_add_`` adds them with atomics on the card, in any order)."""
+    n, length = frames.shape[-2:]
+    total = length + hop_length * (n - 1)
+    return F.fold(frames.transpose(1, 2), output_size=(1, total), kernel_size=(1, length),
+                  stride=(1, hop_length))
+
+
 def istft(
     spec: torch.Tensor,
     n_fft: Optional[int] = None,
@@ -97,16 +109,9 @@ def istft(
 
     n = frames.shape[-2]
     total = n_fft + hop_length * (n - 1)
-    idx = (
-        torch.arange(n, device=frames.device)[:, None] * hop_length
-        + torch.arange(n_fft, device=frames.device)[None, :]
-    ).reshape(-1)
     batch = frames.shape[:-2]
-    out = frames.new_zeros(batch + (total,))
-    out.index_add_(-1, idx, frames.reshape(batch + (-1,)))
-
-    wss = frames.new_zeros((total,))
-    wss.index_add_(0, idx, (win * win).repeat(n))
+    out = _overlap_add(frames.reshape(-1, n, n_fft), hop_length).reshape(batch + (total,))
+    wss = _overlap_add((win * win).expand(1, n, n_fft), hop_length).reshape(total)
     tiny = torch.finfo(real_dtype).tiny
     nonzero = wss > tiny
     out = torch.where(nonzero, out / torch.where(nonzero, wss, torch.ones_like(wss)), out)

@@ -1,10 +1,11 @@
-"""Configuration tree of the port: the CNN+BiLSTM serving and training subset.
+"""Configuration tree of the port: the CNN+BiLSTM serving and training subset
+and the GAN generator.
 
 A copy of the dataclasses of ``ml_audio_inpainting_tpu/utils/config.py``
-that the CNN+BiLSTM serving and training paths read, with the same field
-names, defaults and YAML key layout, so a config file loads the same in both
-packages.  Sections and keys the paths do not read (GAN model and its
-optimizers, paths, logging, mesh) are ignored by :meth:`Config.from_dict`.
+that the port's paths read, with the same field names, defaults and YAML
+key layout, so a config file loads the same in both packages.  Sections and
+keys the paths do not read (the discriminator, the GAN optimizers and loss
+weights, paths, logging, mesh) are ignored by :meth:`Config.from_dict`.
 
 ``yaml`` is imported only inside :meth:`Config.from_yaml`: code that builds
 its config in Python needs no YAML package.
@@ -15,11 +16,12 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 __all__ = [
     "SpectrogramConfig",
     "DataConfig",
+    "GeneratorConfig",
     "CNNBLSTMConfig",
     "ModelConfig",
     "TrainingConfig",
@@ -90,6 +92,38 @@ class DataConfig:
 
 
 @dataclass
+class GeneratorConfig:
+    """PConv U-Net generator: ``(out_channels, kernel, stride)`` a stage."""
+
+    input_channels: int = 1
+    mask_channels: int = 1
+    output_channels: int = 1
+    enc_layer_cfg: List[Tuple[int, int, int]] = field(
+        default_factory=lambda: [
+            (64, 7, 2),
+            (128, 5, 2),
+            (256, 5, 2),
+            (512, 3, 2),
+            (512, 3, 2),
+            (512, 3, 2),
+            (512, 3, 2),
+        ]
+    )
+    dec_layer_cfg: List[Tuple[int, int, int]] = field(
+        default_factory=lambda: [
+            (512, 3, 1),
+            (512, 3, 1),
+            (512, 3, 1),
+            (256, 3, 1),
+            (128, 3, 1),
+            (64, 3, 1),
+        ]
+    )
+    final_interim_ch: int = 64
+    final_kernel: int = 3
+
+
+@dataclass
 class CNNBLSTMConfig:
     """CNN encoder -> BiLSTM bottleneck -> CNN decoder."""
 
@@ -102,11 +136,14 @@ class CNNBLSTMConfig:
 
 @dataclass
 class ModelConfig:
+    generator: GeneratorConfig = field(default_factory=GeneratorConfig)
     cnn_blstm: CNNBLSTMConfig = field(default_factory=CNNBLSTMConfig)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "ModelConfig":
         cfg = cls()
+        if "generator" in d:
+            cfg.generator = GeneratorConfig(**_filtered(GeneratorConfig, d["generator"]))
         # The CNN+BiLSTM keys sit at the top level of `model:`.
         cnn_keys = _filtered(CNNBLSTMConfig, d)
         if cnn_keys:

@@ -14,6 +14,8 @@ memory.  This module turns such a flat dict into the port's modules:
 
 :func:`cnn_blstm_flat_variables` goes the other way, so weights trained by
 the port load in the JAX package (``train/checkpoints.py`` writes them).
+:func:`pconv_unet_state_dict` and :func:`pconv_unet_flat_variables` do the
+same for the GAN generator.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ __all__ = [
     "cnn_blstm_state_dict",
     "cnn_blstm_flat_variables",
     "cnn_blstm_from_numpy",
+    "pconv_unet_state_dict",
+    "pconv_unet_flat_variables",
 ]
 
 _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
@@ -135,3 +139,50 @@ def cnn_blstm_from_numpy(flat: Mapping[str, np.ndarray], device="cuda") -> Stack
     )
     model.load_state_dict(cnn_blstm_state_dict(flat))
     return model.to(device).eval()
+
+
+def pconv_unet_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """``state_dict`` of :class:`~ml_audio_inpainting_torch.models.pconv_unet.PConvUNet`
+    from flat flax variables: ``params/{enc,dec}{i}/pconv/conv/kernel``
+    (HWIO -> OIHW), ``params/{enc,dec}{i}/norm/{scale,bias}`` and
+    ``batch_stats/{enc,dec}{i}/norm/{mean,var}`` (BatchNorm), and
+    ``params/final_pconv{1,2}/{conv/kernel,bias}``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, value in flat.items():
+        arr = _widen(value)
+        collection, module, *path = key.split("/")
+        if collection == "params" and path in (["pconv", "conv", "kernel"], ["conv", "kernel"]):
+            out, arr = ".".join([module, *path[:-1], "weight"]), arr.transpose(3, 2, 0, 1)
+        elif collection == "params" and module.startswith("final_pconv") and path == ["bias"]:
+            out = f"{module}.bias"
+        elif (len(path) == 2 and path[0] == "norm" and path[1] in _BN_LEAVES
+              and collection == ("batch_stats" if path[1] in ("mean", "var") else "params")):
+            out = f"{module}.norm.{_BN_LEAVES[path[1]]}"
+            sd[f"{module}.norm.num_batches_tracked"] = torch.tensor(0)
+        else:
+            raise ValueError(f"unexpected PConv U-Net weight key {key!r}")
+        sd[out] = torch.tensor(arr)
+    return sd
+
+
+def pconv_unet_flat_variables(tensors: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`pconv_unet_state_dict`: flat flax variables (f32
+    numpy) from a ``PConvUNet`` ``state_dict``; ``num_batches_tracked`` has
+    no flax counterpart and is dropped."""
+    flat: Dict[str, np.ndarray] = {}
+    for name, value in tensors.items():
+        module, *path = name.split(".")
+        if path[-1] == "num_batches_tracked":
+            continue
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if path[-1] == "weight" and path[-2] == "conv":
+            key, arr = "/".join(["params", module, *path[:-1], "kernel"]), arr.transpose(2, 3, 1, 0)
+        elif path == ["bias"]:
+            key = f"params/{module}/bias"
+        elif len(path) == 2 and path[0] == "norm" and path[1] in _BN_KEYS:
+            collection = "batch_stats" if path[1].startswith("running_") else "params"
+            key = f"{collection}/{module}/norm/{_BN_KEYS[path[1]]}"
+        else:
+            raise ValueError(f"unexpected PConv U-Net tensor {name!r}")
+        flat[key] = np.ascontiguousarray(arr)
+    return flat

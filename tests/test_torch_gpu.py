@@ -16,9 +16,16 @@ TF32 off, and also with torch's global TF32 defaults, which the serving
 entry point overrides for its convolutions).  A training step on the card
 against the CPU: the loss to 1e-4 relative and each gradient within 1e-3 of
 its largest entry (conv biases in front of BatchNorm, whose exact gradient is
-zero, within 1e-3 of the model's largest gradient entry).
+zero, within 1e-3 of the model's largest gradient entry).  GAN serving on the
+card against the CPU in f32: the generator's Tanh output within ``2e-4`` and
+the waveform within ``1e-4`` (cuDNN's own convolution algorithms sum up to
+9216 products in another order, and at positions whose window is all hole a
+ratio of up to ~1e10 multiplies their round-off before the next layer's
+mask zeroes it); in bf16 against bf16 on the CPU, ``6e-2`` and ``1e-3``;
+two requests of the GAN runner agree bit for bit, in f32 and in bf16.
 """
 
+import copy
 import dataclasses
 import os
 
@@ -26,15 +33,19 @@ import numpy as np
 import pytest
 import torch
 
+from ml_audio_inpainting_torch.models.build import build_generator
 from ml_audio_inpainting_torch.models.cnn_blstm import StackedBLSTMCNN
 from ml_audio_inpainting_torch.ops.cuda import lstm_cell
-from ml_audio_inpainting_torch.runtime.serve import make_cnn_runner
+from ml_audio_inpainting_torch.runtime.inference import make_gan_inpaint_fn
+from ml_audio_inpainting_torch.runtime.serve import make_cnn_runner, make_gan_runner
+from ml_audio_inpainting_torch.runtime.synthetic import gan_config, synthetic_dataset_batch
 from ml_audio_inpainting_torch.train.cnn_trainer import create_cnn_state, make_cnn_train_step
 from ml_audio_inpainting_torch.utils.config import Config
 from ml_audio_inpainting_torch.weights import cnn_blstm_flat_variables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(REPO, "results", "checkpoints", "cnn_blstm_formant_v2_r2.npz")
+GAN_CKPT = os.path.join(REPO, "results", "checkpoints", "gan_formant_v2_r2.npz")
 
 
 @pytest.fixture
@@ -309,3 +320,112 @@ def test_training_step_on_card_matches_cpu(cuda_device):
         noise = name.startswith(("enc_conv", "dec_conv0", "dec_conv1")) and name.endswith(".bias")
         scale = g_max if noise else want.abs().max().item()
         assert (g_d[name] - want).abs().max().item() <= 1e-3 * scale, name
+
+
+def _gan_setup(width):
+    """The GAN config at 1.5 s clips and its generator on the CPU: the tiny
+    one of ``tests/test_inference.py`` with seeded random weights and
+    BatchNorm statistics, or the default widths with ``gan_formant_v2_r2.npz``."""
+    cfg = gan_config()
+    cfg.data.max_len_s = 1.5
+    if width == "default":
+        return cfg, make_gan_runner(cfg, GAN_CKPT, device="cpu").generator
+    cfg.model.generator.enc_layer_cfg = [(8, 7, 2), (16, 5, 2), (16, 3, 2)]
+    cfg.model.generator.dec_layer_cfg = [(16, 3, 1), (8, 3, 1)]
+    cfg.model.generator.final_interim_ch = 8
+    gen = build_generator(cfg, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, t in gen.state_dict().items():
+            if name.endswith("running_var"):
+                t.copy_(torch.rand(t.shape, generator=g) * 1.5 + 0.5)
+            elif t.is_floating_point():
+                t.copy_(torch.randn(t.shape, generator=g) * 0.15)
+    return cfg, gen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", ["tiny", "default"])
+@pytest.mark.parametrize("mode,phase", [("enhanced", "oracle"), ("parity", "oracle"),
+                                        ("enhanced", "impaired")])
+def test_gan_serving_on_card_matches_cpu(cuda_device, width, mode, phase):
+    cfg, gen = _gan_setup(width)
+    audio = torch.tensor(synthetic_dataset_batch(2, 1.5))
+    starts, lens = torch.tensor([8000, 20000]), torch.tensor([1280, 1300])
+    want_r, want_g = make_gan_inpaint_fn(cfg, gen, mode=mode, phase=phase)(audio, starts, lens)
+    card = copy.deepcopy(gen).to(cuda_device)
+    got_r, got_g = make_gan_inpaint_fn(cfg, card, mode=mode, phase=phase)(
+        audio.to(cuda_device), starts.to(cuda_device), lens.to(cuda_device))
+    assert torch.isfinite(got_g).all()
+    np.testing.assert_allclose(got_g.cpu().numpy(), want_g.numpy(), rtol=0, atol=2e-4)
+    np.testing.assert_allclose(got_r.cpu().numpy(), want_r.numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", ["tiny", "default"])
+def test_gan_bf16_on_card_matches_cpu_bf16(cuda_device, width):
+    """bf16 on the card against bf16 on the CPU: two libraries' bf16
+    roundings (the CPU tests hold the port's bf16 to JAX's within 6e-2 on
+    the generator's output and 1e-3 on the waveform)."""
+    cfg, gen = _gan_setup(width)
+    audio = torch.tensor(synthetic_dataset_batch(2, 1.5))
+    starts, lens = torch.tensor([8000, 20000]), torch.tensor([1280, 1300])
+    want_r, want_g = make_gan_inpaint_fn(cfg, gen, mode="enhanced",
+                                         compute_dtype=torch.bfloat16)(audio, starts, lens)
+    card = copy.deepcopy(gen).to(cuda_device)
+    got_r, got_g = make_gan_inpaint_fn(cfg, card, mode="enhanced", compute_dtype=torch.bfloat16)(
+        audio.to(cuda_device), starts.to(cuda_device), lens.to(cuda_device))
+    assert torch.isfinite(got_g).all()
+    np.testing.assert_allclose(got_g.cpu().numpy(), want_g.numpy(), rtol=0, atol=6e-2)
+    np.testing.assert_allclose(got_r.cpu().numpy(), want_r.numpy(), rtol=0, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_gan_serving_runs_full_f32_under_global_tf32_defaults(cuda_device):
+    """Under torch's own defaults (cuDNN convolutions in TF32) the f32 GAN
+    runner gives what it gives with TF32 off, bit for bit, and matches the
+    CPU: its convolutions run in full f32 whatever the global switch says."""
+    cfg = gan_config()
+    cfg.data.max_len_s = 1.5
+    audio = synthetic_dataset_batch(2, 1.5)
+    starts, lens = np.array([8000, 20000]), np.array([1280, 1300])
+    runner = make_gan_runner(cfg, GAN_CKPT, device=cuda_device)
+    off = runner(audio, starts, lens).cpu()
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        on = runner(audio, starts, lens).cpu()
+        assert torch.backends.cudnn.allow_tf32  # the global switch is left as it was
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    torch.testing.assert_close(on, off, rtol=0, atol=0)
+    want = make_gan_runner(cfg, GAN_CKPT, device="cpu")(audio, starts, lens)
+    np.testing.assert_allclose(on.numpy(), want.numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_gan_runner_defaults_to_cuda(cuda_device):
+    cfg = gan_config()
+    cfg.data.max_len_s = 0.5
+    runner = make_gan_runner(cfg, GAN_CKPT, transport_window=2048)
+    assert next(runner.generator.parameters()).device.type == "cuda"
+    patch, start = runner(synthetic_dataset_batch(1, 0.5), [2000], [1280])
+    assert patch.device.type == start.device.type == "cuda"
+    assert patch.dtype == torch.int16 and start.tolist() == [2000]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_gan_requests_are_bitwise_equal(cuda_device, dtype):
+    """Two requests of the same batch give the same waveform and payload,
+    bit for bit, in f32 and in bf16."""
+    cfg = gan_config()
+    audio = torch.tensor(synthetic_dataset_batch(4), device=cuda_device)
+    starts = torch.full((4,), 32000, device=cuda_device)
+    lens = torch.full((4,), 1280, device=cuda_device)
+    runner = make_gan_runner(cfg, GAN_CKPT, device=cuda_device, compute_dtype=dtype,
+                             transport_window=2048)
+    first, again = runner.inpaint_fn(audio, starts, lens), runner.inpaint_fn(audio, starts, lens)
+    torch.testing.assert_close(first[1], again[1], rtol=0, atol=0)  # the generator's output
+    torch.testing.assert_close(first[0], again[0], rtol=0, atol=0)  # the waveform
+    (p1, s1), (p2, s2) = runner(audio, starts, lens), runner(audio, starts, lens)
+    assert torch.equal(p1, p2) and torch.equal(s1, s2)

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``ml_audio_inpainting_torch``, not
-``chip_smoke.py`` and not the port's profile script imports ``jax``, ``flax`` or ``ml_audio_inpainting_tpu`` (not
+``chip_smoke.py`` and not the port's scripts (``scripts/torch_*.py``)
+imports ``jax``, ``flax`` or ``ml_audio_inpainting_tpu`` (not
 even a module there that does not import JAX), and none imports ``yaml`` at
 module level (the card's machine has neither JAX nor PyYAML).
 
@@ -24,8 +25,9 @@ MODULE_LEVEL_FORBIDDEN = FORBIDDEN + ("yaml",)
 
 
 def _files():
-    out = [os.path.join(REPO, "chip_smoke.py"),
-           os.path.join(REPO, "scripts", "torch_cnn_serving_profile.py")]
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    out += [os.path.join(REPO, "scripts", n) for n in os.listdir(os.path.join(REPO, "scripts"))
+            if n.startswith("torch_") and n.endswith(".py")]
     for root, _, names in os.walk(PORT):
         out += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(out)
@@ -81,7 +83,8 @@ def test_port_package_has_every_slice_module():
         "utils.config", "utils.precision", "ops.gaps", "ops.stft", "ops.masking", "ops.cuda.lstm_cell",
         "ops.lstm", "models.cnn_blstm", "models.build", "weights", "runtime.inference",
         "runtime.serve", "train.features", "train.losses", "train.cnn_trainer",
-        "train.checkpoints", "train.recipe",
+        "train.checkpoints", "train.recipe", "data.dataset", "ops.pcm", "models.pconv_unet",
+        "runtime.transport",
     ):
         assert f"ml_audio_inpainting_torch.{mod}" in names
 
