@@ -34,6 +34,15 @@ Phases, each printing one flushed line per step with the seconds since start:
                  beside the port's projection + ``lstm_fwd`` + ``lstm_bwd`` +
                  ``lstm_dwhh``; then the same kernels checked and timed once at
                  B=128, the batch of ``cnn_blstm_formant_v2_b128_r4.npz``;
+4b. kernel_bf16 -- the bf16 forms of the three kernels against their plain
+                 versions in bf16 on the card (f32 carries and sums, bf16
+                 stores; dW_hh summed from the f32 dgates), at the production
+                 recipe's batch (B=128) and at B=25, T=417, H=128: every bf16
+                 output within one bf16 ulp of the plain version's plus the
+                 f32 bound; two launches bit for bit; CUDA-event times, the
+                 plain versions', and cuDNN's ``nn.LSTM(256, 128,
+                 bidirectional=True)`` in bf16, forward and backward, on layer
+                 1's shapes as the yardstick (the port never calls it);
 5. serving    -- the CNN+BiLSTM runner with the committed
                  ``results/checkpoints/cnn_blstm_formant_v2_r2.npz`` answers 3
                  requests of 32 seeded speech-like 5 s clips with an 80 ms gap
@@ -73,7 +82,20 @@ Phases, each printing one flushed line per step with the seconds since start:
                  are held against the port's step in float64 on the CPU from
                  both starts; the
                  trained weights are exported to the JAX package's npz format
-                 and serve one request.
+                 and serve one request;
+8. training_bf16 -- the JAX package's production recipe
+                 (``configs/cnn_blstm_b128.yaml`` with 3 gaps a clip,
+                 ``train/recipe.py::b128_recipe_config``: 128 clips x 1
+                 variant x 3 gaps of up to 0.2 s, Adam at lr 3e-4, full
+                 width) in bf16 (``compute_dtype=torch.bfloat16``: f32
+                 masters, bf16 network), 5 steps from the committed
+                 ``cnn_blstm_formant_v2_b128_r4.npz`` and 5 from it with its
+                 BiLSTM redrawn (its BiLSTM is saturated, as v2_r2's): warm
+                 step ms (median of steps 1-4), s-audio/s (128 x 5 s a step),
+                 peak memory; each step must launch each of the three
+                 kernels 3 times, all in bf16, and no f32 form; step 0's loss
+                 and every gradient are held against an f32 step on the card
+                 from the same weights and batch.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and the script
@@ -131,7 +153,13 @@ from ml_audio_inpainting_torch.runtime.synthetic import (
 )
 from ml_audio_inpainting_torch.train.checkpoints import export_params_npz
 from ml_audio_inpainting_torch.train.cnn_trainer import create_cnn_state, make_cnn_train_step
-from ml_audio_inpainting_torch.train.recipe import gap_starts, live_bilstm, recipe_config
+from ml_audio_inpainting_torch.train.recipe import (
+    b128_recipe_config,
+    gap_starts,
+    live_bilstm,
+    multi_gap_layouts,
+    recipe_config,
+)
 from ml_audio_inpainting_torch.utils.config import Config
 from ml_audio_inpainting_torch.weights import load_params_npz
 
@@ -139,6 +167,7 @@ DEVICE = "cuda"
 REPO = Path(__file__).resolve().parent
 CHECKPOINT = REPO / "results" / "checkpoints" / "cnn_blstm_formant_v2_r2.npz"
 GAN_CHECKPOINT = REPO / "results" / "checkpoints" / "gan_formant_v2_r2.npz"
+B128_CHECKPOINT = REPO / "results" / "checkpoints" / "cnn_blstm_formant_v2_b128_r4.npz"
 T0 = time.perf_counter()
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, at the full 700 W):
@@ -189,6 +218,28 @@ GAN_CPU_ATOL = 1e-4
 GAN_BF16_ATOL = 5e-3
 GAN_WARM = 3
 GAN_DEPTH, GAN_REPEATS = 10, 5
+# The bf16 kernels against their plain versions in bf16 on the card: both
+# carry and sum in f32, where they differ as the f32 kernels do (the f32
+# bounds above), and then round to bf16, where a value near a rounding
+# boundary can land one bf16 ulp apart: each bf16 output within one bf16
+# ulp of the plain version's plus the f32 bound; the f32 dgates within
+# DXW_ATOL.  cuDNN's bf16 nn.LSTM is a yardstick of time only; its output
+# is held to a sanity bound (h in (-1, 1); its bf16 recurrence rounds
+# elsewhere).
+CUDNN_BF16_SANITY = 0.1
+# training_bf16's step 0 in bf16 against an f32 step on the card (same
+# weights, batch and gaps): bf16 keeps 8 bits, and the L1 loss's gradient
+# flips its sign where a prediction lies within that noise of its target.
+# The port on the CPU, full width, 4 clips of this recipe: the loss 4e-5 to
+# 8e-5 apart, each gradient tensor within 0.14 of its own L2 norm, the conv
+# biases in front of BatchNorm (exact gradient zero: rounding noise in both)
+# within 1.8e-4 of the largest tensor's norm.  Bounds: loss 1e-3 relative;
+# gradients 0.3 of their L2 norm; the noise-only biases, and tensors whose
+# f32 gradient is exactly zero (the saturated BiLSTM's), 1e-2 of the largest
+# tensor's norm.
+BF16_STEP_LOSS_RTOL = 1e-3
+BF16_GRAD_L2_RTOL = 0.3
+BF16_NOISE_OF_MAX_NORM = 1e-2
 
 
 def log(phase: str, msg: str) -> None:
@@ -226,15 +277,18 @@ def ptxas_report(output: str) -> dict:
     """Kernel name -> registers, static shared memory, stack frame and
     spills, from ptxas' ``-v`` report.  An instance of a kernel template is
     named with its integer arguments, e.g. ``lstm_fwd_kernel<2,4>`` (Rows,
-    KQ); the element type is left out."""
+    KQ); f32 is left out, and a bf16 instance's arguments start with
+    ``bf16`` (``lstm_fwd_kernel<bf16,2,4>``, ``lstm_bwd_kernel<bf16>``)."""
     report, name = {}, None
     for line in output.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:  # the mangled name holds <name>[I<template arguments>E]
-            found = re.search(r"(lstm_[a-z_]*?kernel)(I(?:f|Li\d+E)*E)?(?=[EI])", m.group(1))
+            found = re.search(r"(lstm_[a-z_]*?kernel)(I(?:f|13__nv_bfloat16|Li\d+E)*E)?(?=[EI])",
+                              m.group(1))
             if found:
-                ints = re.findall(r"Li(\d+)E", found.group(2) or "")
-                name = found.group(1) + (f"<{','.join(ints)}>" if ints else "")
+                args = ["bf16" if a == "13__nv_bfloat16" else a[2:-1]
+                        for a in re.findall(r"13__nv_bfloat16|Li\d+E", found.group(2) or "")]
+                name = found.group(1) + (f"<{','.join(args)}>" if args else "")
             else:
                 name = m.group(1)
             report[name] = {"registers": 0, "smem_bytes": 0}
@@ -295,12 +349,33 @@ def _forward_inputs(b: int, seed: int) -> tuple:
     return xw_f, w_f, xw_b, w_b
 
 
-def _forward_bound(b: int, with_c: bool) -> tuple:
-    """(ms, by) of lstm_fwd at batch b, both directions: xw and W_hh read
-    once, h (and c) written once; h @ W_hh each step."""
-    bytes_moved = 2 * 4 * (b * T * 4 * H + H * 4 * H + (2 if with_c else 1) * b * T * H)
+def _forward_bound(b: int, with_c: bool, elem: int = 4) -> tuple:
+    """(ms, by) of lstm_fwd at batch b, both directions, elements of
+    ``elem`` bytes: xw and W_hh read once, h (and c) written once; h @ W_hh
+    each step, in f32 FMA in both forms."""
+    bytes_moved = 2 * elem * (b * T * 4 * H + H * 4 * H + (2 if with_c else 1) * b * T * H)
     flops = 2 * 2 * b * T * H * 4 * H
     return roofline(bytes_moved, flops)
+
+
+def _layer_pair(dtype: torch.dtype) -> tuple:
+    """cuDNN's ``nn.LSTM(256, 128, bidirectional=True)`` (layer 1's shapes)
+    and the port's ``BiLSTM`` layer with the same weights, on the card in
+    ``dtype``: the library yardstick (the port never calls it)."""
+    dev = torch.device(DEVICE)
+    cudnn = torch.nn.LSTM(2 * H, H, batch_first=True, bidirectional=True).to(dev, dtype)
+    port = BiLSTM(2 * H, H, 1).to(dev, dtype)
+    with torch.no_grad():
+        port.load_state_dict({
+            f"l0_{direction}_{name}": value
+            for direction, suffix in (("fwd", ""), ("bwd", "_reverse"))
+            for name, value in (
+                ("w_ih", getattr(cudnn, f"weight_ih_l0{suffix}").T),
+                ("w_hh", getattr(cudnn, f"weight_hh_l0{suffix}").T),
+                ("b", getattr(cudnn, f"bias_ih_l0{suffix}") + getattr(cudnn, f"bias_hh_l0{suffix}")),
+            )
+        })
+    return cudnn, port
 
 
 def phase_kernel(card: str, ptxas: dict) -> dict:
@@ -316,7 +391,7 @@ def phase_kernel(card: str, ptxas: dict) -> dict:
     for b, seed, with_c in ((B, 0, False), (B_TRAIN, 1, True), (B_LARGE, 3, True)):
         layer = _forward_inputs(b, seed)
         plan = fwd_plan(b, H)
-        smem = smem_of(H, plan.rows, plan.cluster, plan.ksplit)
+        smem = smem_of(H, plan.rows, plan.cluster, plan.ksplit, 4)
         if smem != fwd_smem_bytes(plan):
             raise AssertionError(f"lstm_fwd shared memory: source {smem}, plan "
                                  f"{fwd_smem_bytes(plan)} bytes")
@@ -364,18 +439,7 @@ def phase_kernel(card: str, ptxas: dict) -> dict:
     rng = np.random.default_rng(0)
     torch.manual_seed(0)
     x1 = torch.tensor(rng.standard_normal((B, T, 2 * H)).astype(np.float32), device=dev)
-    cudnn = torch.nn.LSTM(2 * H, H, batch_first=True, bidirectional=True).to(dev)
-    port = BiLSTM(2 * H, H, 1).to(dev)
-    with torch.no_grad():
-        port.load_state_dict({
-            f"l0_{direction}_{name}": value
-            for direction, suffix in (("fwd", ""), ("bwd", "_reverse"))
-            for name, value in (
-                ("w_ih", getattr(cudnn, f"weight_ih_l0{suffix}").T),
-                ("w_hh", getattr(cudnn, f"weight_hh_l0{suffix}").T),
-                ("b", getattr(cudnn, f"bias_ih_l0{suffix}") + getattr(cudnn, f"bias_hh_l0{suffix}")),
-            )
-        })
+    cudnn, port = _layer_pair(torch.float32)
     with torch.inference_mode():
         err = (port(x1) - cudnn(x1)[0]).abs().max().item()
         log("kernel", f"port BiLSTM layer vs cuDNN nn.LSTM: max abs err {err:.3e} (atol {CUDNN_ATOL})")
@@ -457,17 +521,19 @@ def _check_backward(label: str, layer: tuple, g, h, c, dxw: tuple, dw: tuple) ->
     return err_dxw, err_dw
 
 
-def _backward_bounds(b: int) -> tuple:
+def _backward_bounds(b: int, elem: int = 4) -> tuple:
     """((ms, by) of lstm_bwd, (ms, by) of lstm_dwhh) at batch b, both
-    directions.  lstm_bwd: xw, W_hh, h, c, g read once, dxw written once;
-    two (B,H)x(H,4H) products a step (gates, dh).  lstm_dwhh: h and dxw read
-    once, dW_hh written once; one product of depth B*T."""
-    f4 = 4
-    bwd_bytes = 2 * f4 * (b * T * 4 * H + H * 4 * H + b * T * 4 * H) + 3 * f4 * b * T * 2 * H
+    directions, elements of ``elem`` bytes.  lstm_bwd: xw, W_hh, h, c, g read
+    once, dxw written once; two (B,H)x(H,4H) products a step (gates, dh).
+    lstm_dwhh: h and the dgates (f32 in both forms: in f32 they are dxw)
+    read once, dW_hh written once; one product of depth B*T.  Products in
+    f32 FMA in both forms."""
+    e, f4 = elem, 4
+    bwd_bytes = 2 * e * (b * T * 4 * H + H * 4 * H + b * T * 4 * H) + 3 * e * b * T * 2 * H
     bwd_flops = 2 * 2 * (2 * b * T * H * 4 * H)
-    dwhh_bytes = f4 * (b * T * 2 * H + 2 * b * T * 4 * H + 2 * H * 4 * H)
+    dwhh_bytes = e * b * T * 2 * H + f4 * 2 * b * T * 4 * H + e * 2 * H * 4 * H
     dwhh_flops = 2 * (2 * b * T * H * 4 * H)
-    log("kernel_bwd", f"B={b}: lstm_bwd moves {bwd_bytes / 1e6:.1f} MB and does "
+    log("kernel_bwd", f"B={b}, {e}-byte elements: lstm_bwd moves {bwd_bytes / 1e6:.1f} MB and does "
                       f"{bwd_flops / 1e9:.3f} GFLOP; lstm_dwhh {dwhh_bytes / 1e6:.1f} MB, "
                       f"{dwhh_flops / 1e9:.3f} GFLOP")
     return roofline(bwd_bytes, bwd_flops), roofline(dwhh_bytes, dwhh_flops)
@@ -537,7 +603,7 @@ def phase_kernel_bwd(card: str, ptxas: dict) -> list:
 
     # The launch plans at the training shapes.
     bp, dp = bwd_plan(b, H), dwhh_plan(b, T, H)
-    smem = load_library("lstm_bwd").cdll.lstm_bwd_smem_bytes(H, bp.cluster, bp.ksplit)
+    smem = load_library("lstm_bwd").cdll.lstm_bwd_smem_bytes(H, bp.cluster, bp.ksplit, 4)
     bwd_launch = {"cluster": bp.cluster, "grid": list(bp.grid), "threads": BWD_THREADS,
                   "dynamic_smem_bytes": smem, "units_per_cta": bp.units, "ksplit": bp.ksplit}
     dwhh_launch = {"grid": list(dp.grid), "threads": BWD_THREADS, "slices": dp.slices,
@@ -556,18 +622,7 @@ def phase_kernel_bwd(card: str, ptxas: dict) -> list:
     x1 = torch.tensor(rng.standard_normal((b, T, 2 * H)).astype(np.float32), device=dev,
                       requires_grad=True)
     gout = torch.tensor(rng.standard_normal((b, T, 2 * H)).astype(np.float32), device=dev)
-    cudnn = torch.nn.LSTM(2 * H, H, batch_first=True, bidirectional=True).to(dev)
-    port = BiLSTM(2 * H, H, 1).to(dev)
-    with torch.no_grad():
-        port.load_state_dict({
-            f"l0_{direction}_{name}": value
-            for direction, suffix in (("fwd", ""), ("bwd", "_reverse"))
-            for name, value in (
-                ("w_ih", getattr(cudnn, f"weight_ih_l0{suffix}").T),
-                ("w_hh", getattr(cudnn, f"weight_hh_l0{suffix}").T),
-                ("b", getattr(cudnn, f"bias_ih_l0{suffix}") + getattr(cudnn, f"bias_hh_l0{suffix}")),
-            )
-        })
+    cudnn, port = _layer_pair(torch.float32)
     grads = {}
     for name, layer_fn in (("cudnn", lambda: cudnn(x1)[0]), ("port", lambda: port(x1))):
         params = list(cudnn.parameters() if name == "cudnn" else port.parameters())
@@ -644,16 +699,216 @@ def phase_kernel_bwd(card: str, ptxas: dict) -> list:
     ]
 
 
+def _bf16_err(label: str, got: torch.Tensor, want: torch.Tensor, atol: float) -> float:
+    """max |got - want| of a bf16 output against its plain version; raises
+    where an entry lies further than one bf16 ulp of ``want`` plus ``atol``."""
+    if got.dtype != torch.bfloat16:
+        raise AssertionError(f"{label}: {got.dtype}, expected bfloat16")
+    err = (got.float() - want.float()).abs()
+    mag = want.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    beyond = err - torch.exp2(torch.floor(torch.log2(mag)) - 7) - atol
+    if beyond.max().item() > 0:
+        raise AssertionError(f"{label} disagrees with its plain version: "
+                             f"{int((beyond > 0).sum())} entries beyond one bf16 ulp + {atol}")
+    return err.max().item()
+
+
+def _bf16_inputs(b: int, seed: int) -> tuple:
+    """Seeded bf16 (xw_f, w_f, xw_b, w_b) and incoming gradient g of a layer
+    on the card: the f32 phases' draws (``_backward_inputs``), rounded."""
+    layer, g, _, _ = _backward_inputs(b, seed)
+    return tuple(t.to(torch.bfloat16) for t in layer), g.to(torch.bfloat16)
+
+
+def _cudnn_bf16_yardstick(b: int, seed: int) -> dict:
+    """cuDNN's bidirectional LSTM in bf16 on layer 1's shapes at batch b,
+    forward and backward (forward+backward minus a forward with grad on),
+    beside the port's bf16 layer (projection + lstm_fwd, + lstm_bwd and
+    lstm_dwhh) with the same weights."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed)
+    torch.manual_seed(seed)
+    bf16 = torch.bfloat16
+    x1 = torch.tensor(rng.standard_normal((b, T, 2 * H)).astype(np.float32), device=dev).to(bf16)
+    x1.requires_grad_(True)
+    gout = torch.tensor(rng.standard_normal((b, T, 2 * H)).astype(np.float32), device=dev).to(bf16)
+    cudnn, port = _layer_pair(bf16)
+    with torch.no_grad():
+        err = (port(x1).float() - cudnn(x1)[0].float()).abs().max().item()
+    if not err <= CUDNN_BF16_SANITY:
+        raise AssertionError(f"port bf16 BiLSTM layer vs cuDNN bf16: {err} > {CUDNN_BF16_SANITY}")
+
+    def fwd_bwd(layer_fn, params):
+        return lambda: torch.autograd.grad(layer_fn(), [x1, *params], gout)
+
+    cudnn_f = cuda_ms(lambda: cudnn(x1), reps=10)
+    port_f = cuda_ms(lambda: port(x1), reps=10)
+    cudnn_fb = cuda_ms(fwd_bwd(lambda: cudnn(x1)[0], list(cudnn.parameters())), reps=10)
+    port_fb = cuda_ms(fwd_bwd(lambda: port(x1), list(port.parameters())), reps=10)
+    with torch.inference_mode():
+        cudnn_inf = cuda_ms(lambda: cudnn(x1), reps=10)
+        port_inf = cuda_ms(lambda: port(x1), reps=10)
+    return {"max_abs_diff_port_vs_cudnn": err, "cudnn_forward_ms": cudnn_inf,
+            "port_forward_ms": port_inf, "cudnn_backward_ms": cudnn_fb - cudnn_f,
+            "port_backward_ms": port_fb - port_f}
+
+
+def phase_kernel_bf16(card: str, ptxas: dict) -> list:
+    """The bf16 forms of lstm_fwd, lstm_bwd and lstm_dwhh against their plain
+    versions in bf16 on the card at B=128 (the production recipe's batch,
+    the main path's) and B=25; two launches bitwise equal; times, plain
+    versions' times, bounds and cuDNN's bf16 layer as the yardstick."""
+    runs = {}
+    for b, seed in ((B_LARGE, 7), (B_TRAIN, 8)):
+        layer, g = _bf16_inputs(b, seed)
+        xw_f, w_f, xw_b, w_b = layer
+        with torch.no_grad():
+            h, c = bilstm_forward(*layer, with_c=True)
+            again = bilstm_forward(*layer, with_c=True)
+            torch.cuda.synchronize()
+            want_h, want_c = bilstm_recurrence_reference(*layer, return_c=True)
+            err_f = max(_bf16_err(f"lstm_fwd bf16 h (B={b})", h, want_h, KERNEL_ATOL),
+                        _bf16_err(f"lstm_fwd bf16 c (B={b})", c, want_c, KERNEL_ATOL))
+            same = torch.equal(h, again[0]) and torch.equal(c, again[1])
+            del again, want_h, want_c
+
+            out = bilstm_recurrence_backward(*layer, h, c, g, dgates=True)
+            dws = bilstm_dwhh(h, *out[2:])
+            torch.cuda.synchronize()
+            err_b = err_dg = err_w = 0.0
+            for i, (sl, xw, w, reverse) in enumerate(((slice(0, H), xw_f, w_f, False),
+                                                      (slice(H, 2 * H), xw_b, w_b, True))):
+                want_dxw, want_dg = lstm_recurrence_backward_reference(
+                    xw, w, h[..., sl], c[..., sl], g[..., sl], reverse, return_dgates=True)
+                err_b = max(err_b, _bf16_err(f"lstm_bwd bf16 dxw (B={b})", out[i], want_dxw,
+                                             DXW_ATOL))
+                e_dg = (out[2 + i] - want_dg).abs().max().item()
+                if not e_dg <= DXW_ATOL:
+                    raise AssertionError(f"lstm_bwd bf16 f32 dgates (B={b}): {e_dg} > {DXW_ATOL}")
+                err_dg = max(err_dg, e_dg)
+                want_dw = dwhh_reference(h[..., sl], want_dg, reverse)
+                dw_max = want_dw.float().abs().max().item()
+                err_w = max(err_w, _bf16_err(f"lstm_dwhh bf16 (B={b})", dws[i], want_dw,
+                                             DWHH_RTOL_OF_MAX * dw_max) / dw_max)
+                del want_dxw, want_dg, want_dw
+            again = bilstm_recurrence_backward(*layer, h, c, g, dgates=True)
+            again = (*again, *bilstm_dwhh(h, *again[2:]))
+            same = same and all(torch.equal(x, y) for x, y in zip((*out, *dws), again))
+            if not same:
+                raise AssertionError(f"the bf16 kernels are not deterministic at B={b}")
+            del again
+            log("kernel_bf16", f"B={b}: max |kernel - plain| lstm_fwd h, c {err_f:.3e}; lstm_bwd "
+                               f"dxw {err_b:.3e}, f32 dgates {err_dg:.3e}; lstm_dwhh {err_w:.3e} "
+                               f"of max |dW_hh| (each within one bf16 ulp + the f32 bound); "
+                               f"second launches bitwise equal")
+            fwd_ms = cuda_ms(lambda: bilstm_forward(*layer, with_c=True), reps=20)
+            bwd_ms = cuda_ms(lambda: bilstm_recurrence_backward(*layer, h, c, g), reps=10)
+            dwhh_ms = cuda_ms(lambda: bilstm_dwhh(h, *out[2:]), reps=20)
+            plain = {}
+            if b == B_LARGE:
+                plain["fwd"] = cuda_ms(lambda: bilstm_recurrence_reference(*layer, return_c=True),
+                                       reps=2, warmup=1)
+                plain["bwd"] = cuda_ms(lambda: [lstm_recurrence_backward_reference(
+                    xw, w, h[..., sl], c[..., sl], g[..., sl], rev, return_dgates=True)
+                    for xw, w, sl, rev in ((xw_f, w_f, slice(0, H), False),
+                                           (xw_b, w_b, slice(H, 2 * H), True))],
+                    reps=2, warmup=1)
+                plain["dwhh"] = cuda_ms(lambda: (dwhh_reference(h[..., :H], out[2], False),
+                                                 dwhh_reference(h[..., H:], out[3], True)),
+                                        reps=10)
+                # dW_hh as one library call: a batched f32 product over the
+                # pre-shifted, upcast h and the f32 dgates.
+                hp = torch.stack([
+                    torch.cat([torch.zeros_like(h[:, :1, :H]), h[:, :-1, :H]], dim=1),
+                    torch.cat([h[:, 1:, H:], torch.zeros_like(h[:, :1, H:])], dim=1),
+                ]).reshape(2, b * T, H).float()
+                dg_both = torch.stack(out[2:]).reshape(2, b * T, 4 * H)
+                plain["library_dwhh"] = cuda_ms(lambda: torch.bmm(hp.transpose(1, 2), dg_both),
+                                                reps=20)
+                del hp, dg_both
+        (fwd_bound, fwd_by) = _forward_bound(b, True, elem=2)
+        (bwd_bound, bwd_by), (dwhh_bound, dwhh_by) = _backward_bounds(b, elem=2)
+        yard = _cudnn_bf16_yardstick(b, seed)
+        log("kernel_bf16", f"B={b}, T={T}, H={H}, both directions: lstm_fwd {fwd_ms:.4f} ms "
+                           f"(bound {fwd_bound:.5f} by {fwd_by}), lstm_bwd {bwd_ms:.4f} ms (bound "
+                           f"{bwd_bound:.5f} by {bwd_by}), lstm_dwhh {dwhh_ms:.4f} ms (bound "
+                           f"{dwhh_bound:.5f} by {dwhh_by}); plain {plain}; layer-1 yardstick "
+                           f"{yard} ({card})")
+        runs[b] = {"fwd": {"ms": fwd_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
+                           "max_abs_err": err_f},
+                   "bwd": {"ms": bwd_ms, "bound_ms": bwd_bound, "bound_by": bwd_by,
+                           "max_abs_err": err_b, "dgates_max_abs_err": err_dg},
+                   "dwhh": {"ms": dwhh_ms, "bound_ms": dwhh_bound, "bound_by": dwhh_by,
+                            "max_abs_err": err_w},
+                   "plain": plain, "yardstick": yard}
+        del layer, g, h, c, out, dws
+
+    main, small = runs[B_LARGE], runs[B_TRAIN]
+    shapes = {"B": B_LARGE, "T": T, "H": H, "directions": 2, "dtype": "bfloat16"}
+    fplan, bplan, dplan = fwd_plan(B_LARGE, H), bwd_plan(B_LARGE, H), dwhh_plan(B_LARGE, T, H)
+    common = {"route": "cuda", "launches": None, "shapes": shapes, "deterministic": True}
+    return [
+        {"name": "lstm_fwd_bf16", **common,
+         "source": "ml_audio_inpainting_torch/csrc/lstm_fwd.cu",
+         "replaces": "ml_audio_inpainting_tpu/ops/pallas/lstm_cell.py:40",
+         **main["fwd"], "plain_ms": main["plain"]["fwd"],
+         "max_abs_err_is": "h and c, both directions, B=128 (bf16 outputs)",
+         "library_ms": main["yardstick"]["cudnn_forward_ms"],
+         "library_call": "torch.nn.LSTM(256, 128, bidirectional=True) in bf16, layer-1 shapes: "
+                         "projection and both directions",
+         "port_same_work_ms": main["yardstick"]["port_forward_ms"],
+         "launch": {"rows": fplan.rows, "cluster": fplan.cluster, "grid": list(fplan.grid)},
+         "ptxas": ptxas.get(f"lstm_fwd_kernel<bf16,{fplan.rows},{fplan.ksplit}>"),
+         "b25": {**small["fwd"], "library_ms": small["yardstick"]["cudnn_forward_ms"],
+                 "port_same_work_ms": small["yardstick"]["port_forward_ms"]}},
+        {"name": "lstm_bwd_bf16", **common,
+         "source": "ml_audio_inpainting_torch/csrc/lstm_bwd.cu",
+         "replaces": "ml_audio_inpainting_tpu/ops/pallas/lstm_cell.py:64",
+         **main["bwd"], "plain_ms": main["plain"]["bwd"],
+         "max_abs_err_is": "dxw (bf16), both directions, B=128",
+         "library_ms": main["yardstick"]["cudnn_backward_ms"],
+         "library_call": "torch.nn.LSTM(256, 128, bidirectional=True) backward in bf16, "
+                         "layer-1 shapes (forward+backward minus forward)",
+         "port_same_work_ms": main["yardstick"]["port_backward_ms"],
+         "launch": {"cluster": bplan.cluster, "grid": list(bplan.grid)},
+         "ptxas": ptxas.get("lstm_bwd_kernel<bf16>"),
+         "b25": {**small["bwd"], "library_ms": small["yardstick"]["cudnn_backward_ms"],
+                 "port_same_work_ms": small["yardstick"]["port_backward_ms"]}},
+        {"name": "lstm_dwhh_bf16", **common,
+         "source": "ml_audio_inpainting_torch/csrc/lstm_bwd.cu",
+         "replaces": "ml_audio_inpainting_tpu/ops/pallas/lstm_cell.py:109",
+         **main["dwhh"], "plain_ms": main["plain"]["dwhh"],
+         "plain_is": "dwhh_reference: shifted f32 copies of h and one cuBLAS product a direction",
+         "max_abs_err_is": "relative to max |dW_hh| (bf16 output)",
+         "library_ms": main["plain"]["library_dwhh"],
+         "library_call": "torch.bmm of the shifted f32 h_prev^T and the f32 dgates, both "
+                         "directions",
+         "passes": ["lstm_dwhh_partial_kernel<bf16>", "lstm_dwhh_reduce_kernel<bf16>"],
+         "launch": {"grid": list(dplan.grid), "slices": dplan.slices,
+                    "rows_per_slice": dplan.rows_per_slice},
+         "ptxas": {k: ptxas.get(k) for k in ("lstm_dwhh_partial_kernel<bf16>",
+                                              "lstm_dwhh_reduce_kernel<bf16>")},
+         "b25": small["dwhh"]},
+    ]
+
+
+WRAPPERS = {"lstm_fwd": bilstm_recurrence, "lstm_bwd": bilstm_recurrence_backward,
+            "lstm_dwhh": bilstm_dwhh}
+
+
 def _counts() -> dict:
-    return {"lstm_fwd": bilstm_recurrence.launches,
-            "lstm_bwd": bilstm_recurrence_backward.launches,
-            "lstm_dwhh": bilstm_dwhh.launches}
+    """Launches of each kernel form since the last reset: the f32 form
+    under the kernel's name, the bf16 form under ``<name>_bf16``."""
+    out = {}
+    for name, wrapper in WRAPPERS.items():
+        out[name] = wrapper.launches - wrapper.bf16_launches
+        out[f"{name}_bf16"] = wrapper.bf16_launches
+    return out
 
 
 def _reset_counts() -> None:
-    bilstm_recurrence.launches = 0
-    bilstm_recurrence_backward.launches = 0
-    bilstm_dwhh.launches = 0
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = wrapper.bf16_launches = 0
 
 
 def phase_serving(card: str) -> dict:
@@ -692,8 +947,8 @@ def phase_serving(card: str) -> dict:
                        f"{B * n_samples / SAMPLE_RATE / seconds:.1f} s-audio/s, "
                        f"{launched} lstm_fwd launches ({card})")
     launches = _counts()
-    if launches["lstm_bwd"] or launches["lstm_dwhh"]:
-        raise AssertionError(f"serving launched a backward kernel: {launches}")
+    if any(n for k, n in launches.items() if k != "lstm_fwd"):
+        raise AssertionError(f"serving launched a backward kernel or a bf16 form: {launches}")
     log("serving", f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
 
     # Outside the gap's frames the output is the input: impaired exactly,
@@ -955,44 +1210,54 @@ def _check_step_against_cpu(cfg: Config, flat: dict, audio: np.ndarray, starts: 
     return {"loss_rel_err": rel, "grad_rel_err": worst[0], "zero_grad": zero}
 
 
-def _train(card: str, cfg: Config, flat: dict, label: str, clips: list, starts: list) -> tuple:
-    """TRAIN_STEPS steps from ``flat``; asserts the launches of every step and
-    finite losses.  Returns the state, the launch counts, the names of the
-    parameter tensors that moved and of all of them."""
-    G = cfg.data.gaps_per_audio
+def _train(card: str, cfg: Config, flat: dict, label: str, batches: list,
+           compute_dtype=None) -> tuple:
+    """TRAIN_STEPS steps from ``flat``, one on each of ``batches`` (clips and
+    the gap tensors the step takes), in ``compute_dtype``; asserts the
+    launches of every step (3 of each kernel in the step's form, none of the
+    other) and finite losses.  Returns the state, the launch counts, the
+    names of the parameter tensors that moved and of all of them, and the
+    warm step's ms, s-audio/s and peak memory."""
+    suffix = "_bf16" if compute_dtype == torch.bfloat16 else ""
+    expected = {f"{name}{form}": 3 if form == suffix else 0
+                for name in WRAPPERS for form in ("", "_bf16")}
     state = create_cnn_state(cfg, device=DEVICE, params=flat)
-    step = make_cnn_train_step(cfg)
+    step = make_cnn_train_step(cfg, compute_dtype=compute_dtype)
     before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     seconds = []
-    for i in range(TRAIN_STEPS):
+    for i, (clips, gaps) in enumerate(batches):
         counts = _counts()
-        audio = torch.tensor(clips[i], device=DEVICE)
-        gs = starts[i].to(DEVICE)
+        audio = torch.tensor(clips, device=DEVICE)
+        gaps = [t.to(DEVICE) for t in gaps]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, metrics = step(state, audio, gs)
+        state, metrics = step(state, audio, *gaps)
         loss = metrics["loss"].item()  # synchronises
         seconds.append(time.perf_counter() - t0)
         launched = {k: v - counts[k] for k, v in _counts().items()}
-        if launched != {"lstm_fwd": 3, "lstm_bwd": 3, "lstm_dwhh": 3}:
-            raise AssertionError(f"{label} training step {i}: launches {launched}, expected 3 "
-                                 "of each (one a BiLSTM layer)")
+        if launched != expected:
+            raise AssertionError(f"{label} training step {i}: launches {launched}, expected "
+                                 f"{expected} (one a BiLSTM layer, in the step's form)")
         if not math.isfinite(loss):
             raise AssertionError(f"{label} training step {i}: loss {loss}")
+        seqs = audio.shape[0] * cfg.data.gaps_per_audio
         log("training", f"{label}: step {i}: loss {loss:.4f}, {1e3 * seconds[-1]:.2f} ms, "
-                        f"{G / seconds[-1]:.1f} sequences/s, launches {launched} ({card})")
+                        f"{seqs / seconds[-1]:.1f} sequences/s, launches {launched} ({card})")
     launches = _counts()
     peak = torch.cuda.max_memory_allocated() / 2**20
     warm = sorted(seconds[1:])[len(seconds[1:]) // 2]
-    log("training", f"{label}: warm step (median of steps 1-{TRAIN_STEPS - 1}) "
-                    f"{1e3 * warm:.2f} ms, {G / warm:.1f} sequences/s, "
-                    f"{G * cfg.data.max_len_s / warm:.1f} s-audio/s; first step "
+    stats = {"warm_step_ms": 1e3 * warm, "sequences_per_s": seqs / warm,
+             "s_audio_per_s": seqs * cfg.data.max_len_s / warm, "first_step_ms": 1e3 * seconds[0],
+             "peak_mib": peak}
+    log("training", f"{label}: warm step (median of steps 1-{len(seconds) - 1}) "
+                    f"{1e3 * warm:.2f} ms, {seqs / warm:.1f} sequences/s, "
+                    f"{stats['s_audio_per_s']:.1f} s-audio/s; first step "
                     f"{1e3 * seconds[0]:.2f} ms; peak device memory {peak:.1f} MiB ({card})")
     moved = {n for n, p in state.model.named_parameters() if not torch.equal(p, before[n])}
-    return state, launches, moved, set(before)
+    return state, launches, moved, set(before), stats
 
 
 def phase_training(card: str) -> dict:
@@ -1003,6 +1268,7 @@ def phase_training(card: str) -> dict:
     clips = [speech_like_batch(np.random.default_rng(100 + i), 1) for i in range(TRAIN_STEPS)]
     gen = torch.Generator().manual_seed(5)
     starts = [gap_starts(gen, cfg, 1, G) for _ in range(TRAIN_STEPS)]
+    batches = [(a, (gs,)) for a, gs in zip(clips, starts)]
     log("training", f"{TRAIN_STEPS} steps of 1 clip x {G} gap variants of "
                     f"{cfg.data.gap_len_s} s, lr {cfg.training.starter_learning_rate}, from "
                     f"{CHECKPOINT.name} and from it with its BiLSTM redrawn")
@@ -1011,7 +1277,7 @@ def phase_training(card: str) -> dict:
     # none on the card has, in f64 on the CPU, none that f32 could resolve
     # (the gradient check allows a card's zero nowhere else).
     check = _check_step_against_cpu(cfg, flat, clips[0], starts[0][:, :2], "checkpoint")
-    _, launches, moved, names = _train(card, cfg, flat, "checkpoint", clips, starts)
+    _, launches, moved, names, _ = _train(card, cfg, flat, "checkpoint", batches)
     if moved != names - set(check["zero_grad"]):
         raise AssertionError(f"checkpoint run: moved {sorted(moved)}, zero gradient at step 0 "
                              f"{check['zero_grad']}")
@@ -1022,7 +1288,7 @@ def phase_training(card: str) -> dict:
     live_check = _check_step_against_cpu(cfg, live, clips[0], starts[0][:, :2], "live BiLSTM")
     if live_check["zero_grad"]:
         raise AssertionError(f"live BiLSTM: exactly zero gradients {live_check['zero_grad']}")
-    state, live_launches, moved, _ = _train(card, cfg, live, "live BiLSTM", clips, starts)
+    state, live_launches, moved, _, _ = _train(card, cfg, live, "live BiLSTM", batches)
     if moved != names:
         raise AssertionError(f"live BiLSTM: parameters that did not move {sorted(names - moved)}")
     log("training", f"live BiLSTM: every one of {len(names)} parameter tensors moved")
@@ -1045,19 +1311,103 @@ def phase_training(card: str) -> dict:
     return {k: launches[k] + live_launches[k] for k in launches}
 
 
+def _check_bf16_step_against_f32(cfg: Config, flat: dict, batch: tuple, label: str) -> dict:
+    """Step 0 of ``batch`` in bf16 and in f32 on the card from the same
+    weights: the loss and every gradient tensor.  Returns the errors and the
+    names of the tensors whose bf16 gradient is exactly zero."""
+    clips, gaps = batch
+    audio = torch.tensor(clips, device=DEVICE)
+    gaps = [t.to(DEVICE) for t in gaps]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        state = create_cnn_state(cfg, device=DEVICE, params=flat)
+        _, m = make_cnn_train_step(cfg, compute_dtype=dtype)(state, audio, *gaps)
+        out[dtype] = (m["loss"].item(), {n: p.grad.detach().double()
+                                         for n, p in state.model.named_parameters()})
+        del state
+    (loss_32, g_32), (loss_16, g_16) = out[torch.float32], out[torch.bfloat16]
+    rel = abs(loss_16 - loss_32) / abs(loss_32)
+    log("training_bf16", f"{label}: step 0 of {clips.shape[0]} clips: loss bf16 {loss_16:.6f}, "
+                         f"f32 {loss_32:.6f}, relative difference {rel:.3e} "
+                         f"(rtol {BF16_STEP_LOSS_RTOL})")
+    if not rel <= BF16_STEP_LOSS_RTOL:
+        raise AssertionError(f"{label} bf16 step 0 loss: {loss_16} vs f32 {loss_32}")
+    max_norm = max(g.norm().item() for g in g_32.values())
+    worst, worst_noise = (0.0, ""), (0.0, "")
+    for name, want in g_32.items():
+        err = (g_16[name] - want).norm().item()
+        norm = want.norm().item()
+        if name in NOISE_GRAD or norm == 0.0:
+            if not err <= BF16_NOISE_OF_MAX_NORM * max_norm:
+                raise AssertionError(f"{label} bf16 step 0 gradient {name}: {err} > "
+                                     f"{BF16_NOISE_OF_MAX_NORM} x {max_norm}")
+            worst_noise = max(worst_noise, (err / max_norm, name))
+        else:
+            if not err <= BF16_GRAD_L2_RTOL * norm:
+                raise AssertionError(f"{label} bf16 step 0 gradient {name}: |bf16 - f32| {err} > "
+                                     f"{BF16_GRAD_L2_RTOL} x {norm}")
+            worst = max(worst, (err / norm, name))
+    zero = sorted(n for n, g in g_16.items() if not g.any())
+    log("training_bf16", f"{label}: step 0 gradients, {len(g_32)} tensors: bf16 vs f32 within "
+                         f"{worst[0]:.3e} of their L2 norm (worst {worst[1]}; allowed "
+                         f"{BF16_GRAD_L2_RTOL}); noise-only and zero-gradient tensors within "
+                         f"{worst_noise[0]:.3e} of the largest norm (worst {worst_noise[1]}; allowed "
+                         f"{BF16_NOISE_OF_MAX_NORM}); exactly zero in bf16: {len(zero)} tensors")
+    return {"loss_rel_err": rel, "grad_l2_rel_err": worst[0], "zero_grad": zero}
+
+
+def phase_training_bf16(card: str) -> dict:
+    """The production recipe in bf16 from the b128 checkpoint and from it
+    with its BiLSTM redrawn; returns the launch counts of both runs."""
+    cfg = b128_recipe_config()
+    clips = cfg.training.batch_size
+    flat = load_params_npz(B128_CHECKPOINT)
+    live = live_bilstm(flat, seed=6)
+    gen = torch.Generator().manual_seed(9)
+    batches = [(speech_like_batch(np.random.default_rng(300 + i), clips),
+                multi_gap_layouts(gen, cfg, clips, cfg.data.gaps_per_audio))
+               for i in range(TRAIN_STEPS)]
+    log("training_bf16", f"{TRAIN_STEPS} steps of {clips} clips x {cfg.data.gaps_per_audio} "
+                         f"variant x {cfg.data.train_n_gaps} gaps of up to {cfg.data.gap_len_s} s "
+                         f"(first clip's: starts {batches[0][1][0][0, 0].tolist()}, lengths "
+                         f"{batches[0][1][1][0, 0].tolist()}), lr "
+                         f"{cfg.training.starter_learning_rate}, bf16 network, f32 masters, from "
+                         f"{B128_CHECKPOINT.name} and from it with its BiLSTM redrawn")
+    runs, launches = {}, []
+    for label, weights in (("checkpoint", flat), ("live BiLSTM", live)):
+        check = _check_bf16_step_against_f32(cfg, weights, batches[0], label)
+        state, counts, moved, names, stats = _train(card, cfg, weights, f"bf16 {label}", batches,
+                                                    torch.bfloat16)
+        if moved != names - set(check["zero_grad"]):
+            raise AssertionError(f"bf16 {label}: moved {sorted(moved)}, zero gradient at step 0 "
+                                 f"{check['zero_grad']}")
+        if any(p.dtype != torch.float32 for p in state.model.parameters()):
+            raise AssertionError(f"bf16 {label}: the master weights left f32")
+        log("training_bf16", f"{label}: {len(moved)} of {len(names)} tensors moved; no gradient "
+                             f"in bf16 for {check['zero_grad']}")
+        runs[label] = {**stats, **{k: v for k, v in check.items() if k != "zero_grad"}}
+        launches.append(counts)
+        del state
+    log("training_bf16", f"summary ({card}): {json.dumps(runs)}")
+    return {k: sum(c[k] for c in launches) for k in launches[0]}
+
+
 def main() -> int:
     smi = phase_device()
     card = f"{torch.cuda.get_device_name(0)}, power limit {smi.split(',')[-1].strip()}"
     ptxas = phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = [phase_kernel(card, ptxas), *phase_kernel_bwd(card, ptxas)]
-    serving = phase_serving(card)
+    kernels = [phase_kernel(card, ptxas), *phase_kernel_bwd(card, ptxas),
+               *phase_kernel_bf16(card, ptxas)]
+    paths = {"serving": phase_serving(card)}
     phase_gan_serving(card)
-    training = phase_training(card)
+    paths["training"] = phase_training(card)
+    paths["training_bf16"] = phase_training_bf16(card)
     for k in kernels:
-        k["launches"] = serving[k["name"]] + training[k["name"]]
-        k["launches_by_path"] = {"serving": serving[k["name"]], "training": training[k["name"]]}
+        k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()
+                                 if counts[k["name"]]}
+        k["launches"] = sum(k["launches_by_path"].values())
         if not k["launches"]:
             raise AssertionError(f"{k['name']} was never launched on the main paths")
     log("done", f"total {time.perf_counter() - T0:.1f} s")

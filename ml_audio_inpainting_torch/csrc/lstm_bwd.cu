@@ -67,12 +67,33 @@
 // order, so the result is deterministic.  The caller allocates the
 // partials; the kernels allocate nothing.
 //
-// The element type is a template parameter; only f32 is instantiated (bf16
-// adds its to_f32/load4_f32 overloads and instantiations).  No tensor cores:
-// every product is f32 FMA, as _bwd_kernel's f32 accumulation.
+// bf16.  The element type is a template parameter, instantiated for f32 and
+// bf16 (__nv_bfloat16), as the JAX package runs _bwd_kernel in both.  In
+// bf16 the kernels compute what _bwd_kernel computes there:
+//   - the sweep reads bf16 xw, h, c and g_out and converts each value to
+//     f32 when it loads it; W_hh goes into f32 shared memory at launch
+//     (exact); the gates are recomputed from the stored, bf16-rounded h_prev
+//     and c (:77-79, :154-156), and the dh and dc carries stay f32;
+//   - dxw is stored in bf16 (__float2bfloat16_rn, :108), but dh_carry is
+//     taken from the unrounded f32 dgates, which stay in shared memory;
+//   - dW_hh sums the unrounded f32 dgates (:109-111), not the bf16 dxw: at
+//     B=8, T=100, H=32 summing the rounded dxw instead changes ~40 % of the
+//     bf16 entries of dW_hh.  The design chosen: in bf16 the sweep also
+//     writes its f32 dgates to a (B, T, 4H) buffer of each direction that
+//     the caller allocates (2 x 109 MB a layer at B=128, transient), and
+//     lstm_dwhh_partial_kernel reads them beside the bf16 h_prev;
+//   - lstm_dwhh_reduce_kernel sums the f32 partials in slice order, as in
+//     f32, and rounds each entry to bf16 once, at the end (:184); the sum
+//     stays deterministic.
+// bf16 h rows are staged by 8-byte copies (4 elements, as the 16-byte f32
+// copies), which every H % 4 == 0 aligns.  No tensor cores: every product
+// is f32 FMA, as _bwd_kernel's f32 accumulation.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace cg = cooperative_groups;
 
@@ -90,11 +111,45 @@ static_assert(kTile == 16 * 4, "16 x 16 threads of 4 x 4 outputs cover a tile");
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-// The f32 forms of the element-type helpers.
+// Element type <-> f32.  from_f32 rounds to nearest even, as astype does.
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename Elem>
+__device__ __forceinline__ Elem from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+// Four consecutive elements (16 bytes of f32, 8 of bf16) as f32.
 __device__ __forceinline__ float4 load4_f32(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
+__device__ __forceinline__ float4 load4_f32(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+// Four f32 values stored as four consecutive elements.
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<const unsigned*>(&lo);
+  raw.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+// The codes of the element types at the C interface (ops/cuda/lstm_cell.py).
+constexpr int kF32 = 0;
+constexpr int kBF16 = 1;
 
 // 16 bytes global -> shared, asynchronously; zero-filled when !valid (src is
 // then not read).
@@ -103,6 +158,22 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
   const int n = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
                : "memory");
+}
+// 8 bytes global -> shared, the same way.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(n)
+               : "memory");
+}
+// Four elements, as one copy of 4 * sizeof(Elem) bytes.
+template <typename Elem>
+__device__ __forceinline__ void cp_async4x(Elem* dst, const Elem* src, bool valid) {
+  if constexpr (sizeof(Elem) == 4) {
+    cp_async16(dst, src, valid);
+  } else {
+    cp_async8(dst, src, valid);
+  }
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -148,6 +219,7 @@ __global__ void __launch_bounds__(kThreads)
                     const Elem* __restrict__ c_seq,  // (B, T, 2H) forward kernel's c
                     const Elem* __restrict__ g_out,  // (B, T, 2H) gradient of h
                     Elem* dxw_fwd, Elem* dxw_bwd,    // (B, T, 4H)
+                    float* dg_fwd, float* dg_bwd,    // (B, T, 4H) f32 dgates, or null
                     int B, int T, int H, int csize, int ksplit) {
   cg::cluster_group cluster = cg::this_cluster();
   const BwdLayout lay(H, csize, ksplit, sizeof(Elem));
@@ -166,6 +238,7 @@ __global__ void __launch_bounds__(kThreads)
   const Elem* __restrict__ xw = reverse ? xw_bwd : xw_fwd;
   const Elem* __restrict__ w_hh = reverse ? w_hh_bwd : w_hh_fwd;
   Elem* __restrict__ dxw = reverse ? dxw_bwd : dxw_fwd;
+  float* __restrict__ dg_out = reverse ? dg_bwd : dg_fwd;
   const int G = 4 * H;
   const int ldh = 2 * H;
   const int off = blockIdx.y * H;  // this direction's half of h, c and g_out
@@ -180,8 +253,9 @@ __global__ void __launch_bounds__(kThreads)
   auto prev_of = [&](int t) { return reverse ? t + 1 : t - 1; };
   auto in_range = [&](int t) { return t >= 0 && t < T; };
 
-  // h_prev of step s, all H units of the cluster's rows -> h_s[s & 1].
-  constexpr int kVec = 16 / sizeof(Elem);
+  // h_prev of step s, all H units of the cluster's rows -> h_s[s & 1], four
+  // elements a copy.
+  constexpr int kVec = 4;
   auto stage_h = [&](int s) {
     Elem* dst = h_s + (s & 1) * kRows * H;
     const int tp = prev_of(time_of(s));
@@ -192,7 +266,7 @@ __global__ void __launch_bounds__(kThreads)
       const bool valid = r < rows && in_range(tp);
       const Elem* src = valid ? h_seq + (static_cast<size_t>(b0 + r) * T + tp) * ldh + off + k
                               : h_seq;
-      cp_async16(dst + r * H + k, src, valid);
+      cp_async4x(dst + r * H + k, src, valid);
     }
     cp_async_commit();
   };
@@ -337,8 +411,13 @@ __global__ void __launch_bounds__(kThreads)
       float* dg = dg_s + cr * ncol + cm;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        out[q * H] = static_cast<Elem>(d[q]);
+        out[q * H] = from_f32<Elem>(d[q]);
         dg[q * units] = d[q];
+      }
+      if (dg_out != nullptr) {
+        float* dgo = dg_out + (c_base + t) * G + cn;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) dgo[q * H] = d[q];
       }
       dc_carry = dc * gf;
     }
@@ -349,15 +428,17 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Block (tile, slice, direction): a kTile x kTile tile of dW_hh over the rows
-// [slice * rows_per_slice, ..) of K = B*T, into part[direction, slice].
-template <typename Elem>
+// [slice * rows_per_slice, ..) of K = B*T, into part[direction, slice].  h
+// is in the layer's type HElem; the dgates in DElem, f32 in both
+// instantiations (in f32 they are dxw itself).
+template <typename HElem, typename DElem>
 __global__ void __launch_bounds__(kThreads)
-    lstm_dwhh_partial_kernel(const Elem* __restrict__ h_seq,                // (B, T, 2H)
-                             const Elem* dxw_fwd, const Elem* dxw_bwd,      // (B, T, 4H)
+    lstm_dwhh_partial_kernel(const HElem* __restrict__ h_seq,                // (B, T, 2H)
+                             const DElem* dxw_fwd, const DElem* dxw_bwd,     // (B, T, 4H)
                              float* __restrict__ part,  // (2, slices, H, 4H)
                              int B, int T, int H, int rows_per_slice) {
-  __shared__ __align__(16) Elem a_s[2][kDepth][kTile];  // h_prev rows, units i0 ..
-  __shared__ __align__(16) Elem b_s[2][kDepth][kTile];  // dxw rows, gate columns j0 ..
+  __shared__ __align__(16) HElem a_s[2][kDepth][kTile];  // h_prev rows, units i0 ..
+  __shared__ __align__(16) DElem b_s[2][kDepth][kTile];  // dgates rows, gate columns j0 ..
   const int G = 4 * H;
   const int ldh = 2 * H;
   const int tiles_j = (G + kTile - 1) / kTile;
@@ -365,7 +446,7 @@ __global__ void __launch_bounds__(kThreads)
   const int j0 = (blockIdx.x % tiles_j) * kTile;
   const int slice = blockIdx.y;
   const bool reverse = blockIdx.z == 1;
-  const Elem* __restrict__ dxw = reverse ? dxw_bwd : dxw_fwd;
+  const DElem* __restrict__ dxw = reverse ? dxw_bwd : dxw_fwd;
   const int off = blockIdx.z * H;
   const int M = B * T;
   const int m_begin = slice * rows_per_slice;
@@ -373,7 +454,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  constexpr int kVec = 16 / sizeof(Elem);
+  constexpr int kVec = 4;  // elements a copy
   constexpr int kPerRow = kTile / kVec;
 
   auto load_stage = [&](int st, int m0) {
@@ -382,8 +463,8 @@ __global__ void __launch_bounds__(kThreads)
       const int c = (e - k * kPerRow) * kVec;
       const int m = m0 + k;
       bool va = false, vb = false;
-      const Elem* sa = h_seq;
-      const Elem* sb = dxw;
+      const HElem* sa = h_seq;
+      const DElem* sb = dxw;
       if (m < m_end) {
         const int b = m / T;
         const int t = m - b * T;
@@ -393,8 +474,8 @@ __global__ void __launch_bounds__(kThreads)
         vb = j0 + c < G;
         if (vb) sb = dxw + static_cast<size_t>(m) * G + j0 + c;
       }
-      cp_async16(&a_s[st][k][c], sa, va);
-      cp_async16(&b_s[st][k][c], sb, vb);
+      cp_async4x(&a_s[st][k][c], sa, va);
+      cp_async4x(&b_s[st][k][c], sb, vb);
     }
     cp_async_commit();
   };
@@ -442,10 +523,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// dw_{fwd,bwd} = sum over slices, in slice order, of part[direction, slice];
-// n4 = H * 4H / 4 float4s a direction.
+// dw_{fwd,bwd} = sum over slices, in slice order, of part[direction, slice],
+// in f32, rounded to OutElem once at the end; n4 = H * 4H / 4 float4s a
+// direction.
+template <typename OutElem>
 __global__ void __launch_bounds__(kReduceThreads)
-    lstm_dwhh_reduce_kernel(const float* __restrict__ part, float* dw_fwd, float* dw_bwd,
+    lstm_dwhh_reduce_kernel(const float* __restrict__ part, OutElem* dw_fwd, OutElem* dw_bwd,
                             int slices, int n4) {
   const int e = blockIdx.x * kReduceThreads + threadIdx.x;
   if (e >= 2 * n4) return;
@@ -460,44 +543,30 @@ __global__ void __launch_bounds__(kReduceThreads)
     s.z += v.z;
     s.w += v.w;
   }
-  reinterpret_cast<float4*>(d == 0 ? dw_fwd : dw_bwd)[i] = s;
+  store4((d == 0 ? dw_fwd : dw_bwd) + 4 * static_cast<size_t>(i), s);
 }
 
-}  // namespace
-
-// Dynamic shared memory, in bytes, of one lstm_bwd CTA.
-extern "C" int lstm_bwd_smem_bytes(int H, int cluster, int ksplit) {
-  return static_cast<int>(BwdLayout(H, cluster, ksplit, sizeof(float)).bytes);
+// Bytes of an element of type code `dtype`, 0 for a code the kernels have not.
+int elem_bytes(int dtype) {
+  return dtype == kF32 ? 4 : dtype == kBF16 ? 2 : 0;
 }
 
-// Launches the backward sweep of both directions of a layer on `stream`:
-// (xw_fwd, w_hh_fwd) and (xw_bwd, w_hh_bwd) as given to lstm_fwd_launch,
-// h_seq and c_seq its (B, T, 2H) outputs, g_out the (B, T, 2H) gradient of
-// h_seq; writes dxw_fwd and dxw_bwd (B, T, 4H).  The grid is (cluster *
-// ceil(B / kRows), 2) CTAs of kThreads in clusters of `cluster` along x;
-// ksplit is the number of k-slices of the gate partials.  Returns the CUDA
-// error as an int (0 = launched).  Pointers are 16-byte aligned device
-// pointers to contiguous f32 arrays; the caller checks shapes, H % 4 == 0,
-// 4 <= H <= 128, cluster in {4, 8} dividing H, ksplit * 4H / cluster <=
-// kThreads, and B, T >= 1.
-extern "C" int lstm_bwd_launch(const float* xw_fwd, const float* w_hh_fwd, const float* xw_bwd,
-                               const float* w_hh_bwd, const float* h_seq, const float* c_seq,
-                               const float* g_out, float* dxw_fwd, float* dxw_bwd, int B, int T,
-                               int H, int cluster, int ksplit, void* stream) {
-  if (cluster < 1 || cluster > kMaxCluster || H % cluster != 0 || ksplit < 1 ||
-      ksplit * 4 * (H / cluster) > kThreads || 2 * H > kThreads) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  auto kernel = lstm_bwd_kernel<float>;
-  const size_t smem = BwdLayout(H, cluster, ksplit, sizeof(float)).bytes;
+template <typename Elem>
+cudaError_t launch_bwd(const void* xw_fwd, const void* w_hh_fwd, const void* xw_bwd,
+                       const void* w_hh_bwd, const void* h_seq, const void* c_seq,
+                       const void* g_out, void* dxw_fwd, void* dxw_bwd, float* dg_fwd,
+                       float* dg_bwd, int B, int T, int H, int cluster, int ksplit,
+                       cudaStream_t stream) {
+  auto kernel = lstm_bwd_kernel<Elem>;
+  const size_t smem = BwdLayout(H, cluster, ksplit, sizeof(Elem)).bytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(cluster * ((B + kRows - 1) / kRows), 2, 1);
   config.blockDim = dim3(kThreads, 1, 1);
   config.dynamicSmemBytes = smem;
-  config.stream = static_cast<cudaStream_t>(stream);
+  config.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;
@@ -505,8 +574,70 @@ extern "C" int lstm_bwd_launch(const float* xw_fwd, const float* w_hh_fwd, const
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, kernel, xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_seq, c_seq,
-                           g_out, dxw_fwd, dxw_bwd, B, T, H, cluster, ksplit);
+  return cudaLaunchKernelEx(&config, kernel, static_cast<const Elem*>(xw_fwd),
+                            static_cast<const Elem*>(w_hh_fwd), static_cast<const Elem*>(xw_bwd),
+                            static_cast<const Elem*>(w_hh_bwd), static_cast<const Elem*>(h_seq),
+                            static_cast<const Elem*>(c_seq), static_cast<const Elem*>(g_out),
+                            static_cast<Elem*>(dxw_fwd), static_cast<Elem*>(dxw_bwd), dg_fwd,
+                            dg_bwd, B, T, H, cluster, ksplit);
+}
+
+template <typename Elem>
+cudaError_t launch_dwhh(const void* h_seq, const float* dg_fwd, const float* dg_bwd, float* part,
+                        void* dw_fwd, void* dw_bwd, int B, int T, int H, int slices,
+                        int rows_per_slice, cudaStream_t stream) {
+  const int tiles = ((H + kTile - 1) / kTile) * ((4 * H + kTile - 1) / kTile);
+  lstm_dwhh_partial_kernel<Elem, float><<<dim3(tiles, slices, 2), kThreads, 0, stream>>>(
+      static_cast<const Elem*>(h_seq), dg_fwd, dg_bwd, part, B, T, H, rows_per_slice);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n4 = H * H;  // H * 4H / 4
+  lstm_dwhh_reduce_kernel<Elem><<<(2 * n4 + kReduceThreads - 1) / kReduceThreads,
+                                  kReduceThreads, 0, stream>>>(
+      part, static_cast<Elem*>(dw_fwd), static_cast<Elem*>(dw_bwd), slices, n4);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Dynamic shared memory, in bytes, of one lstm_bwd CTA for elements of
+// `elem_bytes` bytes (4: f32, 2: bf16).
+extern "C" int lstm_bwd_smem_bytes(int H, int cluster, int ksplit, int elem_bytes) {
+  return static_cast<int>(BwdLayout(H, cluster, ksplit, elem_bytes).bytes);
+}
+
+// Launches the backward sweep of both directions of a layer on `stream`:
+// (xw_fwd, w_hh_fwd) and (xw_bwd, w_hh_bwd) as given to lstm_fwd_launch,
+// h_seq and c_seq its (B, T, 2H) outputs, g_out the (B, T, 2H) gradient of
+// h_seq; writes dxw_fwd and dxw_bwd (B, T, 4H), and in bf16 the f32 dgates
+// into dg_fwd and dg_bwd (B, T, 4H), which lstm_dwhh_launch then sums (null
+// in f32, where dxw is the f32 dgates).  `dtype` is the element type of
+// every other array (0: f32, 1: bf16).  The grid is (cluster * ceil(B /
+// kRows), 2) CTAs of kThreads in clusters of `cluster` along x; ksplit is
+// the number of k-slices of the gate partials.  Returns the CUDA error as an
+// int (0 = launched).  Pointers are 16-byte aligned device pointers to
+// contiguous arrays; the caller checks shapes, H % 4 == 0, 4 <= H <= 128,
+// cluster in {4, 8} dividing H, ksplit * 4H / cluster <= kThreads, and B,
+// T >= 1.
+extern "C" int lstm_bwd_launch(const void* xw_fwd, const void* w_hh_fwd, const void* xw_bwd,
+                               const void* w_hh_bwd, const void* h_seq, const void* c_seq,
+                               const void* g_out, void* dxw_fwd, void* dxw_bwd, float* dg_fwd,
+                               float* dg_bwd, int B, int T, int H, int cluster, int ksplit,
+                               int dtype, void* stream) {
+  const bool dgates = dg_fwd != nullptr && dg_bwd != nullptr;
+  if (cluster < 1 || cluster > kMaxCluster || H % cluster != 0 || ksplit < 1 ||
+      ksplit * 4 * (H / cluster) > kThreads || 2 * H > kThreads || elem_bytes(dtype) == 0 ||
+      dgates != (dtype == kBF16) || (!dgates && (dg_fwd != nullptr || dg_bwd != nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      dtype == kF32 ? launch_bwd<float>(xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_seq, c_seq, g_out,
+                                        dxw_fwd, dxw_bwd, dg_fwd, dg_bwd, B, T, H, cluster,
+                                        ksplit, st)
+                    : launch_bwd<__nv_bfloat16>(xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_seq, c_seq,
+                                                g_out, dxw_fwd, dxw_bwd, dg_fwd, dg_bwd, B, T, H,
+                                                cluster, ksplit, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -514,20 +645,20 @@ extern "C" int lstm_bwd_launch(const float* xw_fwd, const float* w_hh_fwd, const
 // Launches the dW_hh reduction of both directions on `stream`: the partial
 // products of `slices` slices of rows_per_slice rows of K = B*T into part
 // (2, slices, H, 4H), then their sums in slice order into dw_fwd and dw_bwd
-// (H, 4H), from h_seq (B, T, 2H) and dxw_fwd, dxw_bwd (B, T, 4H).  Pointers
-// are 16-byte aligned; slices * rows_per_slice >= B*T > (slices - 1) *
-// rows_per_slice.  Returns the CUDA error as an int.
-extern "C" int lstm_dwhh_launch(const float* h_seq, const float* dxw_fwd, const float* dxw_bwd,
-                                float* part, float* dw_fwd, float* dw_bwd, int B, int T, int H,
-                                int slices, int rows_per_slice, void* stream) {
+// (H, 4H), from h_seq (B, T, 2H) and the f32 dgates dg_fwd, dg_bwd (B, T,
+// 4H).  `dtype` is the element type of h_seq and of dw (0: f32, 1: bf16);
+// the dgates and the partials are f32 in both.  Pointers are 16-byte
+// aligned; slices * rows_per_slice >= B*T > (slices - 1) * rows_per_slice.
+// Returns the CUDA error as an int.
+extern "C" int lstm_dwhh_launch(const void* h_seq, const float* dg_fwd, const float* dg_bwd,
+                                float* part, void* dw_fwd, void* dw_bwd, int B, int T, int H,
+                                int slices, int rows_per_slice, int dtype, void* stream) {
+  if (elem_bytes(dtype) == 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = ((H + kTile - 1) / kTile) * ((4 * H + kTile - 1) / kTile);
-  lstm_dwhh_partial_kernel<float><<<dim3(tiles, slices, 2), kThreads, 0, st>>>(
-      h_seq, dxw_fwd, dxw_bwd, part, B, T, H, rows_per_slice);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n4 = H * H;  // H * 4H / 4
-  lstm_dwhh_reduce_kernel<<<(2 * n4 + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0,
-                            st>>>(part, dw_fwd, dw_bwd, slices, n4);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      dtype == kF32 ? launch_dwhh<float>(h_seq, dg_fwd, dg_bwd, part, dw_fwd, dw_bwd, B, T, H,
+                                         slices, rows_per_slice, st)
+                    : launch_dwhh<__nv_bfloat16>(h_seq, dg_fwd, dg_bwd, part, dw_fwd, dw_bwd, B,
+                                                 T, H, slices, rows_per_slice, st);
+  return static_cast<int>(err);
 }

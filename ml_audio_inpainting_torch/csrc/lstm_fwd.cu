@@ -72,12 +72,23 @@
 // them fit the card at once (at ~100 registers, 2 rows a cluster at B=32
 // ran 1.6x slower).
 //
-// The element type is a template parameter; only f32 is instantiated (bf16
-// adds its to_f32 overload and instantiations).  No tensor cores and no
-// approximate transcendentals: f32 FMA, expf and tanhf, as _fwd_kernel's
-// f32 accumulation.
+// The element type, Elem, is a template parameter, instantiated for f32 and
+// bf16 (__nv_bfloat16), as the JAX package runs _fwd_kernel in both (bf16
+// under make_cnn_train_step(compute_dtype=bfloat16)).  In bf16 the kernel
+// computes what _fwd_kernel computes there: W_hh is converted to f32 when
+// it is loaded into registers (exact), xw is staged in bf16 and converted
+// when it is added, the carries h and c stay f32 (in registers, and the h
+// exchanged between the CTAs of a cluster in f32 shared memory), and only
+// the global stores of h and c round to bf16 (__float2bfloat16_rn, as
+// _fwd_kernel's astype).  bf16 halves the bytes of xw, h and c; the step
+// is bound by latency all the same.  A bf16 xw row is staged by 16-byte
+// copies where a gate's units fill whole 16-byte groups (8 units), 4-byte
+// copies where they fill pairs, and element by element for an odd number
+// of units a CTA.  No tensor cores and no approximate transcendentals: f32
+// FMA, expf and tanhf, as _fwd_kernel's f32 accumulation.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -94,8 +105,23 @@ constexpr unsigned kAll = 0xffffffffu;
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-// The f32 form of the element-type helper.
+// Element type <-> f32.  from_f32 rounds to nearest even, as astype does.
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename Elem>
+__device__ __forceinline__ Elem from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// The codes of the element types at the C interface (ops/cuda/lstm_cell.py).
+constexpr int kF32 = 0;
+constexpr int kBF16 = 1;
 
 // 16 or 4 bytes global -> shared, asynchronously; zero-filled when !valid
 // (src is then not read).
@@ -194,8 +220,12 @@ __global__ void __launch_bounds__(kThreads, KQ == 4 ? 4 : 2)
 
   // xw of step s, the cluster's rows and own columns -> xw_s[s % kStages],
   // by the CTA's last threads.  Always commits a group, empty past the end.
-  const bool wide = units % (16 / sizeof(Elem)) == 0;  // 16-byte copies, else 4-byte
-  const int vec = wide ? 16 / sizeof(Elem) : 4 / sizeof(Elem);
+  // 16-byte copies where a gate's units fill whole 16-byte groups, else
+  // 4-byte ones, else (bf16, an odd number of units) element by element:
+  // those plain stores are published by the same barrier as the copies.
+  constexpr int kPer16 = 16 / sizeof(Elem);
+  constexpr int kPer4 = 4 / sizeof(Elem);
+  const int vec = units % kPer16 == 0 ? kPer16 : units % kPer4 == 0 ? kPer4 : 1;
   const int per_gate = units / vec;
   auto stage_xw = [&](int s) {
     if (s < T) {
@@ -209,10 +239,12 @@ __global__ void __launch_bounds__(kThreads, KQ == 4 ? 4 : 2)
         const Elem* src = valid ? xw + (static_cast<size_t>(b0 + r) * T + t) * G + g * H + n0 + j
                                 : xw;
         Elem* d = dst + r * ncol + g * units + j;
-        if (wide) {
+        if (vec == kPer16) {
           cp_async16(d, src, valid);
-        } else {
+        } else if (vec == kPer4) {
           cp_async4(d, src, valid);
+        } else {
+          *d = valid ? *src : from_f32<Elem>(0.0f);
         }
       }
     }
@@ -301,9 +333,9 @@ __global__ void __launch_bounds__(kThreads, KQ == 4 ? 4 : 2)
         if (r < rows) {
           const size_t at = (static_cast<size_t>(b0 + r) * T + t) * ldh + off + n;
           if (q == 0) {
-            h_out[at] = static_cast<Elem>(h[j]);
+            h_out[at] = from_f32<Elem>(h[j]);
           } else if (c_out != nullptr) {
-            c_out[at] = static_cast<Elem>(c[j]);
+            c_out[at] = from_f32<Elem>(c[j]);
           }
         }
       }
@@ -313,12 +345,12 @@ __global__ void __launch_bounds__(kThreads, KQ == 4 ? 4 : 2)
   }
 }
 
-template <int Rows, int KQ>
-cudaError_t launch_plan(const float* xw_fwd, const float* w_hh_fwd, const float* xw_bwd,
-                        const float* w_hh_bwd, float* h_out, float* c_out, int B, int T, int H,
+template <typename Elem, int Rows, int KQ>
+cudaError_t launch_plan(const void* xw_fwd, const void* w_hh_fwd, const void* xw_bwd,
+                        const void* w_hh_bwd, void* h_out, void* c_out, int B, int T, int H,
                         int cluster, int groups, cudaStream_t stream) {
-  auto kernel = lstm_fwd_kernel<float, Rows, KQ>;
-  const size_t smem = FwdLayout(H, Rows, cluster, KQ, sizeof(float)).bytes;
+  auto kernel = lstm_fwd_kernel<Elem, Rows, KQ>;
+  const size_t smem = FwdLayout(H, Rows, cluster, KQ, sizeof(Elem)).bytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -334,34 +366,52 @@ cudaError_t launch_plan(const float* xw_fwd, const float* w_hh_fwd, const float*
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  return cudaLaunchKernelEx(&config, kernel, xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_out, c_out, B,
-                            T, H, cluster);
+  return cudaLaunchKernelEx(&config, kernel, static_cast<const Elem*>(xw_fwd),
+                            static_cast<const Elem*>(w_hh_fwd), static_cast<const Elem*>(xw_bwd),
+                            static_cast<const Elem*>(w_hh_bwd), static_cast<Elem*>(h_out),
+                            static_cast<Elem*>(c_out), B, T, H, cluster);
 }
 
-template <int KQ>
-cudaError_t launch_rows(int rows, const float* xw_fwd, const float* w_hh_fwd, const float* xw_bwd,
-                        const float* w_hh_bwd, float* h_out, float* c_out, int B, int T, int H,
+template <typename Elem, int KQ>
+cudaError_t launch_rows(int rows, const void* xw_fwd, const void* w_hh_fwd, const void* xw_bwd,
+                        const void* w_hh_bwd, void* h_out, void* c_out, int B, int T, int H,
                         int cluster, int groups, cudaStream_t stream) {
   switch (rows) {
     case 2:
-      return launch_plan<2, KQ>(xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_out, c_out, B, T, H,
-                                cluster, groups, stream);
+      return launch_plan<Elem, 2, KQ>(xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_out, c_out, B, T, H,
+                                      cluster, groups, stream);
     case 4:
-      return launch_plan<4, KQ>(xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_out, c_out, B, T, H,
-                                cluster, groups, stream);
+      return launch_plan<Elem, 4, KQ>(xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_out, c_out, B, T, H,
+                                      cluster, groups, stream);
     case 8:
-      return launch_plan<8, KQ>(xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_out, c_out, B, T, H,
-                                cluster, groups, stream);
+      return launch_plan<Elem, 8, KQ>(xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_out, c_out, B, T, H,
+                                      cluster, groups, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+template <typename Elem>
+cudaError_t launch_elem(int rows, int ksplit, const void* xw_fwd, const void* w_hh_fwd,
+                        const void* xw_bwd, const void* w_hh_bwd, void* h_out, void* c_out,
+                        int B, int T, int H, int cluster, int groups, cudaStream_t stream) {
+  return ksplit == 4 ? launch_rows<Elem, 4>(rows, xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_out,
+                                            c_out, B, T, H, cluster, groups, stream)
+                     : launch_rows<Elem, 2>(rows, xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_out,
+                                            c_out, B, T, H, cluster, groups, stream);
+}
+
+// Bytes of an element of type code `dtype`, 0 for a code the kernel has not.
+int elem_bytes(int dtype) {
+  return dtype == kF32 ? 4 : dtype == kBF16 ? 2 : 0;
+}
+
 }  // namespace
 
-// Dynamic shared memory, in bytes, of one lstm_fwd CTA.
-extern "C" int lstm_fwd_smem_bytes(int H, int rows, int cluster, int ksplit) {
-  return static_cast<int>(FwdLayout(H, rows, cluster, ksplit, sizeof(float)).bytes);
+// Dynamic shared memory, in bytes, of one lstm_fwd CTA for elements of
+// `elem_bytes` bytes (4: f32, 2: bf16).
+extern "C" int lstm_fwd_smem_bytes(int H, int rows, int cluster, int ksplit, int elem_bytes) {
+  return static_cast<int>(FwdLayout(H, rows, cluster, ksplit, elem_bytes).bytes);
 }
 
 // Launches the forward sweep of (xw_fwd, w_hh_fwd) and the backward sweep of
@@ -369,29 +419,38 @@ extern "C" int lstm_fwd_smem_bytes(int H, int rows, int cluster, int ksplit) {
 // null, c_out (B, T, 2H).  The plan: `groups` clusters of `cluster` CTAs a
 // direction, each running `rows` batch rows (rows in {2, 4, 8}, groups =
 // ceil(B / rows)), each gate's product split into `ksplit` k-slices (4, or
-// 2 where 16 H / cluster > kThreads).  Returns the CUDA error as an int
-// (0 = launched); cudaErrorInvalidValue, launching nothing, for a plan the
-// kernel cannot run.  Pointers are device pointers to contiguous f32
-// arrays, xw 16-byte aligned; the caller checks shapes.
-extern "C" int lstm_fwd_launch(const float* xw_fwd, const float* w_hh_fwd, const float* xw_bwd,
-                               const float* w_hh_bwd, float* h_out, float* c_out, int B, int T,
-                               int H, int rows, int cluster, int ksplit, int groups,
+// 2 where 16 H / cluster > kThreads).  `dtype` is the element type of every
+// array (0: f32, 1: bf16).  Returns the CUDA error as an int (0 =
+// launched); cudaErrorInvalidValue, launching nothing, for a plan or type
+// the kernel cannot run.  Pointers are device pointers to contiguous
+// arrays, xw aligned to the copies that stage it (16 bytes always do); the
+// caller checks shapes.
+extern "C" int lstm_fwd_launch(const void* xw_fwd, const void* w_hh_fwd, const void* xw_bwd,
+                               const void* w_hh_bwd, void* h_out, void* c_out, int B, int T,
+                               int H, int rows, int cluster, int ksplit, int groups, int dtype,
                                void* stream) {
-  const auto misaligned = [](const float* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if (B < 1 || T < 1 || H < 4 || H > kMaxHidden || H % 4 != 0 || cluster < 1 ||
+  const int eb = elem_bytes(dtype);
+  if (eb == 0 || B < 1 || T < 1 || H < 4 || H > kMaxHidden || H % 4 != 0 || cluster < 1 ||
       cluster > kMaxCluster || H % cluster != 0 || (ksplit != 2 && ksplit != 4) ||
       4 * ksplit * (H / cluster) > kThreads || groups < 1 ||
       static_cast<long long>(groups) * rows < B ||
-      static_cast<long long>(groups - 1) * rows >= B ||
-      ((H / cluster) % 4 == 0 && (misaligned(xw_fwd) || misaligned(xw_bwd)))) {
+      static_cast<long long>(groups - 1) * rows >= B) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // The alignment of xw that its staging copies need.
+  const int units_bytes = (H / cluster) * eb;
+  const int align = units_bytes % 16 == 0 ? 16 : units_bytes % 4 == 0 ? 4 : eb;
+  const auto misaligned = [align](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % align != 0;
+  };
+  if (misaligned(xw_fwd) || misaligned(xw_bwd)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      ksplit == 4 ? launch_rows<4>(rows, xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_out, c_out, B, T,
-                                   H, cluster, groups, st)
-                  : launch_rows<2>(rows, xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_out, c_out, B, T,
-                                   H, cluster, groups, st);
+      dtype == kF32 ? launch_elem<float>(rows, ksplit, xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_out,
+                                         c_out, B, T, H, cluster, groups, st)
+                    : launch_elem<__nv_bfloat16>(rows, ksplit, xw_fwd, w_hh_fwd, xw_bwd,
+                                                 w_hh_bwd, h_out, c_out, B, T, H, cluster,
+                                                 groups, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

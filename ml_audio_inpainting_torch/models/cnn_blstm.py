@@ -46,6 +46,13 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     ``var`` (torch's own rule takes momentum 0.1 and the unbiased variance).
     Eval mode is torch's (cuDNN) normalisation with the running statistics.
     The state-dict keys are ``nn.BatchNorm2d``'s.
+
+    In bf16 (``x``, and the scale and bias, cast to bf16 by the mixed-precision
+    train step) train mode follows flax's ``force_float32_reductions``: the
+    batch mean and variance are taken over ``x.float()``, the running
+    statistics stay f32 and move in f32, and ``y`` is computed in f32 (the
+    bf16 scale and bias upcast) and returned in ``x``'s type.  For f32 (and
+    f64) input every cast is the identity and the result is the f32 rule's.
     """
 
     def __init__(self, num_features: int):
@@ -55,14 +62,17 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         dims = (0, 2, 3)
-        mean = x.mean(dim=dims)
-        var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+        acc = torch.promote_types(x.dtype, torch.float32)  # f32 for bf16, else x's own
+        xf = x.to(acc)
+        mean = xf.mean(dim=dims)
+        var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
         with torch.no_grad():
             self.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
             self.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
             self.num_batches_tracked.add_(1)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(acc)
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.to(acc)[:, None, None]
+        return y.to(x.dtype)
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:

@@ -42,7 +42,17 @@ Each kernel has a wrapper that takes its plain version for CPU tensors only;
 on CUDA tensors it launches the kernel or raises.  Launches are counted in
 ``bilstm_recurrence.launches`` (``lstm_fwd``, launched by
 :func:`bilstm_forward`), ``bilstm_recurrence_backward.launches``
-(``lstm_bwd``) and ``bilstm_dwhh.launches`` (``lstm_dwhh``).
+(``lstm_bwd``) and ``bilstm_dwhh.launches`` (``lstm_dwhh``); each also
+counts its bf16 launches alone in ``.bf16_launches``.
+
+Element types: f32 and bf16, one type for a layer's ``xw`` and ``W_hh``
+(and so for ``h``, ``c``, the incoming gradient and ``dxw``).  bf16 runs as
+the Pallas kernels run it (the JAX package's bf16 training): f32 carries,
+``W_hh`` and ``xw`` upcast, ``h`` and ``c`` rounded to bf16 only where they
+are stored; the backward recomputes the gates from the stored bf16
+``h_prev`` and ``c``, stores ``dxw`` in bf16, and sums ``dW_hh`` in f32 from
+the unrounded f32 ``dgates``, rounded to bf16 once at the end.  A CUDA
+tensor of any other type, or of mixed types, raises.
 """
 
 from __future__ import annotations
@@ -74,6 +84,7 @@ __all__ = [
     "bwd_plan",
     "DwhhPlan",
     "dwhh_plan",
+    "DTYPE_CODES",
     "bilstm_recurrence",
     "bilstm_recurrence_reference",
     "bilstm_forward",
@@ -120,24 +131,29 @@ DWHH_TARGET_BLOCKS = 256
 # the error where B=25's 8 slices of 1312 rows have it (1.8e-5).
 DWHH_MAX_SLICE_ROWS = 1344
 
+# The element types the kernels are instantiated for, and their codes at the
+# C interface (kF32, kBF16 in the sources).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C launchers of each source: name -> argument types (pointers, then B, T, H, stream).
 _LAUNCHERS = {
     "lstm_fwd": {
         # xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_out, c_out (or null);
-        # B, T, H, rows, cluster, ksplit, groups
-        "lstm_fwd_launch": [_P] * 6 + [_I] * 7 + [_P],
-        # H, rows, cluster, ksplit -> dynamic shared memory of a CTA, bytes
-        "lstm_fwd_smem_bytes": [_I] * 4,
+        # B, T, H, rows, cluster, ksplit, groups, dtype code
+        "lstm_fwd_launch": [_P] * 6 + [_I] * 8 + [_P],
+        # H, rows, cluster, ksplit, element bytes -> dynamic shared memory of a CTA, bytes
+        "lstm_fwd_smem_bytes": [_I] * 5,
     },
     "lstm_bwd": {
-        # xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_seq, c_seq, g_out, dxw_fwd, dxw_bwd;
-        # B, T, H, cluster, ksplit
-        "lstm_bwd_launch": [_P] * 9 + [_I] * 5 + [_P],
-        # h_seq, dxw_fwd, dxw_bwd, part, dw_fwd, dw_bwd; B, T, H, slices, rows_per_slice
-        "lstm_dwhh_launch": [_P] * 6 + [_I] * 5 + [_P],
-        # H, cluster, ksplit -> dynamic shared memory of a sweep CTA, bytes
-        "lstm_bwd_smem_bytes": [_I] * 3,
+        # xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_seq, c_seq, g_out, dxw_fwd, dxw_bwd,
+        # dg_fwd, dg_bwd (f32 dgates; null in f32); B, T, H, cluster, ksplit, dtype code
+        "lstm_bwd_launch": [_P] * 11 + [_I] * 6 + [_P],
+        # h_seq, dg_fwd, dg_bwd, part, dw_fwd, dw_bwd; B, T, H, slices, rows_per_slice,
+        # dtype code (of h_seq and dw)
+        "lstm_dwhh_launch": [_P] * 6 + [_I] * 6 + [_P],
+        # H, cluster, ksplit, element bytes -> dynamic shared memory of a sweep CTA, bytes
+        "lstm_bwd_smem_bytes": [_I] * 4,
     },
 }
 
@@ -205,21 +221,34 @@ def load_library(name: str) -> KernelLibrary:
 # ---------------------------------------------------------------- plain versions
 
 
+def _carry_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type the recurrences carry and compute in: f32 for bf16 inputs
+    (the Pallas kernels' f32 scratch and ``preferred_element_type``), the
+    inputs' own type for f32 and f64."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def lstm_recurrence_reference(
     xw: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False, return_c: bool = False
 ):
     """Plain PyTorch version of one direction of ``lstm_fwd``, ``(B, T, 4H)``
     -> ``h (B, T, H)`` (and ``c (B, T, H)`` too with ``return_c``): a Python
     loop over time with the same math
-    (``ml_audio_inpainting_tpu/ops/lstm.py::lstm_scan`` from a zero state)."""
+    (``ml_audio_inpainting_tpu/ops/lstm.py::lstm_scan`` from a zero state).
+
+    bf16 inputs run as ``_fwd_kernel`` runs them: ``xw`` and ``W_hh``
+    upcast, ``h`` and ``c`` carried in f32 and rounded to bf16 only where
+    they are stored."""
     B, T, _ = xw.shape
     H = w_hh.shape[0]
-    h = xw.new_zeros((B, H))
-    c = xw.new_zeros((B, H))
+    acc = _carry_dtype(xw.dtype)
+    w_hh = w_hh.to(acc)
+    h = xw.new_zeros((B, H), dtype=acc)
+    c = xw.new_zeros((B, H), dtype=acc)
     h_seq = xw.new_empty((B, T, H))
     c_seq = xw.new_empty((B, T, H)) if return_c else None
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        gates = xw[:, t] + h @ w_hh
+        gates = xw[:, t].to(acc) + h @ w_hh
         i, f, g, o = gates.chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
@@ -261,19 +290,32 @@ def lstm_recurrence_backward_reference(
     c: torch.Tensor,
     g: torch.Tensor,
     reverse: bool = False,
-) -> torch.Tensor:
+    return_dgates: bool = False,
+):
     """Plain version of one direction of ``lstm_bwd``: ``dxw (B, T, 4H)``, the
     gradient of ``sum(h * g)`` for the direction's saved ``h``, ``c`` and
     incoming ``g``, all ``(B, T, H)``.  A Python loop over time with
     ``_bwd_kernel``'s math, sweeping against the forward recurrence's order;
-    :func:`dwhh_reference` of its result is ``_bwd_kernel``'s ``dW_hh``."""
+    :func:`dwhh_reference` of its unrounded ``dgates`` is ``_bwd_kernel``'s
+    ``dW_hh``.
+
+    bf16 inputs run as ``_bwd_kernel`` runs them: the gates recomputed from
+    the stored (bf16) ``h_prev`` and ``c`` and the upcast ``xw`` and
+    ``W_hh``, the ``dh`` and ``dc`` carries in f32, and ``dgates`` rounded
+    to bf16 only where it is stored as ``dxw``.  With ``return_dgates`` the
+    result is ``(dxw, dgates)``, ``dgates`` unrounded (for f32 inputs the
+    same values as ``dxw``)."""
     B, T, _ = xw.shape
     H = w_hh.shape[0]
+    acc = _carry_dtype(xw.dtype)
+    xw_in, w_hh = xw, w_hh.to(acc)
+    xw, h, c, g = (t.to(acc) for t in (xw, h, c, g))
     h_prev = _shift_prev(h, reverse)
     c_prev = _shift_prev(c, reverse)
     dh_carry = xw.new_zeros((B, H))
     dc_carry = xw.new_zeros((B, H))
-    dxw = xw.new_empty(xw.shape)
+    dxw = xw_in.new_empty(xw.shape)
+    dg_seq = xw.new_empty(xw.shape) if return_dgates and acc != xw_in.dtype else None
     for t in (range(T) if reverse else range(T - 1, -1, -1)):
         gates = xw[:, t] + h_prev[:, t] @ w_hh
         i, f, gg, o = gates.chunk(4, dim=-1)
@@ -291,16 +333,25 @@ def lstm_recurrence_backward_reference(
             dim=-1,
         )
         dxw[:, t] = dgates
+        if dg_seq is not None:
+            dg_seq[:, t] = dgates
         dh_carry = dgates @ w_hh.T
         dc_carry = dc * f
+    if return_dgates:
+        return dxw, (dxw if dg_seq is None else dg_seq)
     return dxw
 
 
-def dwhh_reference(h: torch.Tensor, dxw: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+def dwhh_reference(h: torch.Tensor, dgates: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """Plain version of one direction of ``lstm_dwhh``:
-    ``sum_{b,t} h_prev[b, t]^T dxw[b, t]`` for the direction's ``h (B, T, H)``."""
-    h_prev = _shift_prev(h, reverse)
-    return h_prev.reshape(-1, h.shape[-1]).T @ dxw.reshape(-1, dxw.shape[-1])
+    ``sum_{b,t} h_prev[b, t]^T dgates[b, t]`` for the direction's ``h (B, T,
+    H)``, in ``h``'s type.  For bf16 ``h`` the sum runs in f32 over the
+    upcast ``h`` and ``dgates`` (which the caller passes unrounded, in f32,
+    as ``_bwd_kernel`` sums them) and is rounded once at the end."""
+    acc = _carry_dtype(h.dtype)
+    h_prev = _shift_prev(h, reverse).to(acc)
+    dw = h_prev.reshape(-1, h.shape[-1]).T @ dgates.to(acc).reshape(-1, dgates.shape[-1])
+    return dw.to(h.dtype)
 
 
 # ---------------------------------------------------------------- launch plans
@@ -367,17 +418,18 @@ def fwd_plan(B: int, H: int, rows: Optional[int] = None) -> ClusterPlan:
     return ClusterPlan(B, H, rows, cluster, units, ksplit, _cdiv(B, rows))
 
 
-def fwd_smem_bytes(plan: ClusterPlan) -> int:
-    """Dynamic shared memory of an ``lstm_fwd`` CTA under ``plan`` (f32), as
-    ``FwdLayout`` in ``csrc/lstm_fwd.cu`` lays it out: the W_hh slice (row
-    stride padded to an odd multiple of 4), two h buffers (each row's
-    k-slices in segments of ``FWD_MAX_HIDDEN / ksplit + 4`` floats) and
-    ``FWD_STAGES`` xw buffers."""
+def fwd_smem_bytes(plan: ClusterPlan, elem_bytes: int = 4) -> int:
+    """Dynamic shared memory of an ``lstm_fwd`` CTA under ``plan`` for
+    elements of ``elem_bytes`` bytes (4: f32, 2: bf16), as ``FwdLayout`` in
+    ``csrc/lstm_fwd.cu`` lays it out: the f32 W_hh slice (row stride padded
+    to an odd multiple of 4), two f32 h buffers (each row's k-slices in
+    segments of ``FWD_MAX_HIDDEN / ksplit + 4`` floats) and ``FWD_STAGES``
+    xw buffers of the element type."""
     ldw = 4 * ((plan.units + 1) | 1)
     ncol = 4 * plan.units
     hrow = plan.ksplit * (FWD_MAX_HIDDEN // plan.ksplit + 4)
     floats = plan.H * ldw + 2 * plan.rows * hrow
-    return 4 * floats + _cdiv(4 * FWD_STAGES * plan.rows * ncol, 16) * 16
+    return 4 * floats + _cdiv(elem_bytes * FWD_STAGES * plan.rows * ncol, 16) * 16
 
 
 def bwd_plan(B: int, H: int) -> ClusterPlan:
@@ -441,8 +493,9 @@ def _check_kernel_args(xw: torch.Tensor, w_hh: torch.Tensor) -> None:
             f"LSTM kernel: xw on {xw.device} and w_hh on {w_hh.device}; the kernel "
             "needs them on one CUDA device (CPU tensors take the plain version)"
         )
-    if xw.dtype != torch.float32 or w_hh.dtype != torch.float32:
-        raise TypeError(f"LSTM kernel takes float32, got {xw.dtype}/{w_hh.dtype}")
+    if xw.dtype not in DTYPE_CODES or w_hh.dtype != xw.dtype:
+        raise TypeError(f"LSTM kernel takes float32 or bfloat16 xw and w_hh of one type, got "
+                        f"{xw.dtype}/{w_hh.dtype}")
     H = w_hh.shape[0] if w_hh.dim() == 2 else -1
     if xw.dim() != 3 or w_hh.dim() != 2 or w_hh.shape[1] != 4 * H or xw.shape[2] != 4 * H:
         raise ValueError(
@@ -459,14 +512,20 @@ def _check_pair(xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd) -> None:
     _check_kernel_args(xw_bwd, w_hh_bwd)
     if (xw_bwd.shape, w_hh_bwd.shape, xw_bwd.device) != (xw_fwd.shape, w_hh_fwd.shape, xw_fwd.device):
         raise ValueError("LSTM kernel: the two directions differ in shape or device")
+    if xw_bwd.dtype != xw_fwd.dtype:
+        raise TypeError(f"LSTM kernel takes the two directions of one type, got "
+                        f"{xw_fwd.dtype}/{xw_bwd.dtype}")
 
 
-def _check_layer_seq(name: str, t: torch.Tensor, like: torch.Tensor, width: int) -> None:
-    """A ``(B, T, width)`` f32 contiguous tensor on ``like``'s device."""
+def _check_layer_seq(name: str, t: torch.Tensor, like: torch.Tensor, width: int,
+                     dtype: Optional[torch.dtype] = None) -> None:
+    """A ``(B, T, width)`` contiguous tensor of ``dtype`` (by default
+    ``like``'s) on ``like``'s device."""
     B, T, _ = like.shape
-    if t.device != like.device or t.dtype != torch.float32:
+    dtype = like.dtype if dtype is None else dtype
+    if t.device != like.device or t.dtype != dtype:
         raise ValueError(f"LSTM kernel: {name} is {t.dtype} on {t.device}, expected "
-                         f"float32 on {like.device}")
+                         f"{dtype} on {like.device}")
     if tuple(t.shape) != (B, T, width) or not t.is_contiguous():
         raise ValueError(f"LSTM kernel: {name} must be contiguous {(B, T, width)}, "
                          f"got {tuple(t.shape)}")
@@ -499,7 +558,8 @@ def bilstm_forward(
     ``lstm_fwd`` once for both directions on the clusters of
     :func:`fwd_plan` (``rows`` batch rows a cluster, by default the plan's
     choice; the result does not depend on it), counted in
-    ``bilstm_recurrence.launches``, or raise.
+    ``bilstm_recurrence.launches`` (and ``.bf16_launches`` in bf16), or
+    raise.  ``h`` and ``c`` are in the inputs' type.
     """
     tensors = (xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd)
     if all(t.device.type == "cpu" for t in tensors):
@@ -519,11 +579,11 @@ def bilstm_forward(
     with torch.cuda.device(h.device):
         rc = launch(*(t.data_ptr() for t in (xw_f, w_hh_fwd, xw_b, w_hh_bwd, h)),
                     None if c is None else c.data_ptr(), B, T, H, plan.rows, plan.cluster,
-                    plan.ksplit, plan.groups, _stream(h.device))
+                    plan.ksplit, plan.groups, DTYPE_CODES[h.dtype], _stream(h.device))
     if rc != 0:
         raise RuntimeError(f"lstm_fwd launch failed with CUDA error {rc} (B={B}, T={T}, H={H}, "
-                           f"{plan})")
-    bilstm_recurrence.launches += 1
+                           f"{h.dtype}, {plan})")
+    _count(bilstm_recurrence, h.dtype)
     return h, c
 
 
@@ -535,25 +595,33 @@ def bilstm_recurrence_backward(
     h: torch.Tensor,
     c: torch.Tensor,
     g: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    dgates: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """``(dxw_fwd, dxw_bwd)``, the gradients of ``sum(h * g)`` with respect to
-    a BiLSTM layer's projected inputs, given its forward inputs, its
-    ``(B, T, 2H)`` outputs ``h`` and ``c`` (:func:`bilstm_forward`) and the
-    incoming gradient ``g``.  :func:`bilstm_dwhh` then gives ``dW_hh``.
+    a BiLSTM layer's projected inputs, in their type, given its forward
+    inputs, its ``(B, T, 2H)`` outputs ``h`` and ``c``
+    (:func:`bilstm_forward`) and the incoming gradient ``g``.  With
+    ``dgates``, ``(dxw_fwd, dxw_bwd, dgates_fwd, dgates_bwd)``: the same
+    gradients unrounded, in f32 (in f32 the ``dxw`` tensors themselves),
+    which :func:`bilstm_dwhh` sums into ``dW_hh``.
 
     CPU tensors take :func:`lstm_recurrence_backward_reference` per
-    direction; CUDA tensors launch ``lstm_bwd`` once for both directions, or
-    raise.
+    direction; CUDA tensors launch ``lstm_bwd`` once for both directions
+    (in bf16 it also writes the f32 dgates, into buffers allocated here,
+    whether or not they are returned), or raise.
     """
     tensors = (xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h, c, g)
     if all(t.device.type == "cpu" for t in tensors):
         H = w_hh_fwd.shape[0]
-        return (
+        (dxw_f, dg_f), (dxw_b, dg_b) = (
             lstm_recurrence_backward_reference(
-                xw_fwd, w_hh_fwd, h[..., :H], c[..., :H], g[..., :H], reverse=False),
+                xw_fwd, w_hh_fwd, h[..., :H], c[..., :H], g[..., :H], reverse=False,
+                return_dgates=True),
             lstm_recurrence_backward_reference(
-                xw_bwd, w_hh_bwd, h[..., H:], c[..., H:], g[..., H:], reverse=True),
+                xw_bwd, w_hh_bwd, h[..., H:], c[..., H:], g[..., H:], reverse=True,
+                return_dgates=True),
         )
+        return (dxw_f, dxw_b, dg_f, dg_b) if dgates else (dxw_f, dxw_b)
     _check_pair(xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd)
     B, T, _ = xw_fwd.shape
     H = w_hh_fwd.shape[0]
@@ -561,57 +629,70 @@ def bilstm_recurrence_backward(
         _check_layer_seq(name, t, xw_fwd, 2 * H)
     dxw_f = torch.empty_like(xw_fwd)
     dxw_b = torch.empty_like(xw_bwd)
+    if xw_fwd.dtype == torch.float32:
+        dg_f, dg_b = dxw_f, dxw_b
+        dg_ptrs = (None, None)
+    else:
+        dg_f, dg_b = (torch.empty(xw_fwd.shape, device=xw_fwd.device, dtype=torch.float32)
+                      for _ in range(2))
+        dg_ptrs = (dg_f.data_ptr(), dg_b.data_ptr())
+    out = (dxw_f, dxw_b, dg_f, dg_b) if dgates else (dxw_f, dxw_b)
     if B == 0 or T == 0:
-        return dxw_f, dxw_b
+        return out
     plan = bwd_plan(B, H)
     launch = load_library("lstm_bwd").cdll.lstm_bwd_launch
     inputs = [_aligned16(t) for t in tensors]
     with torch.cuda.device(h.device):
-        rc = launch(*(t.data_ptr() for t in (*inputs, dxw_f, dxw_b)), B, T, H, plan.cluster,
-                    plan.ksplit, _stream(h.device))
+        rc = launch(*(t.data_ptr() for t in (*inputs, dxw_f, dxw_b)), *dg_ptrs, B, T, H,
+                    plan.cluster, plan.ksplit, DTYPE_CODES[xw_fwd.dtype], _stream(h.device))
     if rc != 0:
         raise RuntimeError(f"lstm_bwd launch failed with CUDA error {rc} (B={B}, T={T}, H={H}, "
-                           f"{plan})")
-    bilstm_recurrence_backward.launches += 1
-    return dxw_f, dxw_b
+                           f"{xw_fwd.dtype}, {plan})")
+    _count(bilstm_recurrence_backward, xw_fwd.dtype)
+    return out
 
 
 def bilstm_dwhh(
-    h: torch.Tensor, dxw_fwd: torch.Tensor, dxw_bwd: torch.Tensor
+    h: torch.Tensor, dgates_fwd: torch.Tensor, dgates_bwd: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(dW_hh_fwd, dW_hh_bwd)``, each ``sum_{b,t} h_prev[b, t]^T dxw[b, t]``
-    for its half of ``h (B, T, 2H)``.
+    """``(dW_hh_fwd, dW_hh_bwd)`` in ``h``'s type, each
+    ``sum_{b,t} h_prev[b, t]^T dgates[b, t]`` for its half of ``h (B, T,
+    2H)``.  The dgates are f32 for bf16 ``h`` (the unrounded ones of
+    :func:`bilstm_recurrence_backward`), else of ``h``'s type.
 
     CPU tensors take :func:`dwhh_reference`; CUDA tensors launch
-    ``lstm_dwhh`` once for both directions (its partial products over the
-    slices of :func:`dwhh_plan`, then their sum in slice order, so the
-    result does not change from run to run), or raise.
+    ``lstm_dwhh`` once for both directions (its f32 partial products over
+    the slices of :func:`dwhh_plan`, then their sum in slice order, so the
+    result does not change from run to run, rounded to ``h``'s type at the
+    end), or raise.
     """
     H = h.shape[-1] // 2
-    if all(t.device.type == "cpu" for t in (h, dxw_fwd, dxw_bwd)):
-        return (dwhh_reference(h[..., :H], dxw_fwd, reverse=False),
-                dwhh_reference(h[..., H:], dxw_bwd, reverse=True))
+    if all(t.device.type == "cpu" for t in (h, dgates_fwd, dgates_bwd)):
+        return (dwhh_reference(h[..., :H], dgates_fwd, reverse=False),
+                dwhh_reference(h[..., H:], dgates_bwd, reverse=True))
     if h.device.type != "cuda":
         raise ValueError(f"lstm_dwhh: h on {h.device}; the kernel needs CUDA tensors")
-    for name, t in (("dxw_fwd", dxw_fwd), ("dxw_bwd", dxw_bwd)):
-        _check_layer_seq(name, t, h, 4 * H)
+    if h.dtype not in DTYPE_CODES:
+        raise TypeError(f"lstm_dwhh takes float32 or bfloat16 h, got {h.dtype}")
+    for name, t in (("dgates_fwd", dgates_fwd), ("dgates_bwd", dgates_bwd)):
+        _check_layer_seq(name, t, h, 4 * H, dtype=torch.float32)
     _check_layer_seq("h", h, h, 2 * H)
     B, T, _ = h.shape
-    dw_f = torch.empty((H, 4 * H), device=h.device, dtype=torch.float32)
+    dw_f = torch.empty((H, 4 * H), device=h.device, dtype=h.dtype)
     dw_b = torch.empty_like(dw_f)
     if B == 0 or T == 0:
         return dw_f.zero_(), dw_b.zero_()
     plan = dwhh_plan(B, T, H)
     part = torch.empty(plan.partial_shape, device=h.device, dtype=torch.float32)
     launch = load_library("lstm_bwd").cdll.lstm_dwhh_launch
-    inputs = [_aligned16(t) for t in (h, dxw_fwd, dxw_bwd)]
+    inputs = [_aligned16(t) for t in (h, dgates_fwd, dgates_bwd)]
     with torch.cuda.device(h.device):
         rc = launch(*(t.data_ptr() for t in (*inputs, part, dw_f, dw_b)), B, T, H, plan.slices,
-                    plan.rows_per_slice, _stream(h.device))
+                    plan.rows_per_slice, DTYPE_CODES[h.dtype], _stream(h.device))
     if rc != 0:
         raise RuntimeError(f"lstm_dwhh launch failed with CUDA error {rc} (B={B}, T={T}, H={H}, "
-                           f"{plan})")
-    bilstm_dwhh.launches += 1
+                           f"{h.dtype}, {plan})")
+    _count(bilstm_dwhh, h.dtype)
     return dw_f, dw_b
 
 
@@ -629,9 +710,9 @@ class _BiLSTMRecurrence(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h, c = ctx.saved_tensors
-        dxw_f, dxw_b = bilstm_recurrence_backward(
-            xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h, c, g.contiguous())
-        dw_f, dw_b = bilstm_dwhh(h, dxw_f, dxw_b)
+        dxw_f, dxw_b, dg_f, dg_b = bilstm_recurrence_backward(
+            xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h, c, g.contiguous(), dgates=True)
+        dw_f, dw_b = bilstm_dwhh(h, dg_f, dg_b)
         return dxw_f, dw_f, dxw_b, dw_b, None
 
 
@@ -655,6 +736,13 @@ def bilstm_recurrence(
     return _BiLSTMRecurrence.apply(xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, save)
 
 
-bilstm_recurrence.launches = 0
-bilstm_recurrence_backward.launches = 0
-bilstm_dwhh.launches = 0
+def _count(wrapper, dtype: torch.dtype) -> None:
+    """One launch of ``wrapper``'s kernel, in ``dtype``."""
+    wrapper.launches += 1
+    if dtype == torch.bfloat16:
+        wrapper.bf16_launches += 1
+
+
+bilstm_recurrence.launches = bilstm_recurrence.bf16_launches = 0
+bilstm_recurrence_backward.launches = bilstm_recurrence_backward.bf16_launches = 0
+bilstm_dwhh.launches = bilstm_dwhh.bf16_launches = 0

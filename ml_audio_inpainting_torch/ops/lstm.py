@@ -10,7 +10,10 @@ layer (one CUDA kernel launch on the card, its plain version on the CPU),
 which writes the concatenated ``(B, T, 2H)`` output directly and is
 differentiable (its backward is a kernel too).  Gate order is
 torch's (i, f, g, o) with one summed bias; parameters keep the JAX names
-``l{layer}_{fwd,bwd}_{w_ih,w_hh,b}`` and its ``(in, out)`` layouts.
+``l{layer}_{fwd,bwd}_{w_ih,w_hh,b}`` and its ``(in, out)`` layouts.  On
+bf16 parameters and input (the mixed-precision train step's casts) the
+projection runs in bf16 and the recurrence through the bf16 form of the
+kernels, as the JAX module runs with bf16 parameters.
 """
 
 from __future__ import annotations

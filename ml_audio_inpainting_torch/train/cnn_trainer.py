@@ -9,6 +9,15 @@ parameters.  The forward and backward passes run their convolutions in full
 f32 (TF32 off in a scope), as the JAX reference on the CPU does.  The JAX step is a pure function of its state; this one updates
 the state's model, optimizer and EMA in place and returns the same state.
 
+Mixed precision (``compute_dtype=torch.bfloat16``) is the JAX recipe
+(``cnn_trainer.py:128-136``), not ``torch.autocast``: the master weights,
+Adam's state, the EMA, the loss, the features and BatchNorm's running
+statistics stay f32, and the network's forward and backward run on bf16
+casts of the parameters and of ``log_gap``, made inside the graph
+(``torch.func.functional_call``), so every op of the network runs in bf16
+and the f32 masters receive the bf16 gradients upcast by the casts'
+backward.  The loss is taken on the prediction upcast to f32.
+
 Adam is ``torch.optim.Adam`` with optax's defaults (b1 0.9, b2 0.999, eps
 1e-8 added outside the square root, bias-corrected), which compute the same
 update as ``optax.adam``; ``optax.exponential_decay(lr, 1, d)`` becomes an
@@ -32,7 +41,7 @@ from ml_audio_inpainting_torch.models.cnn_blstm import StackedBLSTMCNN
 from ml_audio_inpainting_torch.train.features import cnn_features
 from ml_audio_inpainting_torch.train.losses import cnn_gap_l1_loss
 from ml_audio_inpainting_torch.utils.config import Config
-from ml_audio_inpainting_torch.utils.precision import full_f32_convolutions
+from ml_audio_inpainting_torch.utils.precision import cast_floating, full_f32_convolutions
 from ml_audio_inpainting_torch.weights import cnn_blstm_state_dict
 
 __all__ = ["CNNTrainState", "create_cnn_state", "make_cnn_train_step", "make_cnn_eval_step"]
@@ -93,17 +102,16 @@ def create_cnn_state(
 
 
 def _check_supported(compute_dtype, phase_mode: bool) -> None:
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            "compute_dtype (bf16 training: lstm_fwd/lstm_bwd in bf16 with the saved c "
-            "rounded to bf16) waits for a later slice of the port"
-        )
+    if compute_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype {compute_dtype}: the CNN+BiLSTM trains in f32 or "
+                         "bfloat16")
     if phase_mode:
         raise NotImplementedError("phase_mode (the complex 2-channel CNN) waits for a later "
                                   "slice of the port")
 
 
-def _batch(cfg: Config, audio: torch.Tensor, gap_start: torch.Tensor) -> Dict[str, torch.Tensor]:
+def _batch(cfg: Config, audio: torch.Tensor, gap_start: torch.Tensor,
+           gap_len: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
     return cnn_features(
         audio,
         gap_start,
@@ -111,37 +119,52 @@ def _batch(cfg: Config, audio: torch.Tensor, gap_start: torch.Tensor) -> Dict[st
         gap_len_s=cfg.data.gap_len_s,
         sample_rate=cfg.data.sample_rate,
         n_gaps=cfg.data.train_n_gaps,
+        gap_len=gap_len,
     )
 
 
 def make_cnn_train_step(
     cfg: Config, ema: float = 0.0, compute_dtype=None, phase_mode: bool = False
-) -> Callable[[CNNTrainState, torch.Tensor, torch.Tensor], Tuple[CNNTrainState, Dict]]:
-    """``step(state, audio, gap_start) -> (state, {"loss": loss})``: gaps ->
-    STFTs -> forward (train mode) -> gap L1 -> backward -> Adam -> EMA.
+) -> Callable[..., Tuple[CNNTrainState, Dict]]:
+    """``step(state, audio, gap_start, gap_len=None) -> (state, {"loss":
+    loss})``: gaps -> STFTs -> forward (train mode) -> gap L1 -> backward ->
+    Adam -> EMA.
 
-    ``audio`` is ``(B, S)`` f32 waveforms and ``gap_start`` ``(B, G)`` int64
-    gap positions in samples, on the model's device (``G`` is the recipe's
-    ``gaps_per_audio``).  The BatchNorm running statistics move during the
-    forward pass, as the JAX step's ``mutable=["batch_stats"]`` output
-    replaces them after it.  ``loss`` is a 0-d tensor on the device; the
-    step's gradients stay in the parameters' ``.grad`` until the next step.
+    ``audio`` is ``(B, S)`` f32 waveforms on the model's device and
+    ``gap_start`` ``(B, G)`` int64 gap positions in samples (``G`` is the
+    recipe's ``gaps_per_audio``); with ``cfg.data.train_n_gaps`` K > 1,
+    ``gap_start`` and ``gap_len`` are ``(B, G, K)`` gap starts and lengths
+    (``data/multigap.py``).  The BatchNorm running statistics move during
+    the forward pass, as the JAX step's ``mutable=["batch_stats"]`` output
+    replaces them after it.  ``loss`` is a 0-d f32 tensor on the device;
+    the step's (f32) gradients stay in the parameters' ``.grad`` until the
+    next step.
 
     ``ema`` > 0 blends ``ema * ema_params + (1 - ema) * params`` after the
-    optimizer step.  ``compute_dtype`` and ``phase_mode`` wait for later
-    slices of the port and raise ``NotImplementedError``.
+    optimizer step.  ``compute_dtype=torch.bfloat16`` runs the network in
+    bf16 as the module docstring says (f32 or None: the f32 step).
+    ``phase_mode`` waits for a later slice of the port and raises
+    ``NotImplementedError``.
     """
     _check_supported(compute_dtype, phase_mode)
+    mixed = compute_dtype == torch.bfloat16
 
-    def step(state: CNNTrainState, audio: torch.Tensor, gap_start: torch.Tensor):
+    def forward(model: StackedBLSTMCNN, log_gap: torch.Tensor) -> torch.Tensor:
+        if not mixed:
+            return model(log_gap)
+        params = cast_floating(dict(model.named_parameters()), compute_dtype)
+        return torch.func.functional_call(model, params, (log_gap.to(compute_dtype),))
+
+    def step(state: CNNTrainState, audio: torch.Tensor, gap_start: torch.Tensor,
+             gap_len: Optional[torch.Tensor] = None):
         model = state.model
         model.train()
         with torch.no_grad():
-            batch = _batch(cfg, audio, gap_start)
+            batch = _batch(cfg, audio, gap_start, gap_len)
         state.optimizer.zero_grad(set_to_none=True)
         with full_f32_convolutions():  # forward and backward, as the f32 reference
-            pred = model(batch["log_gap"])
-            loss = cnn_gap_l1_loss(pred, batch["target_mag"], batch["gap_mask"])
+            pred = forward(model, batch["log_gap"])
+            loss = cnn_gap_l1_loss(pred.float(), batch["target_mag"], batch["gap_mask"])
             loss.backward()
         state.optimizer.step()
         if state.scheduler is not None:
@@ -159,17 +182,19 @@ def make_cnn_train_step(
 
 def make_cnn_eval_step(
     cfg: Config, phase_mode: bool = False
-) -> Callable[[CNNTrainState, torch.Tensor, torch.Tensor], Dict]:
-    """``step(state, audio, gap_start) -> {"loss": loss}``: the validation
-    loss of the live parameters with BatchNorm's running statistics (eval
-    mode), under ``torch.inference_mode``.  The model is left in eval mode;
-    the train step switches it back."""
+) -> Callable[..., Dict]:
+    """``step(state, audio, gap_start, gap_len=None) -> {"loss": loss}``:
+    the validation loss of the live parameters with BatchNorm's running
+    statistics (eval mode), under ``torch.inference_mode``, in f32 as in
+    JAX; the gaps as for :func:`make_cnn_train_step`.  The model is left in
+    eval mode; the train step switches it back."""
     _check_supported(None, phase_mode)
 
     @torch.inference_mode()
-    def step(state: CNNTrainState, audio: torch.Tensor, gap_start: torch.Tensor):
+    def step(state: CNNTrainState, audio: torch.Tensor, gap_start: torch.Tensor,
+             gap_len: Optional[torch.Tensor] = None):
         state.model.eval()
-        batch = _batch(cfg, audio, gap_start)
+        batch = _batch(cfg, audio, gap_start, gap_len)
         with full_f32_convolutions():
             pred = state.model(batch["log_gap"])
         return {"loss": cnn_gap_l1_loss(pred, batch["target_mag"], batch["gap_mask"])}

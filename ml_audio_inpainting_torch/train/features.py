@@ -2,7 +2,8 @@
 batches (port of ``ml_audio_inpainting_tpu/train/features.py::cnn_features``).
 
 The JAX function draws the gap positions from a ``jax.random`` key inside
-the step; this one takes them as an explicit ``(B, G)`` tensor (a
+the step; this one takes them as explicit tensors, ``(B, G)`` starts of one
+gap a variant or ``(B, G, K)`` starts and lengths of K gaps a variant (a
 ``torch.Generator`` cannot reproduce ``jax.random``'s stream, and the tests
 feed both packages the same positions).  As there, the clean STFT is
 computed once per clip and shared by its G gap variants.
@@ -10,12 +11,13 @@ computed once per clip and shared by its G gap variants.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
+from ml_audio_inpainting_torch.data.multigap import gaps_mask
 from ml_audio_inpainting_torch.ops import masking
-from ml_audio_inpainting_torch.ops.gaps import gap_mask
+from ml_audio_inpainting_torch.ops.gaps import frame_mask_from_sample_mask, gap_mask
 from ml_audio_inpainting_torch.ops.stft import stft
 from ml_audio_inpainting_torch.utils.config import SpectrogramConfig
 
@@ -29,42 +31,48 @@ def cnn_features(
     gap_len_s: float = 0.2,
     sample_rate: int = 16000,
     n_gaps: int = 1,
+    gap_len: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
-    """CNN+BiLSTM batch features for ``audio (B, S)`` and ``gap_start (B, G)``
-    integer sample positions: each clip becomes G variants, variant ``g`` of
-    clip ``b`` with a gap of ``int(gap_len_s * sample_rate)`` samples at
-    ``gap_start[b, g]`` (ending at the clip's end at the latest).  Returns,
-    each ``(B*G, F, N)`` with variants of a clip adjacent:
+    """CNN+BiLSTM batch features for ``audio (B, S)``: each clip becomes G
+    variants, variants of a clip adjacent.  Returns, each ``(B*G, F, N)``:
 
     * ``log_gap``    ``log10(|STFT(gapped)| + 1e-9)``, the model input;
-    * ``gap_mask``   1 = gap frame, 0 = valid; frames ``[s // hop, e // hop)``
-      (floor at both ends, ``features.py:162-168``);
+    * ``gap_mask``   1 = gap frame, 0 = valid;
     * ``target_mag`` ``|STFT(clean)|``, repeated for each variant.
 
-    ``n_gaps > 1`` (several gaps per variant) waits for a later slice of
-    the port and raises ``NotImplementedError``.
+    With ``n_gaps == 1``, ``gap_start (B, G)`` holds integer sample
+    positions: variant ``g`` of clip ``b`` has a gap of ``int(gap_len_s *
+    sample_rate)`` samples at ``gap_start[b, g]`` (ending at the clip's end
+    at the latest).  With ``n_gaps > 1``, ``gap_start`` and ``gap_len`` are
+    ``(B, G, n_gaps)`` integer starts and lengths, as ``data/multigap.py``
+    lays them out.  A frame is a hole when its last sample is
+    (``frame_mask_from_sample_mask``'s ``"end"`` rule, ``features.py:148-161``),
+    which for one gap ``[s, e)`` is the floor rule at both ends, frames
+    ``[s // hop, e // hop)`` (``features.py:162-168``).
     """
-    if n_gaps != 1:
-        raise NotImplementedError(
-            "n_gaps > 1 (multi-gap training corruption, data/multigap.py) waits for a "
-            "later slice of the port"
-        )
     B, S = audio.shape
     G = gap_start.shape[1]
     kw = dict(n_fft=spec.n_fft, hop_length=spec.hop_length, win_length=spec.win_length)
-    gap_len = int(gap_len_s * sample_rate)
     start = gap_start.to(device=audio.device, dtype=torch.int64)
-    end = torch.clamp(start + max(gap_len, 0), max=S)
-    masks = gap_mask(S, start, end - start, dtype=audio.dtype)  # (B, G, S), 1 = valid
+    if n_gaps == 1:
+        length = int(gap_len_s * sample_rate)
+        end = torch.clamp(start + max(length, 0), max=S)
+        masks = gap_mask(S, start, end - start, dtype=audio.dtype)  # (B, G, S), 1 = valid
+    else:
+        if gap_len is None or tuple(gap_start.shape) != (B, G, n_gaps) or (
+                gap_len.shape != gap_start.shape):
+            raise ValueError(f"n_gaps={n_gaps} takes (B, G, {n_gaps}) gap_start and gap_len, "
+                             f"got {tuple(gap_start.shape)} and "
+                             f"{None if gap_len is None else tuple(gap_len.shape)}")
+        masks = gaps_mask(S, start, gap_len.to(device=audio.device, dtype=torch.int64),
+                          dtype=audio.dtype)  # (B, G, S), 1 = valid
 
     spec_clean = stft(audio, **kw)  # (B, F, N), once per clip
     F, N = spec_clean.shape[-2:]
     log_gap = masking.log10_norm(stft(audio[:, None] * masks, **kw).abs())  # (B, G, F, N)
 
-    hop = spec.hop_length
-    t = torch.arange(N, device=audio.device)
-    hole = (t >= (start // hop)[..., None]) & (t < (end // hop)[..., None])  # (B, G, N)
-    gmask = hole.to(audio.dtype)[..., None, :].expand(B, G, F, N)
+    gmask = 1.0 - frame_mask_from_sample_mask(masks, F, N, spec.hop_length, rule="end",
+                                              dtype=audio.dtype)  # (B, G, F, N)
     return {
         "log_gap": log_gap.reshape(B * G, F, N),
         "gap_mask": gmask.reshape(B * G, F, N),

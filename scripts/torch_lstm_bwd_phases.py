@@ -111,10 +111,11 @@ def main() -> int:
         rows = {}
         for name, fn in launchers.items():
             out = (torch.empty_like(xw_f), torch.empty_like(xw_b))
-            ptrs = [t.data_ptr() for t in (*inputs, *out)]
+            ptrs = [t.data_ptr() for t in (*inputs, *out)] + [None, None]  # f32: no dgates
 
             def launch():
-                rc = fn(*ptrs, B, T, H, plan.cluster, plan.ksplit, stream)
+                rc = fn(*ptrs, B, T, H, plan.cluster, plan.ksplit,
+                        lstm_cell.DTYPE_CODES[torch.float32], stream)
                 if rc != 0:
                     raise RuntimeError(f"variant {name}: CUDA error {rc}")
 

@@ -52,16 +52,16 @@ CUT_PEER = ("        for (int p = q; p < csize; p += 4) *cluster.map_shared_rank
 CUT_STAGE = ("    stage_xw(s + 2);", "    cp_async_commit();")
 # Without the cluster barrier's release in the loop, a cluster.sync() after
 # it keeps every CTA alive while its peers' stores may still land in it.
-FINAL_SYNC = ("  }\n}\n\ntemplate <int Rows, int KQ>",
-              "  }\n  cluster.sync();\n}\n\ntemplate <int Rows, int KQ>")
+FINAL_SYNC = ("  }\n}\n\ntemplate <typename Elem, int Rows, int KQ>",
+              "  }\n  cluster.sync();\n}\n\ntemplate <typename Elem, int Rows, int KQ>")
 CTA_BARRIER = [("    cluster_arrive();\n", "    __syncthreads();\n"),
                ("    cluster_wait();\n", "    __syncthreads();\n"), FINAL_SYNC]
 RELAXED = [("barrier.cluster.arrive.release", "barrier.cluster.arrive.relaxed"), FINAL_SYNC]
 UNCAPPED = [("__launch_bounds__(kThreads, KQ == 4 ? 4 : 2)", "__launch_bounds__(kThreads)")]
 CUT_GLOBAL = ("          if (q == 0) {\n"
-              "            h_out[at] = static_cast<Elem>(h[j]);\n"
+              "            h_out[at] = from_f32<Elem>(h[j]);\n"
               "          } else if (c_out != nullptr) {\n"
-              "            c_out[at] = static_cast<Elem>(c[j]);\n"
+              "            c_out[at] = from_f32<Elem>(c[j]);\n"
               "          }\n", "")
 VARIANTS = {
     "all": [],
@@ -138,7 +138,8 @@ def main() -> int:
                 None if c is None else c.data_ptr()]
 
             def launch():
-                rc = fn(*ptrs, B, T, H, plan.rows, plan.cluster, plan.ksplit, plan.groups, stream)
+                rc = fn(*ptrs, B, T, H, plan.rows, plan.cluster, plan.ksplit, plan.groups,
+                        lstm_cell.DTYPE_CODES[torch.float32], stream)
                 if rc != 0:
                     raise RuntimeError(f"variant {name}: CUDA error {rc}")
 

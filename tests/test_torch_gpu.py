@@ -23,6 +23,17 @@ the waveform within ``1e-4`` (cuDNN's own convolution algorithms sum up to
 ratio of up to ~1e10 multiplies their round-off before the next layer's
 mask zeroes it); in bf16 against bf16 on the CPU, ``6e-2`` and ``1e-3``;
 two requests of the GAN runner agree bit for bit, in f32 and in bf16.
+
+The bf16 forms of the LSTM kernels against their plain versions in bf16 on
+the card: every bf16 output (h, c, dxw, dW_hh) within one bf16 ulp of the
+plain version's plus the f32 bound above (``1e-4``, for dW_hh ``1e-4`` of
+its largest entry): both carry and sum in f32 and differ there as the f32
+kernels do, and one rounding to bf16 can then land one ulp apart; the f32
+dgates the backward kernel writes for dW_hh within ``1e-4``.  Two bf16
+launches agree bit for bit.  A bf16 train step of a narrow model on the
+card launches only the bf16 forms, and its loss lies within ``rtol=5e-2``
+of the f32 step's (bf16 rounding through the network: 1.8e-2 on the CPU
+for the same batch).
 """
 
 import copy
@@ -158,7 +169,9 @@ def test_forward_plan_shared_memory_matches_the_source(cuda_device, H):
     smem = lstm_cell.load_library("lstm_fwd").cdll.lstm_fwd_smem_bytes
     for rows in lstm_cell.FWD_ROW_CHOICES:
         plan = lstm_cell.fwd_plan(32, H, rows)
-        assert smem(H, rows, plan.cluster, plan.ksplit) == lstm_cell.fwd_smem_bytes(plan)
+        for elem_bytes in (4, 2):  # f32, bf16
+            assert smem(H, rows, plan.cluster, plan.ksplit, elem_bytes) == (
+                lstm_cell.fwd_smem_bytes(plan, elem_bytes))
 
 
 @pytest.mark.gpu
@@ -429,3 +442,168 @@ def test_gan_requests_are_bitwise_equal(cuda_device, dtype):
     torch.testing.assert_close(first[0], again[0], rtol=0, atol=0)  # the waveform
     (p1, s1), (p2, s2) = runner(audio, starts, lens), runner(audio, starts, lens)
     assert torch.equal(p1, p2) and torch.equal(s1, s2)
+
+
+# ---------------------------------------------------------------- bf16 forms
+
+
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each entry of ``t`` (2^-7 of its binade), as f32."""
+    mag = t.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _assert_bf16_close(name, got, want, atol):
+    """``got`` (bf16) within one bf16 ulp of ``want`` plus ``atol``."""
+    assert got.dtype == torch.bfloat16, (name, got.dtype)
+    err = (got.float() - want.float()).abs()
+    bound = _bf16_ulp(want) + atol
+    worst = (err - bound).max().item()
+    assert worst <= 0, f"{name}: {int((err > bound).sum())} entries beyond one ulp + {atol}"
+
+
+def _bf16(*tensors):
+    return [t.to(torch.bfloat16) for t in tensors]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H", [
+    (32, 417, 128),  # serving batch; 16 units a CTA: 16-byte xw copies
+    (25, 417, 128),  # the f32 training batch
+    (128, 417, 128),  # the production recipe's batch
+    (5, 29, 16),  # 2 units a CTA: 4-byte xw copies
+    (3, 11, 4),  # 1 unit a CTA: xw element by element
+    (7, 23, 12),  # 3 units a CTA (odd): element by element
+    (3, 19, 124),  # 31 units a CTA, 2 k-slices
+    (6, 1, 128),  # T=1
+])
+def test_bf16_forward_kernel_matches_plain_on_card(cuda_device, B, T, H):
+    """h and c of lstm_fwd in bf16 against the plain version in bf16 (f32
+    carries, bf16 stores), both directions; every row choice gives the same
+    launch bit for bit; the launch is counted as a bf16 one."""
+    layer = _bf16(*_forward_inputs(cuda_device, B, T, H))
+    before = (lstm_cell.bilstm_recurrence.launches, lstm_cell.bilstm_recurrence.bf16_launches)
+    h, c = lstm_cell.bilstm_forward(*layer, with_c=True)
+    torch.cuda.synchronize()
+    assert (lstm_cell.bilstm_recurrence.launches, lstm_cell.bilstm_recurrence.bf16_launches) == (
+        before[0] + 1, before[1] + 1)
+    want_h, want_c = lstm_cell.bilstm_recurrence_reference(*layer, return_c=True)
+    _assert_bf16_close("h", h, want_h, 1e-4)
+    _assert_bf16_close("c", c, want_c, 1e-4)
+    for rows in lstm_cell.FWD_ROW_CHOICES:
+        again = lstm_cell.bilstm_forward(*layer, with_c=True, rows=rows)
+        assert torch.equal(again[0], h) and torch.equal(again[1], c), rows
+
+
+def _bf16_backward_inputs(device, B, T, H):
+    xw_f, w_f, xw_b, w_b, g, _, _ = _backward_inputs(device, B, T, H)
+    layer = _bf16(xw_f, w_f, xw_b, w_b)
+    (g,) = _bf16(g)
+    h, c = lstm_cell.bilstm_forward(*layer, with_c=True)
+    return (*layer, g, h, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H", [
+    (25, 417, 128),
+    (128, 417, 128),  # the production recipe's batch
+    (5, 29, 16),
+    (1, 33, 128),
+    (6, 1, 128),
+    (3, 11, 4),  # H=4: h staged 8 bytes a copy, one k-slice
+    (7, 23, 12),  # H=12: 3 units a CTA
+])
+def test_bf16_backward_kernels_match_plain_on_card(cuda_device, B, T, H):
+    """lstm_bwd in bf16 (bf16 dxw, f32 dgates) and lstm_dwhh in bf16 (f32
+    sums of the f32 dgates, rounded once) against the plain backward of each
+    direction in bf16, on h and c written by the bf16 lstm_fwd."""
+    xw_f, w_f, xw_b, w_b, g, h, c = _bf16_backward_inputs(cuda_device, B, T, H)
+    counts = (lstm_cell.bilstm_recurrence_backward, lstm_cell.bilstm_dwhh)
+    before = [(k.launches, k.bf16_launches) for k in counts]
+    dxw_f, dxw_b, dg_f, dg_b = lstm_cell.bilstm_recurrence_backward(
+        xw_f, w_f, xw_b, w_b, h, c, g, dgates=True)
+    dw_f, dw_b = lstm_cell.bilstm_dwhh(h, dg_f, dg_b)
+    torch.cuda.synchronize()
+    assert [(k.launches, k.bf16_launches) for k in counts] == [(n + 1, m + 1) for n, m in before]
+    assert dg_f.dtype == dg_b.dtype == torch.float32
+    for sl, xw, w, dxw, dg, dw, reverse in (
+            (slice(0, H), xw_f, w_f, dxw_f, dg_f, dw_f, False),
+            (slice(H, 2 * H), xw_b, w_b, dxw_b, dg_b, dw_b, True)):
+        want_dxw, want_dg = lstm_cell.lstm_recurrence_backward_reference(
+            xw, w, h[..., sl], c[..., sl], g[..., sl], reverse, return_dgates=True)
+        _assert_bf16_close("dxw", dxw, want_dxw, 1e-4)
+        np.testing.assert_allclose(dg.cpu().numpy(), want_dg.cpu().numpy(), rtol=0, atol=1e-4)
+        want_dw = lstm_cell.dwhh_reference(h[..., sl], want_dg, reverse)
+        _assert_bf16_close("dW_hh", dw, want_dw, 1e-4 * want_dw.float().abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H", [(128, 417, 128), (7, 23, 12)])
+def test_bf16_backward_kernels_are_deterministic(cuda_device, B, T, H):
+    """Two bf16 launches of lstm_bwd and lstm_dwhh on the same inputs give
+    the same dxw, dgates and dW_hh, bit for bit."""
+    inputs = _bf16_backward_inputs(cuda_device, B, T, H)
+    runs = []
+    for _ in range(2):
+        out = lstm_cell.bilstm_recurrence_backward(*inputs, dgates=True)
+        runs.append((*out, *lstm_cell.bilstm_dwhh(inputs[5], *out[2:])))
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_bf16_kernels_refuse_mixed_dtypes(cuda_device):
+    """A bf16 layer whose other tensors are f32 (or the reverse) launches
+    nothing and raises: there is no fallback."""
+    xw_f, w_f, xw_b, w_b, g, h, c = _bf16_backward_inputs(cuda_device, 5, 29, 16)
+    counts = [lstm_cell.bilstm_recurrence.launches, lstm_cell.bilstm_recurrence_backward.launches,
+              lstm_cell.bilstm_dwhh.launches]
+    with pytest.raises(TypeError, match="of one type"):
+        lstm_cell.bilstm_forward(xw_f, w_f.float(), xw_b, w_b)
+    with pytest.raises(TypeError, match="of one type"):
+        lstm_cell.bilstm_forward(xw_f.float(), w_f, xw_b.float(), w_b)
+    with pytest.raises(TypeError, match="of one type"):
+        lstm_cell.bilstm_recurrence(xw_f.float(), w_f.float(), xw_b, w_b)
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        lstm_cell.bilstm_recurrence_backward(xw_f, w_f, xw_b, w_b, h, c, g.float())
+    with pytest.raises(ValueError, match="expected torch.float32"):
+        lstm_cell.bilstm_dwhh(h, *_bf16(torch.zeros_like(xw_f), torch.zeros_like(xw_b)))
+    assert counts == [lstm_cell.bilstm_recurrence.launches,
+                      lstm_cell.bilstm_recurrence_backward.launches,
+                      lstm_cell.bilstm_dwhh.launches]
+
+
+@pytest.mark.gpu
+def test_bf16_training_step_on_card_runs_the_bf16_kernels(cuda_device):
+    """A bf16 train step of a narrow model on the card launches every LSTM
+    kernel in bf16 only (one a layer), gives every parameter an f32
+    gradient, and its loss lies within bf16's rounding of the f32 step's."""
+    cfg = Config.from_dict({
+        "data": {"max_len_s": 1.2, "gap_len_s": 0.05, "train_n_gaps": 3},
+        "model": {"num_lstm_layers": 2, "lstm_hidden_dim": 16, "enc_filters": [4, 8],
+                  "dec_filters": [4, 8]},
+    })
+    flat = cnn_blstm_flat_variables(_narrow_live_model("cpu", seed=2, freq_bins=257).state_dict())
+    rng = np.random.default_rng(3)
+    audio = torch.tensor((rng.standard_normal((2, 19200)) * 0.1).astype(np.float32),
+                         device=cuda_device)
+    starts = torch.tensor([[[3000, 9000, 14000]], [[4200, 8400, 15000]]], device=cuda_device)
+    lengths = torch.tensor([[[400, 800, 160]], [[700, 300, 500]]], device=cuda_device)
+    losses = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        state = create_cnn_state(cfg, device=cuda_device, params=flat)
+        kernels = (lstm_cell.bilstm_recurrence, lstm_cell.bilstm_recurrence_backward,
+                   lstm_cell.bilstm_dwhh)
+        before = [(k.launches, k.bf16_launches) for k in kernels]
+        _, m = make_cnn_train_step(cfg, compute_dtype=dtype)(state, audio, starts, lengths)
+        torch.cuda.synchronize()
+        after = [(k.launches, k.bf16_launches) for k in kernels]
+        bf16 = 2 if dtype == torch.bfloat16 else 0
+        assert after == [(n + 2, m + bf16) for n, m in before], (dtype, before, after)
+        for name, p in state.model.named_parameters():
+            assert p.dtype == p.grad.dtype == torch.float32, name
+            assert p.grad.any(), name
+        losses[dtype] = m["loss"].item()
+    # bf16 against f32: 1.8e-2 on the CPU for this batch.
+    np.testing.assert_allclose(losses[torch.bfloat16], losses[torch.float32], rtol=5e-2)

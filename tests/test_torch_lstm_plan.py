@@ -22,6 +22,7 @@ computes what is checked here:
 import re
 
 import pytest
+import torch
 
 from ml_audio_inpainting_torch.ops.cuda import lstm_cell
 from ml_audio_inpainting_torch.ops.cuda.lstm_cell import (
@@ -140,8 +141,13 @@ def test_fwd_plan_constants_match_the_cuda_source():
     assert int(declared["kMaxCluster"]) == FWD_MAX_CLUSTER
     assert int(declared["kStages"]) == FWD_STAGES
     assert int(declared["kMaxHidden"]) == FWD_MAX_HIDDEN == lstm_cell.MAX_HIDDEN
-    assert {int(r) for r in re.findall(r"launch_plan<(\d+), KQ>", src)} == set(FWD_ROW_CHOICES)
-    assert set(re.findall(r"launch_rows<(\d+)>", src)) == {"2", "4"}
+    assert {int(r) for r in re.findall(r"launch_plan<Elem, (\d+), KQ>", src)} == set(
+        FWD_ROW_CHOICES)
+    assert set(re.findall(r"launch_rows<Elem, (\d+)>", src)) == {"2", "4"}
+    # The element types' codes at the C interface.
+    assert {torch.float32: int(declared["kF32"]), torch.bfloat16: int(declared["kBF16"])} == (
+        lstm_cell.DTYPE_CODES)
+    assert set(re.findall(r"launch_elem<([\w]+)>", src)) == {"float", "__nv_bfloat16"}
     # The lane mapping and the h layout that the tests above mirror.
     for line in ("const int kq = tid % KQ;", "const int q = (tid / KQ) % 4;",
                  "const int m = tid / kLanes;", "kspan = ((H + ksplit - 1) / ksplit + 3) / 4 * 4;",
@@ -251,6 +257,9 @@ def test_plan_constants_match_the_cuda_source():
     assert int(declared["kTile"]) == DWHH_TILE
     assert int(declared["kDepth"]) == DWHH_DEPTH
     assert int(declared["kMaxCluster"]) == 8
+    assert {torch.float32: int(declared["kF32"]), torch.bfloat16: int(declared["kBF16"])} == (
+        lstm_cell.DTYPE_CODES)
+    assert set(re.findall(r"launch_(?:bwd|dwhh)<([\w]+)>", src)) == {"float", "__nv_bfloat16"}
     # The k-slice span the kernel derives from ksplit, as BwdPlan.k_parts does.
     assert "const int kspan = ((H + ksplit - 1) / ksplit + 3) / 4 * 4;" in src
 
