@@ -69,6 +69,24 @@ Phases, each printing one flushed line per step with the seconds since start:
                  gap bit for bit; the host composite of the payload equal to
                  a full-clip PCM16 fetch, int16 for int16; no hand-written
                  kernel launched (the path has none);
+6b. serving_deployable -- serving with no oracle, full width, the committed
+                 ``gan_formant_v2_r2.npz`` and ``cnn_blstm_formant_v2_r2.npz``:
+                 the GAN runner on ``gan_serving``'s batch under
+                 ``extrapolate`` and ``griffinlim`` (64 iterations) in f32 and
+                 ``extrapolate`` in bf16; the GAN and CNN+BiLSTM mask-driven
+                 functions on 3 seeded gaps a clip; the GAN shift ensemble (4
+                 shifts); the CNN+BiLSTM runner under ``extrapolate`` (3
+                 ``lstm_fwd`` launches a request); long-form serving of a
+                 seeded 60 s signal with 8 gaps, centered with PCM16 patches
+                 (GAN) and by overlap-add (CNN+BiLSTM).  For each: the first
+                 request's seconds, 3 warm requests (ms, s-audio/s), host
+                 syncs inside a request (0, or it fails), peak memory.
+                 Checks: every sample outside the gaps equal to the input, bit
+                 for bit; clip 0 (long-form: gap 0) against the port on the
+                 CPU; Griffin-Lim's spectrum no less consistent with its
+                 magnitude than the ``extrapolate`` estimate it starts from;
+                 bf16 against f32; no hand-written kernel on the GAN
+                 functions;
 7. training   -- the recipe of ``configs/cnn_blstm.yaml`` (1 clip x 25 gap
                  variants of 0.2 s, Adam at lr 1e-4, full width) takes 5 steps
                  on seeded clips and gap starts, twice: from the committed
@@ -137,11 +155,26 @@ from ml_audio_inpainting_torch.ops.cuda.lstm_cell import (
     load_library,
     lstm_recurrence_backward_reference,
 )
-from ml_audio_inpainting_torch.ops.gaps import gap_mask
+from ml_audio_inpainting_torch.data.multigap import multi_gap_mask
+from ml_audio_inpainting_torch.ops import masking
+from ml_audio_inpainting_torch.ops.gaps import frame_mask_from_interval, gap_mask
 from ml_audio_inpainting_torch.ops.lstm import BiLSTM
 from ml_audio_inpainting_torch.ops.pcm import to_pcm16
+from ml_audio_inpainting_torch.ops.phase import window_clear_frame_mask
+from ml_audio_inpainting_torch.ops.stft import stft
+from ml_audio_inpainting_torch.runtime.inference import (
+    make_cnn_inpaint_mask_fn,
+    make_gan_inpaint_fn,
+    make_gan_inpaint_mask_fn,
+    make_tta_shift_fn,
+)
+from ml_audio_inpainting_torch.runtime.longform import longform_inpaint, longform_inpaint_centered
 from ml_audio_inpainting_torch.runtime.serve import make_cnn_runner, make_gan_runner
-from ml_audio_inpainting_torch.runtime.transport import DEFAULT_PATCH_WINDOW, composite_gap_patch
+from ml_audio_inpainting_torch.runtime.transport import (
+    DEFAULT_PATCH_WINDOW,
+    composite_gap_patch,
+    composite_gap_patches_1d,
+)
 from ml_audio_inpainting_torch.runtime.synthetic import (
     BATCH,
     GAP_LEN,
@@ -161,6 +194,7 @@ from ml_audio_inpainting_torch.train.recipe import (
     recipe_config,
 )
 from ml_audio_inpainting_torch.utils.config import Config
+from ml_audio_inpainting_torch.utils.precision import full_f32_convolutions
 from ml_audio_inpainting_torch.weights import load_params_npz
 
 DEVICE = "cuda"
@@ -237,6 +271,35 @@ CUDNN_BF16_SANITY = 0.1
 # gradients 0.3 of their L2 norm; the noise-only biases, and tensors whose
 # f32 gradient is exactly zero (the saturated BiLSTM's), 1e-2 of the largest
 # tensor's norm.
+# serving_deployable.  Clip 0 on the card against the port on the CPU, inside
+# the gaps (outside them both are the input, bit for bit), as a share of the
+# CPU's largest |sample| in the gaps.  The extrapolated phase reaches |steps *
+# dphi| of ~2.5e4 rad (62 frames at up to 402 rad a hop in the top bins), where
+# an f32 ulp is 2e-3 rad, and the card divides by a constant as a product with
+# its reciprocal, so princarg can wrap a turn elsewhere and the f32 sum then
+# rounds another way (the generator itself agrees within 6e-7).  GAN under
+# extrapolate (interval, mask, shift ensemble): 2e-2 (seen 5.8e-6, 4.7e-3 by
+# mask, 7.3e-6); its long-form PCM16 patches within 1 + 2e-2 * peak LSB (seen
+# 1).  CNN+BiLSTM under extrapolate (interval, mask, long-form): 5e-3 (seen
+# 1.4e-3, 4.6e-4, 9.5e-6).
+# Griffin-Lim's waveform in a gap is not a stable function of its inputs (a
+# 1e-7 change of the clip moves the committed GAN's 80 ms gap by 7e-2 of its
+# peak after 64 iterations, on the CPU), so at 64 iterations clip 0's STFT
+# magnitude over the estimated frames is held within 5e-2 in relative L2 norm
+# (seen 1.5e-2), and the same distance between Griffin-Lim's output and the
+# extrapolate estimate it starts from (the control, 0.194 on the CPU) must be
+# at least twice that bound; at 4 iterations the waveform, within 1e-2 of
+# the gaps' peak (the 1e-7 change moves it by 8.5e-4 there).  Over the batch,
+# Griffin-Lim must leave the spectrum at most 0.95 times as inconsistent as
+# its start (seen 0.4263 against 0.4754).
+GAN_DEPLOYABLE_RTOL = 2e-2
+CNN_DEPLOYABLE_RTOL = 5e-3
+GL_SPEC_RTOL = 5e-2
+GL4_RTOL = 1e-2
+GL_MIN_GAIN = 0.95
+GL_ITERS = 64
+TTA_SHIFTS = 4
+LONG_S, LONG_GAPS = 60.0, 8
 BF16_STEP_LOSS_RTOL = 1e-3
 BF16_GRAD_L2_RTOL = 0.3
 BF16_NOISE_OF_MAX_NORM = 1e-2
@@ -1171,6 +1234,285 @@ def _gan_checks(label: str, runner, audio: np.ndarray, audio_d, gs_d, gl_d) -> t
     return restored
 
 
+# ------------------------------------------------------- serving_deployable
+
+
+def _timed_requests(fn, label: str, seconds_of_audio: float) -> tuple:
+    """The first call's seconds, GAN_WARM warm calls (ms and s-audio/s, each
+    ending in a fetch of what ``fn`` returns), host syncs inside one call,
+    and the peak device memory from the first call on.  Returns the numbers
+    and the last call's result."""
+    def fetch(out):
+        return [t.cpu() for t in (out if isinstance(out, tuple) else (out,))]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fetch(fn())
+    first_s = time.perf_counter() - t0
+    warm_ms = []
+    for _ in range(GAN_WARM):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        fetch(out)
+        warm_ms.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = fn()
+    torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0] for w in caught]
+    fetch(out)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    rate = seconds_of_audio / (min(warm_ms) / 1e3)
+    log("serving_deployable", f"{label}: first request {first_s:.3f} s; warm requests "
+                              f"{', '.join(f'{t:.2f}' for t in warm_ms)} ms ({rate:.1f} s-audio/s "
+                              f"at the best); host syncs in a request: {len(syncs)} "
+                              f"{syncs[:2]}; peak device memory {peak:.1f} MiB")
+    if syncs:
+        raise AssertionError(f"{label}: {len(syncs)} host syncs inside a request: {syncs[:3]}")
+    return {"first_request_s": first_s, "warm_request_ms": warm_ms, "s_audio_per_s": rate,
+            "host_syncs": len(syncs), "peak_mib": peak}, out
+
+
+def _check_outside(label: str, restored: torch.Tensor, audio: torch.Tensor,
+                   valid: torch.Tensor) -> None:
+    """Every sample where ``valid`` is 1 equal to the input's, bit for bit."""
+    keep = valid.bool()
+    if not torch.isfinite(restored).all():
+        raise AssertionError(f"{label}: non-finite output")
+    if not torch.equal(restored[keep], audio[keep]):
+        raise AssertionError(f"{label}: output differs from the input outside the gaps in "
+                             f"{int((restored[keep] != audio[keep]).sum())} samples")
+
+
+def _check_against_cpu(label: str, got: torch.Tensor, want: torch.Tensor, valid: torch.Tensor,
+                       rtol_of_peak: float) -> float:
+    """The card against the port on the CPU (clip 0, or a long signal's gap
+    0): inside the gaps within ``rtol_of_peak`` of the CPU's largest
+    |sample| there.  Returns the error as that share."""
+    gap = ~valid.bool().cpu()
+    g, w = got.cpu()[gap], want.cpu()[gap]
+    err = ((g - w).abs().max() / w.abs().max()).item()
+    log("serving_deployable", f"{label}: card vs CPU inside the gaps {err:.3e} of the gaps' "
+                              f"peak (bound {rtol_of_peak})")
+    if not err <= rtol_of_peak:
+        raise AssertionError(f"{label}: card and CPU disagree: {err} > {rtol_of_peak}")
+    return err
+
+
+def _inconsistency(restored: torch.Tensor, out_mag: torch.Tensor, trust: torch.Tensor,
+                   kw: dict) -> float:
+    """``|| |STFT(x)| - mag || / || mag ||`` over the frames whose window
+    touches a gap (``trust`` 0): how far ``x``'s spectrum lies from the
+    magnitude it was rebuilt from, where its phase was estimated."""
+    frames = (trust < 0.5)[:, None, :].expand_as(out_mag)
+    diff = stft(restored, **kw).abs() - out_mag
+    return (diff[frames].norm() / out_mag[frames].norm()).item()
+
+
+def phase_serving_deployable(card: str) -> dict:
+    """Deployable serving with no oracle: the ``extrapolate`` and
+    ``griffinlim`` regimes, mask-driven multi-gap serving, the shift ensemble
+    and long-form serving, both families at full width."""
+    cfg, ccfg = gan_config(), Config()
+    spec = cfg.data.spectrogram
+    kw = dict(n_fft=spec.n_fft, hop_length=spec.hop_length, win_length=spec.win_length)
+    n_samples = cfg.data.max_samples
+    seconds_of_audio = B * n_samples / SAMPLE_RATE
+    audio = synthetic_dataset_batch(B, cfg.data.max_len_s)
+    audio_d = torch.tensor(audio, device=DEVICE)
+    gs_d = torch.full((B,), GAP_START, device=DEVICE)
+    gl_d = torch.full((B,), GAP_LEN, device=DEVICE)
+    tmask = gap_mask(n_samples, gs_d, gl_d)
+    summary = {"batch": B, "clip_s": cfg.data.max_len_s, "card": card}
+    counts_before = _counts()
+
+    # GAN by interval: extrapolate and griffinlim (f32), extrapolate (bf16).
+    gan = {}
+    for label, phase, dtype in (("gan extrapolate f32", "extrapolate", None),
+                                ("gan griffinlim f32", "griffinlim", None),
+                                ("gan extrapolate bf16", "extrapolate", torch.bfloat16)):
+        runner = make_gan_runner(cfg, GAN_CHECKPOINT, device=DEVICE, mode="enhanced",
+                                 phase=phase, compute_dtype=dtype, gl_iters=GL_ITERS,
+                                 transport_window=DEFAULT_PATCH_WINDOW)
+        summary[label], _ = _timed_requests(lambda: runner(audio_d, gs_d, gl_d), label,
+                                            seconds_of_audio)
+        with full_f32_convolutions():
+            restored, generated = runner.inpaint_fn(audio_d, gs_d, gl_d)
+        _check_outside(label, restored, audio_d, tmask)
+        gan[label] = (runner, restored, generated)
+    f32_runner, ext, generated = gan["gan extrapolate f32"]
+    gl = gan["gan griffinlim f32"][1]
+    # Griffin-Lim's output against the estimate it started from: the
+    # magnitude both rebuild, over the frames whose phase was estimated.
+    spec_gap = stft(audio_d * tmask, **kw)
+    fmask = frame_mask_from_interval(gs_d, gs_d + gl_d, *spec_gap.shape[-2:], kw["hop_length"])
+    out_mag = masking.log1p_denorm(masking.composite(generated, masking.log1p_norm(spec_gap.abs()),
+                                                     fmask))
+    trust = window_clear_frame_mask(tmask, out_mag.shape[-1], kw["hop_length"], kw["n_fft"],
+                                    kw["win_length"])
+    inc_ext, inc_gl = _inconsistency(ext, out_mag, trust, kw), _inconsistency(gl, out_mag, trust, kw)
+    log("serving_deployable", f"spectral inconsistency over the estimated frames: extrapolate "
+                              f"{inc_ext:.4f}, griffinlim ({GL_ITERS} iterations) {inc_gl:.4f}")
+    if not inc_gl < GL_MIN_GAIN * inc_ext:
+        raise AssertionError(f"Griffin-Lim did not make the spectrum more consistent: {inc_gl} >= "
+                             f"{GL_MIN_GAIN} x {inc_ext}")
+    summary["inconsistency"] = {"extrapolate": inc_ext, "griffinlim": inc_gl}
+    bf16_err = (gan["gan extrapolate bf16"][1] - ext).abs().max().item()
+    log("serving_deployable", f"gan extrapolate: bf16 vs f32 on the card {bf16_err:.3e} (atol "
+                              f"{GAN_BF16_ATOL})")
+    if not bf16_err <= GAN_BF16_ATOL:
+        raise AssertionError(f"gan extrapolate: bf16 and f32 disagree: {bf16_err}")
+    cpu_gen = make_gan_runner(cfg, GAN_CHECKPOINT, device="cpu").generator
+    clip0 = (torch.tensor(audio[:1]), torch.tensor([GAP_START]), torch.tensor([GAP_LEN]))
+    want = make_gan_inpaint_fn(cfg, cpu_gen, mode="enhanced", phase="extrapolate")(*clip0)[0]
+    summary["gan extrapolate f32"]["clip0_vs_cpu"] = _check_against_cpu(
+        "gan extrapolate f32, clip 0", ext[:1], want, tmask[:1], GAN_DEPLOYABLE_RTOL)
+    want = make_gan_inpaint_fn(cfg, cpu_gen, mode="enhanced", phase="griffinlim",
+                               gl_iters=GL_ITERS)(*clip0)[0]
+    frames = (trust[:1].cpu() < 0.5)[:, None, :].expand(1, *out_mag.shape[-2:])
+
+    def spectrum_distance(x, ref):
+        got_s, want_s = stft(x.cpu(), **kw).abs(), stft(ref.cpu(), **kw).abs()
+        return ((got_s - want_s)[frames].norm() / want_s[frames].norm()).item()
+
+    err, control = spectrum_distance(gl[:1], want), spectrum_distance(gl[:1], ext[:1])
+    log("serving_deployable", f"gan griffinlim f32, clip 0: card vs CPU, STFT magnitude over the "
+                              f"estimated frames {err:.3e} in relative L2 (bound {GL_SPEC_RTOL}); "
+                              f"control, Griffin-Lim vs its extrapolate start on the card "
+                              f"{control:.3e} (at least {2 * GL_SPEC_RTOL})")
+    if not err <= GL_SPEC_RTOL:
+        raise AssertionError(f"gan griffinlim: card and CPU disagree on clip 0: {err}")
+    if not control >= 2 * GL_SPEC_RTOL:
+        raise AssertionError(f"gan griffinlim: output within {control} of its extrapolate start, "
+                             f"too close for the bound {GL_SPEC_RTOL} to tell them apart")
+    summary["gan griffinlim f32"]["clip0_spectrum_vs_cpu"] = err
+    summary["gan griffinlim f32"]["clip0_spectrum_vs_extrapolate"] = control
+    with full_f32_convolutions():
+        got = make_gan_inpaint_fn(cfg, f32_runner.generator, mode="enhanced", phase="griffinlim",
+                                  gl_iters=4)(*(t.to(DEVICE) for t in clip0))[0]
+    want = make_gan_inpaint_fn(cfg, cpu_gen, mode="enhanced", phase="griffinlim",
+                               gl_iters=4)(*clip0)[0]
+    summary["gan griffinlim f32"]["clip0_4_iterations_vs_cpu"] = _check_against_cpu(
+        "gan griffinlim f32, 4 iterations, clip 0", got, want, tmask[:1], GL4_RTOL)
+    del gan
+
+    # GAN, mask-driven (3 seeded gaps a clip) and the shift ensemble.
+    u = torch.rand((2, B, 3), generator=torch.Generator().manual_seed(17))
+    masks = multi_gap_mask(u[0], u[1], n_samples)[0].to(DEVICE)
+    mask_fn = make_gan_inpaint_mask_fn(cfg, f32_runner.generator, phase="extrapolate")
+    with full_f32_convolutions():
+        summary["gan mask"], (restored, _) = _timed_requests(
+            lambda: mask_fn(audio_d, masks), "gan mask-driven extrapolate f32, 3 gaps a clip",
+            seconds_of_audio)
+    _check_outside("gan mask", restored, audio_d, masks)
+    with torch.inference_mode():
+        want = make_gan_inpaint_mask_fn(cfg, cpu_gen, phase="extrapolate")(
+            torch.tensor(audio[:1]), masks[:1].cpu())[0]
+    summary["gan mask"]["clip0_vs_cpu"] = _check_against_cpu("gan mask, clip 0", restored[:1], want,
+                                                             masks[:1], GAN_DEPLOYABLE_RTOL)
+    tta = make_tta_shift_fn(f32_runner.inpaint_fn, kw["hop_length"], TTA_SHIFTS)
+    with full_f32_convolutions():
+        summary["gan tta"], (restored, _) = _timed_requests(
+            lambda: tta(audio_d, gs_d, gl_d), f"gan TTA {TTA_SHIFTS} shifts extrapolate f32",
+            seconds_of_audio)
+    _check_outside("gan tta", restored, audio_d, tmask)
+    cpu_tta = make_tta_shift_fn(make_gan_inpaint_fn(cfg, cpu_gen, mode="enhanced",
+                                                    phase="extrapolate"), kw["hop_length"],
+                                TTA_SHIFTS)
+    want = cpu_tta(*clip0)[0]
+    summary["gan tta"]["clip0_vs_cpu"] = _check_against_cpu("gan tta, clip 0", restored[:1], want,
+                                                            tmask[:1], GAN_DEPLOYABLE_RTOL)
+
+    # Long-form: a 60 s signal with 8 well-separated gaps.
+    long_audio = speech_like_batch(np.random.default_rng(23), 1, LONG_S)[0]
+    long_d = torch.tensor(long_audio, device=DEVICE)
+    lstarts = (np.arange(LONG_GAPS) * (len(long_audio) // LONG_GAPS) + 24000).astype(np.int64)
+    llens = np.full(LONG_GAPS, GAP_LEN, np.int64)
+    lvalid = gap_mask(len(long_audio), torch.tensor(lstarts), torch.tensor(llens)).amin(0)
+    client = to_pcm16(torch.tensor(long_audio)).numpy()
+
+    def centered():
+        return longform_inpaint_centered(f32_runner.inpaint_fn, long_d, lstarts, llens,
+                                         window=n_samples, batch_size=LONG_GAPS)
+
+    with full_f32_convolutions():
+        summary["gan longform centered"], (patches, pstarts) = _timed_requests(
+            centered, f"gan long-form centered, {LONG_S:.0f} s, {LONG_GAPS} gaps, PCM16 patches",
+            LONG_S)
+    host = composite_gap_patches_1d(client, patches.cpu().numpy(), pstarts.cpu().numpy())
+    outside = lvalid.bool().numpy()
+    if not np.array_equal(host[outside], client[outside]):
+        raise AssertionError("gan long-form: delivered PCM differs from the input outside the gaps")
+    want_p, want_s = longform_inpaint_centered(
+        make_gan_inpaint_fn(cfg, cpu_gen, mode="enhanced", phase="extrapolate"),
+        torch.tensor(long_audio), lstarts[:1], llens[:1], window=n_samples, batch_size=1)
+    lsb = (patches[:1].cpu().int() - want_p.int()).abs().max().item()
+    bound = 1 + GAN_DEPLOYABLE_RTOL * want_p.abs().max().item()
+    log("serving_deployable", f"gan long-form: gap 0's patch card vs CPU {lsb} LSB (bound "
+                              f"{bound:.1f}); starts {pstarts[:3].tolist()}...")
+    if not (lsb <= bound and pstarts[0].item() == want_s[0].item()):
+        raise AssertionError(f"gan long-form: card and CPU disagree on gap 0: {lsb} LSB")
+    summary["gan longform centered"]["gap0_lsb_vs_cpu"] = lsb
+    if _counts() != counts_before:
+        raise AssertionError(f"the GAN functions launched a hand-written kernel: {counts_before} "
+                             f"-> {_counts()}")
+    del f32_runner, mask_fn, tta, cpu_tta
+    torch.cuda.empty_cache()
+
+    # CNN+BiLSTM: by interval, by mask and long-form, through lstm_fwd.
+    cnn_audio = speech_like_batch(np.random.default_rng(1), B)
+    cnn_d = torch.tensor(cnn_audio, device=DEVICE)
+    runner = make_cnn_runner(ccfg, CHECKPOINT, device=DEVICE, phase="extrapolate")
+    cpu_runner = make_cnn_runner(ccfg, CHECKPOINT, device="cpu", phase="extrapolate")
+    cmask_fn = make_cnn_inpaint_mask_fn(ccfg, runner.model, phase="extrapolate")
+    _reset_counts()
+    summary["cnn extrapolate"], restored = _timed_requests(
+        lambda: runner(cnn_d, gs_d, gl_d), "cnn extrapolate f32", seconds_of_audio)
+    requests = 2 + GAN_WARM
+    if bilstm_recurrence.launches != 3 * requests:
+        raise AssertionError(f"cnn extrapolate: lstm_fwd launched {bilstm_recurrence.launches} "
+                             f"times in {requests} requests, expected 3 a request")
+    _check_outside("cnn extrapolate", restored, cnn_d, tmask)
+    with full_f32_convolutions():
+        summary["cnn mask"], (restored_m, _) = _timed_requests(
+            lambda: cmask_fn(cnn_d, masks), "cnn mask-driven extrapolate f32, 3 gaps a clip",
+            seconds_of_audio)
+    _check_outside("cnn mask", restored_m, cnn_d, masks)
+
+    def cnn_longform():
+        with full_f32_convolutions():
+            return longform_inpaint(runner.inpaint_fn, long_d, lstarts, llens, window=n_samples,
+                                    hop=n_samples // 2, batch_size=2 * LONG_GAPS)
+
+    summary["cnn longform"], long_out = _timed_requests(
+        cnn_longform, f"cnn long-form, {LONG_S:.0f} s, {LONG_GAPS} gaps", LONG_S)
+    _check_outside("cnn long-form", long_out[None], long_d[None], lvalid[None].to(DEVICE))
+    launches = _counts()
+    if any(n for k, n in launches.items() if k != "lstm_fwd") or not launches["lstm_fwd"]:
+        raise AssertionError(f"serving_deployable launched a backward kernel or a bf16 form, "
+                             f"or no lstm_fwd: {launches}")
+    want = cpu_runner(cnn_audio[:1], np.full(1, GAP_START), np.full(1, GAP_LEN))
+    summary["cnn extrapolate"]["clip0_vs_cpu"] = _check_against_cpu(
+        "cnn extrapolate, clip 0", restored[:1], want, tmask[:1], CNN_DEPLOYABLE_RTOL)
+    want = make_cnn_inpaint_mask_fn(ccfg, cpu_runner.model, phase="extrapolate")(
+        torch.tensor(cnn_audio[:1]), masks[:1].cpu())[0]
+    summary["cnn mask"]["clip0_vs_cpu"] = _check_against_cpu("cnn mask, clip 0", restored_m[:1], want,
+                                                             masks[:1], CNN_DEPLOYABLE_RTOL)
+    # Long-form gap 0 depends only on the two windows around it.
+    want = longform_inpaint(cpu_runner.inpaint_fn, torch.tensor(long_audio), lstarts[:1],
+                            llens[:1], window=n_samples, hop=n_samples // 2)
+    g0 = gap_mask(len(long_audio), torch.tensor(lstarts[:1]), torch.tensor(llens[:1]))
+    summary["cnn longform"]["gap0_vs_cpu"] = _check_against_cpu(
+        "cnn long-form, gap 0", long_out[None].cpu(), want[None], g0, CNN_DEPLOYABLE_RTOL)
+    summary["launches"] = launches
+    log("serving_deployable", json.dumps(summary))
+    return launches
+
+
 def _check_step_against_cpu(cfg: Config, flat: dict, audio: np.ndarray, starts: torch.Tensor,
                             label: str) -> dict:
     """Step 0 of a reduced batch on the card in f32 and on the CPU in f64
@@ -1402,6 +1744,7 @@ def main() -> int:
                *phase_kernel_bf16(card, ptxas)]
     paths = {"serving": phase_serving(card)}
     phase_gan_serving(card)
+    paths["serving_deployable"] = phase_serving_deployable(card)
     paths["training"] = phase_training(card)
     paths["training_bf16"] = phase_training_bf16(card)
     for k in kernels:

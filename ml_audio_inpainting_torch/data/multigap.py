@@ -16,18 +16,29 @@ give the same ``starts``, ``lengths`` and mask bit for bit.
 Every function takes leading batch dimensions: ``(..., K)`` draws give
 ``(..., K)`` gaps and ``(..., audio_len)`` masks.
 
-Mask convention: ``1.0 = signal, 0.0 = gap``.  ``cos2_fade``,
-``apply_gaps_with_fades`` and ``eval_gap_table`` are not ported yet: no
-ported path uses them.
+Mask convention: ``1.0 = signal, 0.0 = gap``.  :func:`apply_gaps_with_fades`
+is the IRMAS gap tables' faded corruption (cos^2 ramps just outside each gap),
+and :func:`eval_gap_table` the fixed evaluation masks (one gap a signal,
+80 ms at 2 s by default), both served by the mask-driven inpaint functions.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
-__all__ = ["multi_gap_layout", "gaps_mask", "multi_gap_mask", "random_multi_gap_layout"]
+__all__ = [
+    "multi_gap_layout",
+    "gaps_mask",
+    "multi_gap_mask",
+    "random_multi_gap_layout",
+    "cos2_fade",
+    "apply_gaps_with_fades",
+    "eval_gap_table",
+]
 
 # multi_gap_mask's defaults (data/multigap.py:30-38).
 MIN_GAP_MS = 10.0
@@ -131,3 +142,43 @@ def random_multi_gap_layout(
     u_pos = torch.rand((*shape, n_gaps), generator=generator, dtype=torch.float32)
     return multi_gap_layout(u_len, u_pos, audio_len, min_gap_ms, max_gap_ms, sample_rate,
                             min_dist_samples)
+
+
+def cos2_fade(fade_len: int, dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """A cos^2 ramp from 1 to 0 over ``fade_len`` samples
+    (``multigap.py:84-87``)."""
+    t = torch.linspace(0.0, math.pi / 2, fade_len, dtype=dtype, device=device)
+    return torch.cos(t) ** 2
+
+
+def apply_gaps_with_fades(audio: torch.Tensor, starts: torch.Tensor, lengths: torch.Tensor,
+                          fade_len: int = 32) -> torch.Tensor:
+    """``audio`` ``(..., n)`` with each gap of ``(..., K)`` ``starts`` and
+    ``lengths`` zeroed, a cos^2 fade-out over the ``fade_len`` samples before
+    it and a fade-in over those after it (``multigap.py:90-121``); where
+    ramps meet, the smaller gain wins."""
+    n = audio.shape[-1]
+    idx = torch.arange(n, device=audio.device)
+    gain = torch.ones(audio.shape, dtype=audio.dtype, device=audio.device)
+    zero = torch.zeros((), dtype=audio.dtype, device=audio.device)
+    for g in range(starts.shape[-1]):
+        s, e = starts[..., g, None], (starts[..., g] + lengths[..., g])[..., None]
+        gain = torch.where((idx >= s) & (idx < e), zero, gain)
+        fo = torch.cos((math.pi / 2) * (1.0 - (s - idx).to(audio.dtype) / fade_len)) ** 2
+        gain = torch.where((idx >= s - fade_len) & (idx < s), torch.minimum(gain, fo), gain)
+        fi = torch.cos((math.pi / 2) * (1.0 - (idx - e).to(audio.dtype) / fade_len)) ** 2
+        gain = torch.where((idx >= e) & (idx < e + fade_len), torch.minimum(gain, fi), gain)
+    return audio * gain
+
+
+def eval_gap_table(n_signals: int, audio_len: int = 80000, gap_len_samples: int = 1280,
+                   gap_start_samples: int = 32000) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The fixed masks of the standard evaluation condition, one gap of
+    ``gap_len_samples`` at ``gap_start_samples`` a signal
+    (``multigap.py:124-140``): ``(masks (n_signals, audio_len) f32, starts,
+    lengths (n_signals,) int32)``, numpy arrays on the host."""
+    mask = np.ones((n_signals, audio_len), np.float32)
+    mask[:, gap_start_samples : gap_start_samples + gap_len_samples] = 0.0
+    starts = np.full((n_signals,), gap_start_samples, np.int32)
+    lengths = np.full((n_signals,), gap_len_samples, np.int32)
+    return mask, starts, lengths

@@ -86,6 +86,21 @@ def ones_conv(mask_sum: torch.Tensor, kernel: int, stride: int, padding: int) ->
                         divisor_override=1)
 
 
+def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)``.  On the CPU in bf16, a convolution whose output is one
+    column wide is run two columns wide, on ``x`` with ``stride`` more zero
+    columns at its right end, and its first column kept: the same inputs
+    and sums.  oneDNN's bf16 convolution leaves most outputs of a
+    one-column result unwritten (seen with 128 input channels or more, as
+    the generator's last encoder stage has at 1 s or shorter), so the
+    result held whatever its memory held before."""
+    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+        k, s, p = conv.kernel_size[1], conv.stride[1], conv.padding[1]
+        if (x.shape[-1] + 2 * p - k) // s == 0:
+            return conv(F.pad(x, (0, s)))[..., :1]
+    return conv(x)
+
+
 def _upsample2x(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
@@ -113,7 +128,7 @@ class PartialConv(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                 mask_channel_sum: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        out = self.conv(x if self.premasked else x * mask)
+        out = _conv(self.conv, x if self.premasked else x * mask)
         updated = ones_conv(mask_channel_sum, self.kernel, self.stride, self.pad)
         out = out * (self.window_size / (updated + MASK_EPS))
         if self.bias is not None:

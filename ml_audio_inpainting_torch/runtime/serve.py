@@ -37,6 +37,7 @@ def make_gan_runner(
     phase: str = "oracle",
     compute_dtype: Optional[torch.dtype] = None,
     transport_window: Optional[int] = None,
+    gl_iters: int = 64,
 ) -> Callable:
     """``runner(audio, gap_start, gap_len)`` on ``device``: the ``(B, S)``
     restored waveforms or, with ``transport_window`` set, the gap-only PCM16
@@ -47,7 +48,9 @@ def make_gan_runner(
     built from ``cfg`` and loads ``checkpoint`` strictly.  In f32 its
     convolutions run in full f32 (TF32 off in a scope), as the JAX reference
     on the CPU does; ``compute_dtype=torch.bfloat16`` runs the generator in
-    bf16 (:func:`make_gan_inpaint_fn`).  ``runner.inpaint_fn`` (the
+    bf16 (:func:`make_gan_inpaint_fn`).  ``phase`` is any of the four
+    regimes; ``gl_iters`` counts Griffin-Lim's iterations under
+    ``"griffinlim"``.  ``runner.inpaint_fn`` (the
     un-transported function), ``runner.generator`` and ``runner.cfg`` expose
     the pieces.
     """
@@ -55,7 +58,7 @@ def make_gan_runner(
     generator = build_generator(cfg, device)
     generator.load_state_dict(pconv_unet_state_dict(load_params_npz(checkpoint)))
     inpaint_fn = make_gan_inpaint_fn(cfg, generator, mode=mode, compute_dtype=compute_dtype,
-                                     phase=phase)
+                                     phase=phase, gl_iters=gl_iters)
     transport = None if transport_window is None else make_gap_transport_fn(
         inpaint_fn, transport_window)
 
@@ -79,6 +82,7 @@ def make_cnn_runner(
     checkpoint: Union[str, Path],
     device="cuda",
     phase: str = "oracle",
+    gl_iters: int = 64,
 ) -> Callable:
     """``runner(audio, gap_start, gap_len) -> restored`` on ``device``.
 
@@ -87,13 +91,14 @@ def make_cnn_runner(
     ``(B, S)`` tensor on ``device``.  The model is built from ``cfg`` and
     loads ``checkpoint`` strictly, so a config that does not match the
     weights raises.  The convolutions run in full f32 (TF32 off in a
-    scope), as the JAX reference on the CPU does.  ``runner.inpaint_fn`` and
-    ``runner.cfg`` expose the pieces.
+    scope), as the JAX reference on the CPU does.  ``phase`` and
+    ``gl_iters`` as for :func:`make_gan_runner`.  ``runner.inpaint_fn``,
+    ``runner.model`` and ``runner.cfg`` expose the pieces.
     """
     _check_npz(checkpoint)
     model = build_model(cfg, device)
     model.load_state_dict(cnn_blstm_state_dict(load_params_npz(checkpoint)))
-    fn = make_cnn_inpaint_fn(cfg, model, phase=phase)
+    fn = make_cnn_inpaint_fn(cfg, model, phase=phase, gl_iters=gl_iters)
 
     def runner(audio, gap_start, gap_len) -> torch.Tensor:
         audio = torch.as_tensor(audio, dtype=torch.float32, device=device)
@@ -104,5 +109,6 @@ def make_cnn_runner(
         return restored
 
     runner.inpaint_fn = fn
+    runner.model = model
     runner.cfg = cfg
     return runner

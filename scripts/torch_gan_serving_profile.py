@@ -3,10 +3,12 @@
 CUDA card (the breakdown behind PERF.md section 5).
 
     python3 -m scripts.torch_gan_serving_profile    # from the repo root
+    python3 -m scripts.torch_gan_serving_profile --phase griffinlim --dtype f32
 
 Serves ``chip_smoke.py``'s ``gan_serving`` request, ``bench.py``'s canonical
-line: the GAN runner (``make_gan_runner``, ``mode="enhanced"``,
-``phase="oracle"``, gap-only PCM16 transport) with the committed
+line: the GAN runner (``make_gan_runner``, ``mode="enhanced"``, the phase
+regime of ``--phase``, ``oracle`` by default, gap-only PCM16 transport) with
+the committed
 ``results/checkpoints/gan_formant_v2_r2.npz``, on ``BATCH`` clips of 5 s from
 ``SyntheticSpeechDataset`` with an 80 ms gap at 2.0 s, in f32 (TF32 off) and
 in bf16.  For each, it warms up with two requests, then traces ``REQUESTS``
@@ -15,11 +17,17 @@ host.  Prints one JSON object: per dtype the host-clock time a request, the
 device kernels' time a request by layer (convolutions; elementwise and
 BatchNorm; pads, concats and copies; FFTs), the top kernels by name, and the
 device's busy and idle share of the traced wall time.  A kernel's layer is
-that of the outermost operator that launched it.  Imports nothing of JAX.
+that of the outermost operator that launched it; the stages of the inpaint
+function (the generator, its STFTs and iSTFT, the phase-trust mask, the
+phase extrapolation, Griffin-Lim) are wrapped here in ``record_function``
+ranges named ``stage:...``, and a kernel inside one counts to that stage.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
+import functools
 import json
 import re
 import subprocess
@@ -30,8 +38,10 @@ from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
+from ml_audio_inpainting_torch.models.pconv_unet import PConvUNet
+from ml_audio_inpainting_torch.runtime import inference
 from ml_audio_inpainting_torch.runtime.serve import make_gan_runner
 from ml_audio_inpainting_torch.runtime.synthetic import (
     BATCH,
@@ -56,6 +66,26 @@ LAYERS = (
 )
 
 
+# The inpaint function's stages, as the names it calls them by.
+STAGES = ("stft", "istft", "window_clear_frame_mask", "extrapolate_phase", "griffinlim")
+
+
+def _staged(name: str, fn):
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with record_function(f"stage:{name}"):
+            return fn(*args, **kwargs)
+
+    return run
+
+
+def instrument() -> None:
+    """Wrap the inpaint function's stages in ``record_function`` ranges."""
+    for name in STAGES:
+        setattr(inference, name, _staged(name, getattr(inference, name)))
+    PConvUNet.forward = _staged("generator", PConvUNet.forward)
+
+
 def layer_of(op: str) -> str:
     for layer, pattern in LAYERS:
         if pattern.search(op):
@@ -76,10 +106,13 @@ def busy_us(intervals) -> float:
     return total
 
 
-def outermost(evt) -> str:
-    while evt.cpu_parent is not None:
+def outermost(evt) -> tuple:
+    """(stage, operator): the ``stage:`` range around ``evt`` (``other``
+    outside every stage) and the outermost operator inside it."""
+    while evt.cpu_parent is not None and not evt.cpu_parent.name.startswith("stage:"):
         evt = evt.cpu_parent
-    return evt.name
+    parent = evt.cpu_parent
+    return (parent.name[len("stage:"):] if parent is not None else "other"), evt.name
 
 
 def profile_runner(runner, audio, starts, lens) -> dict:
@@ -99,14 +132,19 @@ def profile_runner(runner, audio, starts, lens) -> dict:
         window_ms = 1e3 * (time.perf_counter() - t_window)
 
     events = prof.events()
-    by_layer, by_name, intervals = defaultdict(float), defaultdict(float), []
+    by_layer, by_stage, by_name, intervals = (defaultdict(float), defaultdict(float),
+                                              defaultdict(float), [])
     for evt in events:
+        if evt.name.startswith("stage:"):  # the ranges themselves, on either timeline
+            continue
         if evt.device_type == DeviceType.CUDA:
             intervals.append((evt.time_range.start, evt.time_range.end))
             by_name[evt.name] += (evt.time_range.end - evt.time_range.start) / 1e3
         elif evt.kernels:
-            layer = layer_of(outermost(evt))
-            by_layer[layer] += sum(k.duration for k in evt.kernels) / 1e3
+            stage, op = outermost(evt)
+            ms = sum(k.duration for k in evt.kernels) / 1e3
+            by_layer[layer_of(op)] += ms
+            by_stage[stage] += ms
     device_ms = sum(e - s for s, e in intervals) / 1e3
     attributed_ms = sum(by_layer.values())
     by_layer["unattributed"] = device_ms - attributed_ms
@@ -116,6 +154,7 @@ def profile_runner(runner, audio, starts, lens) -> dict:
         "request_ms": request_ms,
         "window_ms": window_ms,
         "device_ms_per_request": {k: v / REQUESTS for k, v in sorted(by_layer.items())},
+        "device_ms_per_request_by_stage": {k: v / REQUESTS for k, v in sorted(by_stage.items())},
         "device_ms_per_request_total": device_ms / REQUESTS,
         "device_busy_share": busy_ms / window_ms,
         "device_idle_share": 1.0 - busy_ms / window_ms,
@@ -124,6 +163,10 @@ def profile_runner(runner, audio, starts, lens) -> dict:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phase", default="oracle", choices=inference.PHASE_MODES)
+    parser.add_argument("--dtype", default="both", choices=("f32", "bf16", "both"))
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this script profiles the port on a card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -137,10 +180,14 @@ def main() -> int:
     audio = torch.tensor(synthetic_dataset_batch(BATCH, cfg.data.max_len_s), device="cuda")
     starts = torch.full((BATCH,), GAP_START, device="cuda")
     lens = torch.full((BATCH,), GAP_LEN, device="cuda")
-    out = {"card": smi, "batch": BATCH, "requests": REQUESTS}
+    out = {"card": smi, "batch": BATCH, "requests": REQUESTS, "phase": args.phase}
+    instrument()
     for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
-        runner = make_gan_runner(cfg, CHECKPOINT, device="cuda", mode="enhanced", phase="oracle",
-                                 compute_dtype=dtype, transport_window=DEFAULT_PATCH_WINDOW)
+        if args.dtype not in ("both", label):
+            continue
+        runner = make_gan_runner(cfg, CHECKPOINT, device="cuda", mode="enhanced",
+                                 phase=args.phase, compute_dtype=dtype,
+                                 transport_window=DEFAULT_PATCH_WINDOW)
         out[label] = profile_runner(runner, audio, starts, lens)
         del runner
     print(json.dumps(out), flush=True)

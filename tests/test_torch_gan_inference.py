@@ -316,13 +316,16 @@ def test_training_generator_is_served_in_eval_mode():
 
 
 def test_later_options_raise():
+    """The options no path serves raise.  The deployable regimes
+    ``extrapolate`` and ``griffinlim``, ported since, build in ``enhanced``
+    mode and, as ``impaired``, refuse ``parity``."""
     _, cfg = _configs(tiny=True)
     gen = torch.nn.Identity()
     for phase in ("extrapolate", "griffinlim"):
-        with pytest.raises(NotImplementedError, match="phase-regime slice"):
-            make_gan_inpaint_fn(cfg, gen, mode="enhanced", phase=phase)
-    with pytest.raises(ValueError, match="require mode='enhanced'"):
-        make_gan_inpaint_fn(cfg, gen, mode="parity", phase="impaired")
+        assert callable(make_gan_inpaint_fn(cfg, gen, mode="enhanced", phase=phase))
+    for phase in ("impaired", "extrapolate", "griffinlim"):
+        with pytest.raises(ValueError, match="require mode='enhanced'"):
+            make_gan_inpaint_fn(cfg, gen, mode="parity", phase=phase)
     with pytest.raises(ValueError, match="phase must be one of"):
         make_gan_inpaint_fn(cfg, gen, mode="enhanced", phase="magic")
     with pytest.raises(ValueError, match="mode must be"):

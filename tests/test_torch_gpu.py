@@ -607,3 +607,195 @@ def test_bf16_training_step_on_card_runs_the_bf16_kernels(cuda_device):
         losses[dtype] = m["loss"].item()
     # bf16 against f32: 1.8e-2 on the CPU for this batch.
     np.testing.assert_allclose(losses[torch.bfloat16], losses[torch.float32], rtol=5e-2)
+
+
+# ------------------------------------------------------- deployable serving
+#
+# Each function of deployable serving on the card against the same function
+# on the CPU, same inputs and weights, TF32 off.  Outside the gaps every
+# deployable regime returns the input's own samples, bit for bit, on the card
+# too.  The phase ops on the unit circle within 4e-3: the extrapolated phase
+# reaches |steps * dphi| of ~2.5e4 rad (62 frames at up to 402 rad a hop in
+# the top bins), where an f32 ulp is 2e-3 rad, and the card divides by a
+# constant as a product with its reciprocal, so princarg can wrap a turn
+# elsewhere and that sum rounds another way (3e-4 seen).  Inside the gaps,
+# extrapolate within 2e-2 of each clip's gap peak for the same reason (4.7e-3
+# seen, in chip_smoke.py).  Griffin-Lim's waveform inside a gap is not a
+# stable function of its inputs (a 1e-7 change of the clip moves it by
+# 2.6e-3 of its peak after 4 iterations, 7e-2 after 64, on the CPU), so its
+# STFT magnitude over each gap's frames is held within 0.1 in relative L2
+# norm.  Griffin-Lim on a consistent spectrogram from a given phase, 4
+# iterations, within 1e-5 on the waveform.
+
+DEPLOYABLE_RTOL = 2e-2
+GL_SPEC_RTOL = 0.1
+
+
+def _gapped_clips(n=2, seconds=1.0):
+    from ml_audio_inpainting_torch.runtime.synthetic import speech_like_batch
+
+    return torch.tensor(speech_like_batch(np.random.default_rng(31), n, seconds))
+
+
+def _check_deployable(got, want, audio, inside, phase, rtol_of_peak=DEPLOYABLE_RTOL):
+    """Outside the gaps the input, bit for bit; inside, each row within
+    ``rtol_of_peak`` of the CPU's gap peak under ``extrapolate``, and under
+    ``griffinlim`` the STFT magnitude (GAN hop) over the gaps' frames."""
+    got, want, audio, inside = (t.cpu() for t in (got, want, audio, inside))
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[~inside], audio[~inside])
+    if phase == "griffinlim":
+        from ml_audio_inpainting_torch.ops.gaps import frame_mask_from_sample_mask
+        from ml_audio_inpainting_torch.ops.stft import stft
+
+        g, w = (stft(x, 512, 128, 512).abs() for x in (got, want))
+        mask = frame_mask_from_sample_mask((~inside).float(), *g.shape[-2:], 128) < 0.5
+        assert (g - w)[mask].norm() <= GL_SPEC_RTOL * w[mask].norm()
+        return
+    for g, w, i in zip(got, want, inside):
+        np.testing.assert_allclose(g[i].numpy(), w[i].numpy(), rtol=0,
+                                   atol=rtol_of_peak * w[i].abs().max().item())
+
+
+def _interval_inside(n, starts, lens):
+    idx = torch.arange(n)
+    return (idx >= starts[:, None]) & (idx < (starts + lens)[:, None])
+
+
+@pytest.mark.gpu
+def test_phase_ops_on_card_match_cpu(cuda_device):
+    from ml_audio_inpainting_torch.ops.phase import extrapolate_phase, window_clear_frame_mask
+    from ml_audio_inpainting_torch.ops.stft import stft
+
+    audio = _gapped_clips(3)
+    mask = torch.ones_like(audio)
+    mask[0, :900], mask[1, 4000:12000], mask[2, 15000:] = 0, 0, 0
+    spec = stft(audio * mask, 512, 128, 512)
+    ph = torch.where(spec == 0, 0.0, spec.angle())
+    trust = window_clear_frame_mask(mask, spec.shape[-1], 128, 512, 512)
+    got_t = window_clear_frame_mask(mask.to(cuda_device), spec.shape[-1], 128, 512, 512)
+    assert torch.equal(got_t.cpu(), trust)
+    want = extrapolate_phase(ph, trust, 128, 512)
+    got = extrapolate_phase(ph.to(cuda_device), got_t, 128, 512).cpu()
+    assert (torch.polar(torch.ones_like(got), got) - torch.polar(torch.ones_like(want), want)
+            ).abs().max() <= 4e-3
+
+
+@pytest.mark.gpu
+def test_griffinlim_and_mel_on_card_match_cpu(cuda_device):
+    from ml_audio_inpainting_torch.ops.griffinlim import griffinlim
+    from ml_audio_inpainting_torch.ops.mel import mel_spectrogram
+    from ml_audio_inpainting_torch.ops.stft import stft
+
+    audio = _gapped_clips()
+    spec = stft(audio, 512, 128, 512)
+    mag, ph = spec.abs(), spec.angle()
+    kw = dict(n_iter=4, n_fft=512, hop_length=128, win_length=512, length=16000)
+    want = griffinlim(mag, init="given", init_phase=ph, **kw)
+    got = griffinlim(mag.to(cuda_device), init="given", init_phase=ph.to(cuda_device), **kw)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-5)
+    g = torch.Generator(device=cuda_device)
+    a = griffinlim(mag.to(cuda_device), generator=g.manual_seed(3), **kw)
+    b = griffinlim(mag.to(cuda_device), generator=g.manual_seed(3), **kw)
+    assert torch.equal(a, b) and torch.isfinite(a).all()
+    want_m = mel_spectrogram(audio, 16000, 512, 128, 64)
+    got_m = mel_spectrogram(audio.to(cuda_device), 16000, 512, 128, 64).cpu()
+    np.testing.assert_allclose(got_m.numpy(), want_m.numpy(), rtol=0,
+                               atol=1e-5 * want_m.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", ["tiny", "default"])
+@pytest.mark.parametrize("phase", ["extrapolate", "griffinlim"])
+def test_deployable_gan_on_card_matches_cpu(cuda_device, width, phase):
+    """Interval-, mask-driven and shift-ensemble GAN functions; the bf16
+    generator under ``extrapolate`` against bf16 on the CPU (1e-2 of the
+    peak)."""
+    from ml_audio_inpainting_torch.runtime.inference import (
+        make_gan_inpaint_mask_fn,
+        make_tta_shift_fn,
+    )
+    from ml_audio_inpainting_torch.ops.gaps import gap_mask
+
+    cfg, gen = _gan_setup(width)
+    audio = torch.tensor(synthetic_dataset_batch(2, 1.5))
+    starts, lens = torch.tensor([0, 12000]), torch.tensor([1280, 8000])
+    card_gen = copy.deepcopy(gen).to(cuda_device)
+    on = [t.to(cuda_device) for t in (audio, starts, lens)]
+    inside = _interval_inside(audio.shape[-1], starts, lens)
+    for dtype in (None, torch.bfloat16) if phase == "extrapolate" else (None,):
+        want = make_gan_inpaint_fn(cfg, gen, mode="enhanced", phase=phase, gl_iters=4,
+                                   compute_dtype=dtype)(audio, starts, lens)
+        got = make_gan_inpaint_fn(cfg, card_gen, mode="enhanced", phase=phase, gl_iters=4,
+                                  compute_dtype=dtype)(*on)
+        _check_deployable(got[0], want[0], audio, inside, phase,
+                          DEPLOYABLE_RTOL if dtype is None else 1e-2)
+    mask = gap_mask(audio.shape[-1], starts, lens)
+    want = make_gan_inpaint_mask_fn(cfg, gen, phase=phase, gl_iters=4)(audio, mask)
+    got = make_gan_inpaint_mask_fn(cfg, card_gen, phase=phase, gl_iters=4)(on[0],
+                                                                           mask.to(cuda_device))
+    _check_deployable(got[0], want[0], audio, inside, phase)
+    base = make_gan_inpaint_fn(cfg, gen, mode="enhanced", phase=phase, gl_iters=4)
+    card_base = make_gan_inpaint_fn(cfg, card_gen, mode="enhanced", phase=phase, gl_iters=4)
+    want = make_tta_shift_fn(base, 128, 4)(audio, starts, lens)
+    got = make_tta_shift_fn(card_base, 128, 4)(*on)
+    _check_deployable(got[0], want[0], audio, inside, phase)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("phase", ["extrapolate", "griffinlim"])
+def test_deployable_cnn_on_card_matches_cpu(cuda_device, phase):
+    """The committed CNN+BiLSTM by interval and by mask: 3 ``lstm_fwd``
+    launches a request on the card."""
+    from ml_audio_inpainting_torch.ops.gaps import gap_mask
+    from ml_audio_inpainting_torch.runtime.inference import make_cnn_inpaint_mask_fn
+
+    audio = _gapped_clips()
+    starts, lens = torch.tensor([0, 4000]), torch.tensor([1280, 8000])
+    inside = _interval_inside(16000, starts, lens)
+    cpu = make_cnn_runner(Config(), CKPT, device="cpu", phase=phase, gl_iters=4)
+    card = make_cnn_runner(Config(), CKPT, device=cuda_device, phase=phase, gl_iters=4)
+    before = lstm_cell.bilstm_recurrence.launches
+    got = card(audio, starts, lens)
+    assert lstm_cell.bilstm_recurrence.launches == before + 3
+    _check_deployable(got, cpu(audio, starts, lens), audio, inside, phase)
+    mask = gap_mask(16000, starts, lens)
+    want = make_cnn_inpaint_mask_fn(Config(), cpu.model, phase=phase, gl_iters=4)(audio, mask)
+    got = make_cnn_inpaint_mask_fn(Config(), card.model, phase=phase, gl_iters=4)(
+        audio.to(cuda_device), mask.to(cuda_device))
+    _check_deployable(got[0], want[0], audio, inside, phase)
+
+
+@pytest.mark.gpu
+def test_longform_on_card_matches_cpu(cuda_device):
+    """Both long-form paths around the committed GAN under ``extrapolate``,
+    with no host wait inside a pass; PCM16 patches within the waveform bound
+    (in LSB) of the CPU's."""
+    from ml_audio_inpainting_torch.runtime.longform import (
+        longform_inpaint,
+        longform_inpaint_centered,
+    )
+
+    cfg, gen = _gan_setup("default")
+    audio = _gapped_clips(1, 6.0)[0]
+    starts, lens = np.array([2000, 40000, 70000]), np.array([1280, 1000, 900])
+    card = make_gan_inpaint_fn(cfg, copy.deepcopy(gen).to(cuda_device), mode="enhanced",
+                               phase="extrapolate")
+    cpu = make_gan_inpaint_fn(cfg, gen, mode="enhanced", phase="extrapolate")
+    kw = dict(window=24000, hop=12000, batch_size=4)
+    want = longform_inpaint(cpu, audio, starts, lens, **kw)
+    audio_d = audio.to(cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = longform_inpaint(card, audio_d, starts, lens, **kw)
+        patches, pstarts = longform_inpaint_centered(card, audio_d, starts, lens, window=24000,
+                                                     batch_size=2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    inside = _interval_inside(len(audio), torch.tensor(starts), torch.tensor(lens))
+    _check_deployable(got[None], want[None], audio[None], inside.any(0)[None], "extrapolate")
+    want_p, want_s = longform_inpaint_centered(cpu, audio, starts, lens, window=24000, batch_size=2)
+    assert torch.equal(pstarts.cpu(), want_s)
+    lsb = 1 + DEPLOYABLE_RTOL * want_p.abs().max().item()
+    assert (patches.cpu().int() - want_p.int()).abs().max().item() <= lsb

@@ -281,3 +281,45 @@ def test_resize_nearest_matches_jax(src, dst):
 def test_decoder_stages_must_fit_the_encoder():
     with pytest.raises(ValueError, match="decoder stages"):
         PConvUNet(enc_layer_cfg=[(8, 3, 2), (8, 3, 2)], dec_layer_cfg=[(8, 3, 1), (8, 3, 1)])
+
+
+_ONE_COLUMN_CHECK = """
+import torch
+from ml_audio_inpainting_torch.models.pconv_unet import PartialConv
+torch.manual_seed(0)
+pc = PartialConv({c_in}, 512, 3, 2, use_bias=False).eval()
+with torch.no_grad():
+    pc.conv.weight.mul_(20.0)
+x = torch.randn(1, {c_in}, 6, {w})
+mask = torch.ones(1, 1, 6, {w})
+mask[..., :2, :] = 0
+with torch.inference_mode():
+    want, want_m = pc(x, mask, {c_in} * mask)
+    got, got_m = pc.to(torch.bfloat16)(x.bfloat16(), mask.bfloat16(), ({c_in} * mask).bfloat16())
+assert torch.equal(got_m.float(), want_m), "mask"
+err = (got.float() - want).abs().max().item()
+print(err)
+assert err <= 0.02 * want.abs().max().item() + 1e-3, err
+"""
+
+
+@pytest.mark.parametrize("c_in,w", [(512, 2), (512, 1), (128, 2), (512, 4)])
+def test_bf16_one_column_convolution_on_the_cpu_writes_every_output(c_in, w):
+    """Witness of a oneDNN fault on the CPU: its bf16 convolution leaves most
+    outputs of a result one column wide unwritten (here with 128 input
+    channels or more; the generator's last encoder stage gives one at clips
+    of 1 s or shorter), so they hold whatever the memory held before, and
+    the bf16 generator returned NaN now and then.  Under glibc's
+    ``MALLOC_PERTURB_`` every allocation is filled with 0x7f bytes (3.4e38
+    in bf16), which makes the fault show on every run: the port's partial
+    conv in bf16 must stay within bf16's rounding (sums over up to 4608
+    products) of its f32 result.  ``(512, 4)`` is a two-column result, the
+    control."""
+    import subprocess
+    import sys
+
+    env = dict(os.environ, MALLOC_PERTURB_="128", MALLOC_MMAP_THRESHOLD_="33554432",
+               PYTHONPATH=REPO)
+    run = subprocess.run([sys.executable, "-c", _ONE_COLUMN_CHECK.format(c_in=c_in, w=w)],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-2000:]
