@@ -8,8 +8,10 @@ Phases, each printing one flushed line per step with the seconds since start:
 
 1. device     -- the card's name, count and power limit (raises without CUDA);
 2. build      -- one ``nvcc`` call a source, ``csrc/lstm_fwd.cu`` and
-                 ``csrc/lstm_bwd.cu``, started together; prints the times and
-                 ptxas' register / shared-memory / spill reports;
+                 ``csrc/lstm_bwd.cu``, and one ``g++`` call for the audio
+                 codec ``native/audioio.cpp``, all started together; prints
+                 the times and ptxas' register / shared-memory / spill
+                 reports;
 3. kernel     -- the forward LSTM kernel ``lstm_fwd`` (both directions of a
                  layer in one launch, on thread-block clusters of 8 CTAs
                  that hold W_hh on chip) against its plain PyTorch version,
@@ -87,6 +89,28 @@ Phases, each printing one flushed line per step with the seconds since start:
                  magnitude than the ``extrapolate`` estimate it starts from;
                  bf16 against f32; no hand-written kernel on the GAN
                  functions;
+6c. evaluation -- file-in/file-out serving and evaluation at full width,
+                 the committed ``gan_formant_v2_r2.npz`` and
+                 ``cnn_blstm_formant_v2_r2.npz``, default configs: 32 seeded
+                 speech-like 5 s clips written as 16-bit FLAC by the port's
+                 ``save_audio`` and read back (MD5 verified, equal to the
+                 16-bit quantisation bit for bit; encode and decode timed);
+                 each metric (gap SDR, SNR, LSD, fwSegSNR, PSM, ODG) at B=32
+                 on the card (CUDA-event ms, first call, peak memory); the
+                 port's ``evaluate`` CLI in-process over the 32 files (80 ms
+                 gap at 2.0 s), one JSON each: the GAN (``enhanced``) under
+                 ``oracle``, ``extrapolate`` in f32 and bf16, ``griffinlim``
+                 (64 iterations), the CNN+BiLSTM under ``oracle`` and
+                 ``extrapolate``, both with 3 gaps a clip under
+                 ``extrapolate``; the quality table of each (means), the
+                 wall-time split of one run a family (read, model, metrics);
+                 the same regimes on the three committed formant FLACs, on
+                 the card against the CLI on the CPU (``--device cpu``) per
+                 clip; the ``inpaint`` CLI on the 32 files (GAN
+                 ``extrapolate``) and ``--longform`` on a seeded 60 s file
+                 (CNN+BiLSTM), each output equal to ``save_audio`` of the
+                 runner's output on the card, bit for bit; ``lstm_fwd``
+                 launched 3 times a CNN+BiLSTM request, nothing else;
 7. training   -- the recipe of ``configs/cnn_blstm.yaml`` (1 clip x 25 gap
                  variants of 0.2 s, Adam at lr 1e-4, full width) takes 5 steps
                  on seeded clips and gap starts, twice: from the committed
@@ -155,6 +179,9 @@ from ml_audio_inpainting_torch.ops.cuda.lstm_cell import (
     load_library,
     lstm_recurrence_backward_reference,
 )
+from ml_audio_inpainting_torch.cli import evaluate, inpaint
+from ml_audio_inpainting_torch.data import audio_io
+from ml_audio_inpainting_torch.data.audio_io import read_audio, save_audio
 from ml_audio_inpainting_torch.data.multigap import multi_gap_mask
 from ml_audio_inpainting_torch.ops import masking
 from ml_audio_inpainting_torch.ops.gaps import frame_mask_from_interval, gap_mask
@@ -184,6 +211,7 @@ from ml_audio_inpainting_torch.runtime.synthetic import (
     speech_like_batch,
     synthetic_dataset_batch,
 )
+from ml_audio_inpainting_torch.train import auditory, metrics, peaq
 from ml_audio_inpainting_torch.train.checkpoints import export_params_npz
 from ml_audio_inpainting_torch.train.cnn_trainer import create_cnn_state, make_cnn_train_step
 from ml_audio_inpainting_torch.train.recipe import (
@@ -372,14 +400,20 @@ def ptxas_report(output: str) -> dict:
 
 
 def phase_build() -> dict:
-    """Builds every source from nothing, in parallel; returns ptxas' report
-    of every kernel."""
+    """Builds every source from nothing, in parallel: the two kernel sources
+    (``nvcc``) and the audio codec (``g++``); returns ptxas' report of every
+    kernel."""
     shutil.rmtree(lstm_cell.BUILD_DIR, ignore_errors=True)  # time a build from nothing
     names = list(lstm_cell.SOURCES)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc a source, all at once
+    with ThreadPoolExecutor(len(names) + 1) as pool:  # one compiler a source, all at once
+        codec = pool.submit(audio_io.load_library)
         libs = dict(zip(names, pool.map(load_library, names)))
-    log("build", f"{len(names)} sources in {time.perf_counter() - t0:.2f} s (in parallel)")
+        codec = codec.result()
+    log("build", f"{len(names)} kernel sources and the audio codec in "
+                 f"{time.perf_counter() - t0:.2f} s (in parallel)")
+    log("build", f"g++ {' '.join(audio_io.CXX_FLAGS)} native/audioio.cpp -> {codec.path.name} in "
+                 f"{codec.build_seconds:.2f} s")
     report = {}
     for name, lib in libs.items():
         log("build", f"nvcc {' '.join(lstm_cell.NVCC_FLAGS)} {name}.cu -> {lib.path.name} "
@@ -1513,6 +1547,285 @@ def phase_serving_deployable(card: str) -> dict:
     return launches
 
 
+# -------------------------------------------------------------- evaluation
+
+EVAL_REGIMES = (  # (label, model, the CLI's flags)
+    ("gan oracle", "gan", ["--mode", "enhanced", "--phase", "oracle"]),
+    ("gan extrapolate", "gan", ["--mode", "enhanced", "--phase", "extrapolate"]),
+    ("gan extrapolate bf16", "gan", ["--mode", "enhanced", "--phase", "extrapolate",
+                                     "--infer-dtype", "bf16"]),
+    ("gan griffinlim", "gan", ["--mode", "enhanced", "--phase", "griffinlim",
+                               "--gl-iters", str(GL_ITERS)]),
+    ("cnn_blstm oracle", "cnn_blstm", ["--phase", "oracle"]),
+    ("cnn_blstm extrapolate", "cnn_blstm", ["--phase", "extrapolate"]),
+    ("gan 3 gaps extrapolate", "gan", ["--mode", "enhanced", "--phase", "extrapolate",
+                                       "--n-gaps", "3"]),
+    ("cnn_blstm 3 gaps extrapolate", "cnn_blstm", ["--phase", "extrapolate", "--n-gaps", "3"]),
+)
+EVAL_CHECKPOINTS = {"gan": GAN_CHECKPOINT, "cnn_blstm": CHECKPOINT}
+FORMANT_DIR = REPO / "results" / "formant_corpus_samples"
+METRIC_KEYS = ("gap_sdr_db", "snr_db", "lsd_db", "fwseg_snr_db", "psm", "odg")
+# evaluation: the CLI on the card against the same CLI on the CPU (--device
+# cpu) on the three formant FLACs, per clip.  The card's FFTs and
+# convolutions sum in another order.  What moves the metrics, on the CPU: a
+# 1e-7 relative change of the clips moves gap SDR by at most 7e-7 dB under
+# oracle and extrapolate (f32), 4.6e-4 dB in bf16 and 2.0e-4 dB under
+# griffinlim (whose ODG moves by 1.0e-2: Griffin-Lim in a gap is not a stable
+# function of its input); bf16 against f32 moves gap SDR by 4.7e-3 dB.  So:
+# gap SDR within 1e-2 dB under oracle; within 5e-2 dB under extrapolate (the
+# waveform in the gaps lies up to 4.7e-3 of the gaps' peak apart, card vs
+# CPU, in serving_deployable), in bf16 too (ten times bf16's own distance to f32); under
+# griffinlim the batch's mean gap SDR within 0.5 dB.  Under oracle also PSM
+# within 1e-4 and ODG within 1e-3.
+EVAL_SDR_DB = {"oracle": 1e-2, "extrapolate": 5e-2}
+EVAL_GL_MEAN_SDR_DB = 0.5
+EVAL_PSM_ATOL, EVAL_ODG_ATOL = 1e-4, 1e-3
+EVAL_METRIC_REPS = 5
+LONG_EVAL_GAP_S = 31.0  # the 60 s file's gap (80 ms)
+
+
+def _flac16(x: np.ndarray) -> np.ndarray:
+    """What the codec decodes of f32 ``x`` written as 16-bit FLAC: ``x *
+    32768`` rounded half away from zero, clipped to int16, over 32768."""
+    v = x.astype(np.float64) * 32768.0
+    levels = np.clip(np.trunc(v + np.where(v >= 0, 0.5, -0.5)), -32768, 32767)
+    return (levels / 32768.0).astype(np.float32)
+
+
+def _eval_argv(model: str, flags: list, inp: Path, device: str) -> list:
+    return ["--models", model, "--checkpoint", str(EVAL_CHECKPOINTS[model]), "--input", str(inp),
+            *flags, "--device", device]
+
+
+def _means(results: dict) -> dict:
+    return {k: float(np.mean(results[k])) for k in METRIC_KEYS}
+
+
+def _table_line(label: str, means: dict) -> str:
+    return (f"{label:>30} | gap SDR {means['gap_sdr_db']:7.3f} dB | SNR {means['snr_db']:7.3f} | "
+            f"LSD {means['lsd_db']:6.3f} | fwSegSNR {means['fwseg_snr_db']:7.3f} | "
+            f"PSM {means['psm']:6.4f} | ODG {means['odg']:7.4f}")
+
+
+def _same_decoded(label: str, got_files: list, want_files: list) -> int:
+    """Each pair of files decodes to the same samples, bit for bit."""
+    from ml_audio_inpainting_torch.data.audio_io import read_audio
+
+    for g, w in zip(got_files, want_files, strict=True):
+        a, b = read_audio(g)[0], read_audio(w)[0]
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{label}: {g.name} differs from save_audio of the runner's "
+                                 f"output in {int((a != b).sum())} samples")
+    return len(got_files)
+
+
+def phase_evaluation(card: str) -> dict:
+    """File-in/file-out serving and evaluation: the codec, the metrics, the
+    port's ``evaluate`` and ``inpaint`` CLIs at full width on the card."""
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_evaluation_"))
+    try:
+        return _evaluation(card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _evaluation(card: str, work: Path) -> dict:
+    summary = {"card": card, "batch": B}
+    clips_dir = work / "clips"
+    clips = speech_like_batch(np.random.default_rng(11), B)
+    seconds_of_audio = B * clips.shape[-1] / SAMPLE_RATE
+    _reset_counts()
+
+    # 1. The clips through the codec: 16-bit FLAC and back, on the host.
+    t0 = time.perf_counter()
+    paths = [clips_dir / f"clip{i:02d}.flac" for i in range(B)]
+    for clip, path in zip(clips, paths):
+        save_audio(clip, path, SAMPLE_RATE)
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded = [read_audio(p) for p in paths]
+    decode_s = time.perf_counter() - t0
+    for clip, path, (x, rate, md5_ok) in zip(clips, paths, decoded):
+        want = _flac16(clip / np.abs(clip).max())
+        if md5_ok != 1 or rate != SAMPLE_RATE or not np.array_equal(x[:, 0], want):
+            raise AssertionError(f"{path.name}: md5_ok {md5_ok}, rate {rate}, decode differs from "
+                                 f"the 16-bit quantisation of what was written")
+    summary["codec"] = {"encode_s": encode_s, "decode_s": decode_s,
+                        "encode_s_audio_per_s": seconds_of_audio / encode_s,
+                        "decode_s_audio_per_s": seconds_of_audio / decode_s,
+                        "bytes": sum(p.stat().st_size for p in paths)}
+    log("evaluation", f"codec: {B} x 5 s clips written as 16-bit FLAC in {encode_s:.3f} s "
+                      f"({seconds_of_audio / encode_s:.0f} s-audio/s), read back in "
+                      f"{decode_s:.3f} s ({seconds_of_audio / decode_s:.0f} s-audio/s), MD5 "
+                      f"verified, equal to the 16-bit quantisation bit for bit; "
+                      f"{summary['codec']['bytes']} bytes")
+
+    # 2. Each metric at B=32 on the card: the first call, CUDA-event ms and
+    # peak memory, on the clean clips against the gapped ones.
+    clean = torch.tensor(np.stack([x[:, 0] for x, _, _ in decoded]), device=DEVICE)
+    valid = gap_mask(clean.shape[-1], torch.full((B,), GAP_START, device=DEVICE),
+                     torch.full((B,), GAP_LEN, device=DEVICE))
+    gapped = clean * valid
+    metric_fns = {"gap_sdr": lambda: metrics.gap_sdr(clean, gapped, 1.0 - valid),
+                  "snr": lambda: metrics.snr(clean, gapped),
+                  "lsd": lambda: metrics.log_spectral_distance(clean, gapped),
+                  "fwseg_snr": lambda: metrics.fwseg_snr(clean, gapped),
+                  "psm": lambda: auditory.psm_score(clean, gapped),
+                  "odg": lambda: peaq.odg_score(clean, gapped)}
+    summary["metrics"] = {}
+    for name, fn in metric_fns.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        ms = cuda_ms(fn, EVAL_METRIC_REPS, warmup=1)
+        if tuple(out.shape) != (B,) or not torch.isfinite(out).all():
+            raise AssertionError(f"metric {name}: {tuple(out.shape)}, finite "
+                                 f"{bool(torch.isfinite(out).all())}")
+        summary["metrics"][name] = {"ms": ms, "first_s": first_s, "peak_mib": peak}
+        log("evaluation", f"metric {name} at B={B} x 5 s: {ms:.3f} ms (CUDA events, mean of "
+                          f"{EVAL_METRIC_REPS}), first call {first_s:.3f} s, peak {peak:.1f} MiB "
+                          f"above its inputs; clean vs gapped mean {out.mean().item():.4f}")
+    del clean, gapped, valid
+
+    # 3. The evaluate CLI on the 32 files, every regime, one JSON each.
+    json_dir = work / "json"
+    json_dir.mkdir()
+    summary["evaluate"] = {}
+    for label, model, flags in EVAL_REGIMES:
+        out = json_dir / f"{label.replace(' ', '_')}.json"
+        before = bilstm_recurrence.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate.main(_eval_argv(model, flags, clips_dir, DEVICE) + ["--output-json", str(out)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = bilstm_recurrence.launches - before
+        if launched != (3 if model == "cnn_blstm" else 0):
+            raise AssertionError(f"evaluate {label}: lstm_fwd launched {launched} times, "
+                                 f"expected {3 if model == 'cnn_blstm' else 0}")
+        payload = json.loads(out.read_text())
+        res = payload["results"][model]
+        if any(len(res[k]) != B or not np.isfinite(res[k]).all() for k in METRIC_KEYS):
+            raise AssertionError(f"evaluate {label}: results not {B} finite values each")
+        means = _means(res)
+        summary["evaluate"][label] = {"wall_s": wall, "lstm_fwd": launched, **means}
+        log("evaluation", f"evaluate {B} files: {_table_line(label, means)} | {wall:.2f} s")
+
+    # The wall-time split of one evaluate run a family (warm: built above).
+    summary["split"] = {}
+    for label, model, flags in (EVAL_REGIMES[1], EVAL_REGIMES[5]):
+        timings = {}
+        args = evaluate.build_argparser().parse_args(_eval_argv(model, flags, clips_dir, DEVICE))
+        t0 = time.perf_counter()
+        evaluate.run(args, timings)
+        timings["total"] = time.perf_counter() - t0
+        summary["split"][label] = timings
+        log("evaluation", f"evaluate {label}, {B} files, wall seconds by part (device synced at "
+                          f"each): " + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()))
+
+    # 4. The three formant FLACs: the table, and card against the CPU.
+    summary["formant"] = {}
+    for label, model, flags in EVAL_REGIMES:
+        runs = {}
+        for device in (DEVICE, "cpu"):
+            args = evaluate.build_argparser().parse_args(
+                _eval_argv(model, flags, FORMANT_DIR, device))
+            before = bilstm_recurrence.launches
+            runs[device] = evaluate.run(args)[1][model]
+            launched = bilstm_recurrence.launches - before
+            if launched != (3 if model == "cnn_blstm" and device == DEVICE else 0):
+                raise AssertionError(f"formant {label} on {device}: {launched} lstm_fwd launches")
+        card_r, cpu_r = runs[DEVICE], runs["cpu"]
+        d = {k: float(np.abs(card_r[k] - cpu_r[k]).max()) for k in METRIC_KEYS}
+        phase_kind = "griffinlim" if "griffinlim" in label else (
+            "oracle" if "oracle" in label else "extrapolate")
+        if phase_kind == "griffinlim":
+            err = abs(float(card_r["gap_sdr_db"].mean() - cpu_r["gap_sdr_db"].mean()))
+            ok, bound = err <= EVAL_GL_MEAN_SDR_DB, f"mean gap SDR {err:.4f} <= {EVAL_GL_MEAN_SDR_DB}"
+        else:
+            err = d["gap_sdr_db"]
+            ok = err <= EVAL_SDR_DB[phase_kind]
+            bound = f"per-clip gap SDR {err:.2e} <= {EVAL_SDR_DB[phase_kind]}"
+            if phase_kind == "oracle":
+                ok = ok and d["psm"] <= EVAL_PSM_ATOL and d["odg"] <= EVAL_ODG_ATOL
+                bound += (f", PSM {d['psm']:.2e} <= {EVAL_PSM_ATOL}, ODG {d['odg']:.2e} <= "
+                          f"{EVAL_ODG_ATOL}")
+        means = _means(card_r)
+        summary["formant"][label] = {**means, "card_vs_cpu": d}
+        log("evaluation", f"formant 3 files: {_table_line(label, means)}")
+        log("evaluation", f"formant {label}: card vs CPU {bound}; largest per-clip differences "
+                          + ", ".join(f"{k} {v:.2e}" for k, v in d.items()))
+        if not ok:
+            raise AssertionError(f"formant {label}: card and CPU disagree: {bound}")
+
+    # 5. The inpaint CLI: the GAN on the 32 files, the CNN+BiLSTM long-form on
+    # a 60 s file; each output equal to save_audio of the runner's output.
+    out_dir, ref_dir = work / "inpainted", work / "reference"
+    argv = ["--model", "gan", "--checkpoint", str(GAN_CHECKPOINT), "--mode", "enhanced",
+            "--phase", "extrapolate", "--batch-size", str(B), "--input", str(clips_dir),
+            "--output", str(out_dir), "--device", DEVICE]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inpaint.main(argv)
+    wall = time.perf_counter() - t0
+    args = inpaint.build_argparser().parse_args(argv)
+    runner = inpaint._build_runner(args, gan_config())
+    audio = evaluate.load_clean(paths, Config())
+    restored = runner(audio, np.full(B, GAP_START), np.full(B, GAP_LEN)).cpu().numpy()
+    refs = []
+    for j, path in enumerate(paths):
+        refs.append(ref_dir / f"{path.stem}_gan_inpainted.flac")
+        save_audio(restored[j], refs[-1], SAMPLE_RATE)
+    n = _same_decoded("inpaint gan", sorted(out_dir.glob("*.flac")), refs)
+    summary["inpaint gan extrapolate"] = {"wall_s": wall, "files": n}
+    log("evaluation", f"inpaint gan extrapolate: {n} files in {wall:.2f} s, each equal to "
+                      f"save_audio of the runner's output on the card, bit for bit")
+    del runner
+
+    long_audio = np.concatenate(list(speech_like_batch(np.random.default_rng(12), 12)))
+    long_in, long_out, long_ref = work / "long" / "long60.flac", work / "long_out.flac", \
+        work / "long_ref.flac"
+    save_audio(long_audio, long_in, SAMPLE_RATE)
+    argv = ["--model", "cnn_blstm", "--checkpoint", str(CHECKPOINT), "--phase", "extrapolate",
+            "--longform", "--gap-start", str(LONG_EVAL_GAP_S), "--input", str(long_in),
+            "--output", str(long_out), "--device", DEVICE]
+    before = bilstm_recurrence.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inpaint.main(argv)
+    wall = time.perf_counter() - t0
+    launched = bilstm_recurrence.launches - before
+    args = inpaint.build_argparser().parse_args(argv)
+    runner = inpaint._build_runner(args, Config())
+    mono = torch.from_numpy(read_audio(long_in)[0][:, 0].copy()).to(DEVICE)
+    restored = longform_inpaint(runner.inpaint_fn, mono, int(LONG_EVAL_GAP_S * SAMPLE_RATE),
+                                GAP_LEN, window=Config().data.max_samples,
+                                hop=Config().data.max_samples // 2, batch_size=args.batch_size)
+    save_audio(restored, long_ref, SAMPLE_RATE)
+    _same_decoded("inpaint cnn_blstm --longform", [long_out], [long_ref])
+    if launched != 3:
+        raise AssertionError(f"inpaint --longform: lstm_fwd launched {launched} times, expected 3 "
+                             f"(one call of the two windows over the gap)")
+    summary["inpaint cnn_blstm longform"] = {"wall_s": wall, "seconds": len(long_audio) / SAMPLE_RATE,
+                                             "lstm_fwd": launched}
+    log("evaluation", f"inpaint cnn_blstm --longform: {len(long_audio) / SAMPLE_RATE:.0f} s file in "
+                      f"{wall:.2f} s, {launched} lstm_fwd launches, equal to save_audio of "
+                      f"longform_inpaint on the card, bit for bit")
+
+    launches = _counts()
+    if any(n for k, n in launches.items() if k != "lstm_fwd") or not launches["lstm_fwd"]:
+        raise AssertionError(f"evaluation launched a backward kernel or a bf16 form, or no "
+                             f"lstm_fwd: {launches}")
+    summary["launches"] = launches
+    log("evaluation", json.dumps(summary))
+    return launches
+
+
 def _check_step_against_cpu(cfg: Config, flat: dict, audio: np.ndarray, starts: torch.Tensor,
                             label: str) -> dict:
     """Step 0 of a reduced batch on the card in f32 and on the CPU in f64
@@ -1745,6 +2058,7 @@ def main() -> int:
     paths = {"serving": phase_serving(card)}
     phase_gan_serving(card)
     paths["serving_deployable"] = phase_serving_deployable(card)
+    paths["evaluation"] = phase_evaluation(card)
     paths["training"] = phase_training(card)
     paths["training_bf16"] = phase_training_bf16(card)
     for k in kernels:

@@ -14,7 +14,11 @@ recurrence runs in hand-written CUDA kernels on thread-block clusters
 (``csrc/lstm_fwd.cu`` forward, ``csrc/lstm_bwd.cu`` backward), built with
 ``nvcc`` at first CUDA use and
 bound with ``ctypes`` behind one ``torch.autograd.Function``
-(``ops/cuda/lstm_cell.py``).
+(``ops/cuda/lstm_cell.py``).  Audio files go in and out through its own native
+codec (``native/audioio.cpp``, ``data/audio_io.py``), and the ``inpaint``
+and ``evaluate`` CLIs (``cli/``) serve and score both families with the
+quality metrics of ``train/metrics.py``, ``train/auditory.py`` and
+``train/peaq.py``.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,236 @@
+"""Inference CLI: inpaint FLAC/WAV files with a neural model (port of
+``ml_audio_inpainting_tpu/cli/inpaint.py``, its ``gan`` and ``cnn_blstm``
+families)::
+
+    python -m ml_audio_inpainting_torch.cli.inpaint --model gan \\
+        --checkpoint results/checkpoints/gan_formant_v2_r2.npz --mode enhanced \\
+        --phase extrapolate --input in.flac --output out.flac [--device cpu]
+
+It takes the JAX CLI's flags and ``--device`` (``cuda`` unless the caller
+asks for ``cpu``).  Weights are exported ``.npz`` files.  What the port does
+not have yet raises ``SystemExit`` naming the ROADMAP item that ports it: the
+``refiner``, ``cnn_phase[_anchored]`` and classical models, ``--ar-preset
+tuned``, and a checkpoint that is an orbax directory or a reference ``.pt``
+(or none: the JAX CLI then serves fresh initial weights).
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+from typing import List
+
+import numpy as np
+import torch
+
+CLASSICAL = (
+    "janssen", "arinpaint", "segmentation", "aspain", "sspain", "sspain_omp",
+    "aspain_learned", "sspain_learned",
+)
+# Models and options of the JAX CLI that wait for a later slice, and the
+# ROADMAP item (Queue A) that ports each.
+UNPORTED_MODELS = {
+    "refiner": "ROADMAP Queue A item 6 (refiner, adaptation and soups)",
+    "cnn_phase": "ROADMAP Queue A item 4 (the phase-mode CNN)",
+    "cnn_phase_anchored": "ROADMAP Queue A item 4 (the phase-mode CNN)",
+    **{m: "ROADMAP Queue A item 5 (the classical family)" for m in CLASSICAL},
+}
+CHECKPOINT_ITEM = ("ROADMAP Queue A item 4 (a CheckpointManager counterpart for orbax "
+                   "directories and fresh initial weights; models/port_torch.py for .pt files)")
+
+__all__ = ["build_argparser", "main", "check_ported", "route"]
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Inpaint gapped audio")
+    p.add_argument("--model", required=True,
+                   choices=["gan", "cnn_blstm", "cnn_phase", "cnn_phase_anchored", "refiner",
+                            *CLASSICAL])
+    p.add_argument("--gan-checkpoint", type=str,
+                   default="results/checkpoints/gan_formant_v2_r2.npz",
+                   help="GAN weights npz for --model refiner")
+    p.add_argument("--gan-config", type=str, default=None,
+                   help="GAN YAML for --model refiner (default: GAN profile)")
+    p.add_argument("--config", type=str, default=None)
+    p.add_argument("--checkpoint", type=str, default=None, help="exported .npz weights")
+    p.add_argument("--checkpoint-longgap", type=str, default=None,
+                   help="long-gap variant weights, used instead of --checkpoint when "
+                        "--gap-len exceeds --longgap-threshold")
+    p.add_argument("--longgap-threshold", type=float, default=None,
+                   help="gap length (s) past which --checkpoint-longgap takes over "
+                        "(default: 0.25 s)")
+    p.add_argument("--input", required=True, help="audio file or directory")
+    p.add_argument("--output", required=True, help="output file or directory")
+    p.add_argument("--gap-start", type=float, default=2.0, help="gap start (s)")
+    p.add_argument("--gap-len", type=float, default=0.08, help="gap length (s)")
+    p.add_argument("--mode", choices=["parity", "enhanced"], default="parity")
+    p.add_argument("--phase", choices=["oracle", "impaired", "extrapolate", "griffinlim"],
+                   default="oracle",
+                   help="phase regime: the clean signal's phase (oracle), the gapped "
+                        "signal's (impaired), its extrapolation over the gap "
+                        "(extrapolate), or Griffin-Lim started from that (griffinlim)")
+    p.add_argument("--infer-dtype", choices=["f32", "bf16"], default="f32",
+                   help="GAN generator compute precision; the DSP stays f32")
+    p.add_argument("--gl-iters", type=int, default=64,
+                   help="Griffin-Lim iterations for --phase griffinlim")
+    p.add_argument("--tta-shifts", type=int, default=1,
+                   help="test-time ensemble of N sub-hop shifts, averaged inside the gap "
+                        "(1 = off)")
+    p.add_argument("--ar-order", type=int, default=512)
+    p.add_argument("--ar-context", type=int, default=4096)
+    p.add_argument("--ar-blend", choices=["cos2", "linear", "sigmoid"], default="cos2")
+    p.add_argument("--ar-blend-param", type=float, default=0.0)
+    p.add_argument("--maxit", type=int, default=10)
+    p.add_argument("--ar-preset", choices=["default", "tuned"], default="default")
+    p.add_argument("--ar-method", choices=["lpc", "arburg"], default="lpc")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--basis", type=str, default=None)
+    p.add_argument("--longform", action="store_true",
+                   help="inpaint audio of any duration: overlapping model windows, "
+                        "overlap-added (runtime/longform.py); the gap may be anywhere")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to run on (default: cuda)")
+    return p
+
+
+def _collect(inp: Path) -> List[Path]:
+    """The audio files under a directory (sorted), or the one file given."""
+    if inp.is_dir():
+        return sorted(p for p in inp.rglob("*") if p.suffix.lower() in (".flac", ".wav", ".mp3"))
+    return [inp]
+
+
+def check_ported(models, args) -> None:
+    """Raise ``SystemExit`` for a model or option this slice does not port."""
+    for m in models:
+        if m in UNPORTED_MODELS:
+            raise SystemExit(f"--model {m} is not ported to ml_audio_inpainting_torch yet: "
+                             f"{UNPORTED_MODELS[m]}")
+    if args.ar_preset == "tuned":
+        raise SystemExit("--ar-preset tuned is not ported to ml_audio_inpainting_torch yet: "
+                         "ROADMAP Queue A item 5 (the classical family)")
+    ckpt = args.checkpoint
+    if ckpt is None or not str(ckpt).endswith(".npz"):
+        raise SystemExit(f"--checkpoint {ckpt}: the port serves exported .npz weights only; "
+                         f"the rest waits for {CHECKPOINT_ITEM}")
+
+
+def route(args) -> None:
+    """``--checkpoint-longgap``: serve a gap longer than the threshold with
+    the long-gap weights."""
+    if not args.checkpoint_longgap:
+        return
+    from ml_audio_inpainting_torch.runtime.inference import LONGGAP_THRESHOLD_S, route_checkpoint
+
+    routed = route_checkpoint(
+        args.gap_len, args.checkpoint, args.checkpoint_longgap,
+        args.longgap_threshold if args.longgap_threshold is not None else LONGGAP_THRESHOLD_S,
+    )
+    if routed != args.checkpoint:
+        print(f"gap {args.gap_len:.3f}s: routing to long-gap checkpoint {routed}")
+    args.checkpoint = routed
+
+
+def main(argv=None) -> None:
+    from ml_audio_inpainting_torch.data.audio_io import load_audio, save_audio
+    from ml_audio_inpainting_torch.utils.config import Config, gan_profile_config, load_config
+
+    args = build_argparser().parse_args(argv)
+    route(args)
+    if args.model == "gan":
+        cfg = gan_profile_config(args.config)
+    else:
+        cfg = load_config(args.config) if args.config else Config()
+    run_fn = _build_runner(args, cfg)
+
+    sr = cfg.data.sample_rate
+    files = _collect(Path(args.input))
+    out_path = Path(args.output)
+    out_is_dir = out_path.is_dir() or len(files) > 1
+    if out_is_dir:
+        out_path.mkdir(parents=True, exist_ok=True)
+    gap_start = int(args.gap_start * sr)
+    gap_len = int(args.gap_len * sr)
+    n_samples = cfg.data.max_samples
+
+    def dest_of(f: Path) -> Path:
+        return out_path / f"{f.stem}_{args.model}_inpainted.flac" if out_is_dir else out_path
+
+    if args.longform:
+        from ml_audio_inpainting_torch.data.audio_io import read_audio, resample
+        from ml_audio_inpainting_torch.runtime.longform import longform_inpaint
+
+        for f in files:
+            samples, rate, _ = read_audio(f)
+            mono = samples.mean(axis=1) if samples.shape[1] > 1 else samples[:, 0]
+            mono = resample(mono.astype(np.float32), rate, sr)
+            restored = longform_inpaint(
+                run_fn.inpaint_fn, torch.from_numpy(mono).to(args.device), gap_start, gap_len,
+                window=n_samples, hop=n_samples // 2, batch_size=args.batch_size,
+            )
+            save_audio(restored, dest_of(f), sr)
+            print(f"{f} ({len(mono)/sr:.1f}s) -> {dest_of(f)}")
+        return
+
+    for i in range(0, len(files), args.batch_size):
+        chunk = files[i : i + args.batch_size]
+        audio = np.stack([load_audio(f, sample_rate=sr, max_len=cfg.data.max_len_s)[0]
+                          for f in chunk])
+        restored = run_fn(audio, np.full(len(chunk), gap_start), np.full(len(chunk), gap_len))
+        restored = restored.cpu().numpy()
+        for j, f in enumerate(chunk):
+            save_audio(restored[j], dest_of(f), sr)
+            print(f"{f} -> {dest_of(f)}")
+
+
+def _build_runner(args, cfg):
+    """``runner(audio (B, S), gap_start (B,), gap_len (B,)) -> (B, S)``
+    restored waveforms on ``args.device``, from numpy arrays or tensors.
+    ``runner.inpaint_fn`` (the same with the auxiliary output, on tensors
+    on the device), ``runner.model``, ``runner.cfg`` (the profile used) and
+    ``runner.compute_dtype`` expose the pieces.  Raises ``SystemExit`` for
+    what the port does not have yet (:func:`check_ported`)."""
+    from ml_audio_inpainting_torch.runtime.inference import make_tta_shift_fn
+    from ml_audio_inpainting_torch.runtime.serve import make_cnn_runner, make_gan_runner
+    from ml_audio_inpainting_torch.utils.config import gan_profile_config
+    from ml_audio_inpainting_torch.utils.precision import full_f32_convolutions
+
+    check_ported([args.model], args)
+    if args.infer_dtype == "bf16" and args.model != "gan":
+        raise SystemExit("--infer-dtype bf16 is supported for --model gan only")
+    device = args.device
+    compute_dtype = torch.bfloat16 if args.infer_dtype == "bf16" else None
+    if args.model == "gan":
+        if args.config is None:  # the GAN checkpoints are bound to the GAN profile
+            cfg = gan_profile_config(None)
+        base = make_gan_runner(cfg, args.checkpoint, device=device, mode=args.mode,
+                               phase=args.phase, compute_dtype=compute_dtype,
+                               gl_iters=args.gl_iters)
+        model = base.generator
+    else:
+        base = make_cnn_runner(cfg, args.checkpoint, device=device, phase=args.phase,
+                               gl_iters=args.gl_iters)
+        model = base.model
+    fn = base.inpaint_fn
+    if args.tta_shifts > 1:
+        fn = make_tta_shift_fn(fn, cfg.data.spectrogram.hop_length, args.tta_shifts)
+
+    def inpaint_fn(audio, gap_start, gap_len):
+        with full_f32_convolutions():  # bf16 convolutions are not affected
+            return fn(audio, gap_start, gap_len)
+
+    def runner(audio, gap_start, gap_len) -> torch.Tensor:
+        audio = torch.as_tensor(audio, dtype=torch.float32, device=device)
+        gs = torch.as_tensor(gap_start, dtype=torch.int64, device=device)
+        gl = torch.as_tensor(gap_len, dtype=torch.int64, device=device)
+        return inpaint_fn(audio, gs, gl)[0]
+
+    runner.inpaint_fn = inpaint_fn
+    runner.model = model
+    runner.cfg = cfg
+    runner.compute_dtype = compute_dtype
+    return runner
+
+
+if __name__ == "__main__":
+    main()

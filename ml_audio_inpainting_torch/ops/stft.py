@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["get_window", "pad_center", "frame_signal", "stft", "istft"]
+__all__ = ["get_window", "pad_center", "num_frames", "frame_signal", "stft", "istft", "magnitude"]
 
 
 def get_window(
@@ -44,6 +44,13 @@ def pad_center(window: torch.Tensor, size: int) -> torch.Tensor:
         raise ValueError(f"window length {n} > target size {size}")
     lpad = (size - n) // 2
     return F.pad(window, (lpad, size - n - lpad))
+
+
+def num_frames(n_samples: int, hop_length: int, n_fft: int, center: bool = True) -> int:
+    """The number of STFT frames of a signal of ``n_samples``."""
+    if center:
+        return 1 + n_samples // hop_length
+    return 1 + (n_samples - n_fft) // hop_length
 
 
 def frame_signal(y: torch.Tensor, frame_length: int, hop_length: int) -> torch.Tensor:
@@ -122,3 +129,11 @@ def istft(
     if length is not None and out.shape[-1] < length:
         out = F.pad(out, (0, length - out.shape[-1]))
     return out
+
+
+def magnitude(spec: torch.Tensor, power: float = 1.0) -> torch.Tensor:
+    """``|S| ** power``."""
+    mag = spec.abs()
+    if power != 1.0:
+        mag = mag**power
+    return mag

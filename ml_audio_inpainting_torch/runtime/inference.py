@@ -1,7 +1,8 @@
 """Batched inpainting: gapped waveform -> restored waveform (port of
 ``ml_audio_inpainting_tpu/runtime/inference.py``: ``make_gan_inpaint_fn``,
 ``make_cnn_inpaint_fn``, the mask-driven ``make_gan_inpaint_mask_fn`` and
-``make_cnn_inpaint_mask_fn``, and the shift ensemble ``make_tta_shift_fn``).
+``make_cnn_inpaint_mask_fn``, the shift ensemble ``make_tta_shift_fn``, and
+the checkpoint router ``route_checkpoint``).
 
 GAN, per batch: the gap zeroed in time, the STFTs of the clean and the gapped
 clip, ``log1p`` of the gapped magnitude, the frame mask (1 = valid), the PConv
@@ -41,7 +42,11 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ml_audio_inpainting_torch.ops import masking
-from ml_audio_inpainting_torch.ops.gaps import frame_mask_from_sample_mask, gap_mask
+from ml_audio_inpainting_torch.ops.gaps import (
+    frame_mask_from_interval,
+    frame_mask_from_sample_mask,
+    gap_mask,
+)
 from ml_audio_inpainting_torch.ops.griffinlim import griffinlim
 from ml_audio_inpainting_torch.ops.phase import extrapolate_phase, window_clear_frame_mask
 from ml_audio_inpainting_torch.ops.stft import istft, stft
@@ -54,9 +59,31 @@ __all__ = [
     "make_gan_inpaint_mask_fn",
     "make_cnn_inpaint_mask_fn",
     "make_tta_shift_fn",
+    "LONGGAP_THRESHOLD_S",
+    "route_checkpoint",
 ]
 
 PHASE_MODES = ("oracle", "impaired", "extrapolate", "griffinlim")
+
+# Gap length (s) past which the standard GAN checkpoint (trained on gaps of
+# up to 200 ms) yields to the long-gap variant: the JAX package's measured
+# crossover between its 0.16 s and 0.32 s sweep points
+# (results/gap_length_sweep.json).
+LONGGAP_THRESHOLD_S = 0.25
+
+
+def route_checkpoint(
+    gap_len_s: float,
+    checkpoint: Optional[str],
+    longgap_checkpoint: Optional[str],
+    threshold_s: float = LONGGAP_THRESHOLD_S,
+) -> Optional[str]:
+    """The weights to serve a gap of ``gap_len_s`` seconds with:
+    ``longgap_checkpoint`` when it is given and the gap is longer than
+    ``threshold_s``, else ``checkpoint``."""
+    if longgap_checkpoint and gap_len_s > threshold_s:
+        return longgap_checkpoint
+    return checkpoint
 
 
 def _check_phase(phase: str) -> None:
@@ -159,16 +186,15 @@ def make_gan_inpaint_fn(
     phase: str = "oracle",
     gl_iters: int = 64,
 ) -> Callable:
-    """``fn(audio, gap_start, gap_len) -> (restored, generated)``: the mask
-    function (:func:`make_gan_inpaint_mask_fn`) on the mask of the gap.
+    """``fn(audio, gap_start, gap_len) -> (restored, generated)``.
 
     ``audio`` is ``(B, S)`` clean f32 waveforms; ``gap_start``/``gap_len``
     are ``(B,)`` integer sample counts on the same device; the gap is zeroed
-    inside.  Frames ``[start // hop, ceil(end / hop))`` are holes, as in the
-    JAX function, for a gap that ends inside the clip.  ``restored`` is
-    ``(B, S)``; ``generated`` is the generator's ``(B, F, N)`` output (log1p
-    domain, in [-1, 1]) in f32.  ``gl_iters`` is Griffin-Lim's iteration
-    count under ``phase="griffinlim"``.
+    inside.  Frames ``[start // hop, ceil(end / hop))`` of the interval are
+    holes, as in the JAX function, also where the gap runs past the clip's
+    end.  ``restored`` is ``(B, S)``; ``generated`` is the generator's ``(B,
+    F, N)`` output (log1p domain, in [-1, 1]) in f32.  ``gl_iters`` is
+    Griffin-Lim's iteration count under ``phase="griffinlim"``.
 
     ``compute_dtype=torch.bfloat16`` runs the generator in bf16 as the JAX
     function does: a bf16 copy of ``generator`` (parameters, BatchNorm
@@ -181,15 +207,45 @@ def make_gan_inpaint_fn(
     as the JAX function applies it with ``train=False``; the caller's mode
     is restored after.
     """
-    mask_fn = make_gan_inpaint_mask_fn(cfg, generator, mode=mode, phase=phase, gl_iters=gl_iters,
-                                       compute_dtype=compute_dtype)
+    serve, kw = _gan_serve_fn(cfg, generator, mode, phase, gl_iters, compute_dtype)
 
+    @torch.inference_mode()
     def fn(
         audio: torch.Tensor, gap_start: torch.Tensor, gap_len: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return mask_fn(audio, gap_mask(audio.shape[-1], gap_start, gap_len, dtype=audio.dtype))
+        n_bins, n_frames = _frame_shape(kw, audio.shape[-1])
+        fmask = frame_mask_from_interval(gap_start, gap_start + gap_len, n_bins, n_frames,
+                                         kw["hop_length"], dtype=audio.dtype)
+        return serve(audio, gap_mask(audio.shape[-1], gap_start, gap_len, dtype=audio.dtype),
+                     fmask)
 
     return fn
+
+
+def _frame_shape(kw: dict, n_samples: int) -> Tuple[int, int]:
+    return kw["n_fft"] // 2 + 1, 1 + n_samples // kw["hop_length"]
+
+
+def _gan_serve_fn(cfg: Config, generator: torch.nn.Module, mode: str, phase: str,
+                  gl_iters: int, compute_dtype: Optional[torch.dtype]) -> Tuple[Callable, dict]:
+    """``(serve(audio, sample_mask, fmask) -> (restored, generated), kw)``:
+    the GAN's request from its 1 = valid sample mask and frame mask."""
+    _check_gan(mode, phase, compute_dtype)
+    apply = _generator_fn(generator, compute_dtype)
+    kw = _spec_kw(cfg)
+
+    def serve(audio: torch.Tensor, sample_mask: torch.Tensor,
+              fmask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        spec_clean = stft(audio, **kw)
+        spec_gap = stft(audio * sample_mask, **kw)
+        generated = apply(masking.log1p_norm(spec_gap.abs()), fmask)
+        out_mag = _gan_magnitude(generated, spec_clean if phase == "oracle" else spec_gap,
+                                 fmask, mode)
+        restored = _reconstruct(out_mag, spec_clean, spec_gap, audio, sample_mask, phase,
+                                gl_iters, kw)
+        return restored, generated
+
+    return serve, kw
 
 
 def make_gan_inpaint_mask_fn(
@@ -204,26 +260,16 @@ def make_gan_inpaint_mask_fn(
     driven by any 1 = valid ``(B, S)`` time-domain mask, every gap of a clip
     in one forward pass.  A frame is a hole if any sample of its hop is
     missing (``frame_mask_from_sample_mask(rule="any")``, the floor/ceil rule
-    for one interval).  ``mode``, ``phase``, ``gl_iters`` and
-    ``compute_dtype`` as in :func:`make_gan_inpaint_fn`."""
-    _check_gan(mode, phase, compute_dtype)
-    apply = _generator_fn(generator, compute_dtype)
-    kw = _spec_kw(cfg)
+    for one interval that ends inside the clip).  ``mode``, ``phase``,
+    ``gl_iters`` and ``compute_dtype`` as in :func:`make_gan_inpaint_fn`."""
+    serve, kw = _gan_serve_fn(cfg, generator, mode, phase, gl_iters, compute_dtype)
 
     @torch.inference_mode()
     def fn(audio: torch.Tensor, sample_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         sample_mask = sample_mask.to(audio.dtype)
-        spec_clean = stft(audio, **kw)
-        spec_gap = stft(audio * sample_mask, **kw)
-        n_bins, n_frames = spec_clean.shape[-2:]
-        fmask = frame_mask_from_sample_mask(sample_mask, n_bins, n_frames, kw["hop_length"],
-                                            rule="any", dtype=audio.dtype)
-        generated = apply(masking.log1p_norm(spec_gap.abs()), fmask)
-        out_mag = _gan_magnitude(generated, spec_clean if phase == "oracle" else spec_gap,
-                                 fmask, mode)
-        restored = _reconstruct(out_mag, spec_clean, spec_gap, audio, sample_mask, phase,
-                                gl_iters, kw)
-        return restored, generated
+        fmask = frame_mask_from_sample_mask(sample_mask, *_frame_shape(kw, audio.shape[-1]),
+                                            kw["hop_length"], rule="any", dtype=audio.dtype)
+        return serve(audio, sample_mask, fmask)
 
     return fn
 
@@ -249,26 +295,33 @@ def _cnn_serve(model: torch.nn.Module, audio: torch.Tensor, sample_valid: torch.
 
 def make_cnn_inpaint_fn(cfg: Config, model: torch.nn.Module, phase: str = "oracle",
                         gl_iters: int = 64) -> Callable:
-    """``fn(audio, gap_start, gap_len) -> (restored, composited)``: the mask
-    function (:func:`make_cnn_inpaint_mask_fn`) on the mask of the gap.
+    """``fn(audio, gap_start, gap_len) -> (restored, composited)``.
 
     ``audio`` is ``(B, S)`` clean waveforms; ``gap_start``/``gap_len`` are
     ``(B,)`` integer sample counts on the same device.  ``restored`` is
     ``(B, S)``; ``composited`` is the ``(B, F, N)`` log10 magnitude with the
-    prediction inside the gap frames (floor rule at both ends, as in the JAX
-    function, for a gap that ends inside the clip).  The model's
-    weights stay in ``model``.  The model is applied in eval mode
-    (BatchNorm's running statistics, left as they are), as the JAX function
-    applies it with ``train=False``, whatever mode the caller left it in;
-    that mode is restored after.  ``gl_iters`` as in
-    :func:`make_gan_inpaint_fn`.
+    prediction inside the gap frames ``[start // hop, (start + len) // hop)``
+    (the floor rule at both ends, as in the JAX function, also where the gap
+    runs past the clip's end).  The model's weights stay in ``model``.  The
+    model is applied in eval mode (BatchNorm's running statistics, left as
+    they are), as the JAX function applies it with ``train=False``, whatever
+    mode the caller left it in; that mode is restored after.  ``gl_iters``
+    as in :func:`make_gan_inpaint_fn`.
     """
-    mask_fn = make_cnn_inpaint_mask_fn(cfg, model, phase=phase, gl_iters=gl_iters)
+    _check_phase(phase)
+    kw = _spec_kw(cfg)
+    hop = kw["hop_length"]
 
+    @torch.inference_mode()
     def fn(
         audio: torch.Tensor, gap_start: torch.Tensor, gap_len: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return mask_fn(audio, gap_mask(audio.shape[-1], gap_start, gap_len, dtype=audio.dtype))
+        n_bins, n_frames = _frame_shape(kw, audio.shape[-1])
+        t = torch.arange(n_frames, device=audio.device)
+        hole = (t >= (gap_start // hop)[..., None]) & (t < ((gap_start + gap_len) // hop)[..., None])
+        gmask = hole.to(audio.dtype)[..., None, :].expand(*hole.shape[:-1], n_bins, n_frames)
+        tmask = gap_mask(audio.shape[-1], gap_start, gap_len, dtype=audio.dtype)
+        return _cnn_serve(model, audio, tmask, gmask, phase, gl_iters, kw)
 
     return fn
 
@@ -278,7 +331,8 @@ def make_cnn_inpaint_mask_fn(cfg: Config, model: torch.nn.Module, phase: str = "
     """``fn(audio, sample_mask) -> (restored, composited)``: CNN+BiLSTM
     serving driven by any 1 = valid ``(B, S)`` mask, every gap in one pass.
     A frame is a gap frame if the last sample of its hop is missing
-    (``rule="end"``, the floor/floor rule for one interval); otherwise as
+    (``rule="end"``, the floor/floor rule for one interval that ends inside
+    the clip); otherwise as
     :func:`make_cnn_inpaint_fn`."""
     _check_phase(phase)
     kw = _spec_kw(cfg)
@@ -286,9 +340,8 @@ def make_cnn_inpaint_mask_fn(cfg: Config, model: torch.nn.Module, phase: str = "
     @torch.inference_mode()
     def fn(audio: torch.Tensor, sample_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         sample_mask = sample_mask.to(audio.dtype)
-        n_bins, n_frames = kw["n_fft"] // 2 + 1, 1 + audio.shape[-1] // kw["hop_length"]
-        valid = frame_mask_from_sample_mask(sample_mask, n_bins, n_frames, kw["hop_length"],
-                                            rule="end", dtype=audio.dtype)
+        valid = frame_mask_from_sample_mask(sample_mask, *_frame_shape(kw, audio.shape[-1]),
+                                            kw["hop_length"], rule="end", dtype=audio.dtype)
         return _cnn_serve(model, audio, sample_mask, 1.0 - valid, phase, gl_iters, kw)
 
     return fn

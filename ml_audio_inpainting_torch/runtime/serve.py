@@ -1,7 +1,8 @@
 """Serving runners for an exported ``.npz`` checkpoint: the GAN and the
 CNN+BiLSTM (port of ``ml_audio_inpainting_tpu/cli/inpaint.py::_build_runner``,
 with the GAN's gap-only PCM16 transport of ``bench.py``'s canonical line).
-Audio file I/O waits for a later slice of the port."""
+The command-line runner over audio files, ``cli/inpaint.py::_build_runner``,
+builds on these."""
 
 from __future__ import annotations
 

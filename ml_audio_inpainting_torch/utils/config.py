@@ -8,7 +8,8 @@ keys the paths do not read (the discriminator, the GAN optimizers and loss
 weights, paths, logging, mesh) are ignored by :meth:`Config.from_dict`.
 
 ``yaml`` is imported only inside :meth:`Config.from_yaml`: code that builds
-its config in Python needs no YAML package.
+its config in Python (``gan_profile_config(None)``, ``Config()``) needs no
+YAML package.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ __all__ = [
     "ModelConfig",
     "TrainingConfig",
     "Config",
+    "load_config",
+    "gan_profile_config",
     "DEFAULT_SAMPLE_RATE",
     "DEFAULT_N_FFT",
     "DEFAULT_HANN_WINDOW_SIZE",
@@ -188,3 +191,21 @@ class Config:
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
+
+
+def load_config(config_path: Union[str, Path]) -> Config:
+    """The config of a YAML file (this repo's ``configs/*.yaml`` and the
+    reference's key layout)."""
+    return Config.from_yaml(config_path)
+
+
+def gan_profile_config(config_path: Optional[Union[str, Path]] = None) -> Config:
+    """``load_config(config_path)``, or with no file the default
+    :class:`Config` on the GAN's STFT profile (n_fft 512, hop 128, window
+    512): the GAN checkpoints are bound to that profile, and the default
+    (CNN+BiLSTM) one would score them wrongly."""
+    if config_path is not None:
+        return load_config(config_path)
+    cfg = Config()
+    cfg.data.spectrogram = SpectrogramConfig(n_fft=512, hop_length=128, win_length=512)
+    return cfg

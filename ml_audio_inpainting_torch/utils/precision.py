@@ -4,7 +4,9 @@ PyTorch runs f32 matrix products in full f32 by default, but lets cuDNN
 run f32 convolutions in TF32 (``torch.backends.cudnn.allow_tf32`` is True),
 which keeps about three decimal digits.  The JAX reference and every
 tolerance of the port are f32, so serving and training run their
-convolutions with TF32 off, in a scope, whatever the global switch says.
+convolutions with TF32 off, in a scope, whatever the global switch says;
+the metrics whose matrix products are ill-conditioned (PEAQ's band
+grouping) run them with TF32 off in the same way.
 
 Mixed precision is a cast, as in the JAX package
 (``ml_audio_inpainting_tpu/utils/precision.py::cast_floating``): the
@@ -15,12 +17,13 @@ and so computes something else.
 
 from __future__ import annotations
 
-from collections.abc import Mapping
+import contextlib
+from collections.abc import Iterator, Mapping
 from contextlib import AbstractContextManager
 
 import torch
 
-__all__ = ["cast_floating", "full_f32_convolutions"]
+__all__ = ["cast_floating", "full_f32_convolutions", "full_f32_matmuls"]
 
 
 def cast_floating(tree, dtype: torch.dtype):
@@ -49,3 +52,17 @@ def full_f32_convolutions() -> AbstractContextManager:
         deterministic=cudnn.deterministic,
         allow_tf32=False,
     )
+
+
+@contextlib.contextmanager
+def full_f32_matmuls() -> Iterator[None]:
+    """A scope in which cuBLAS computes f32 matrix products in full f32
+    (``torch.backends.cuda.matmul.allow_tf32`` off), whatever the switch
+    says outside; it is restored on exit."""
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32 = before

@@ -619,16 +619,21 @@ def test_bf16_training_step_on_card_runs_the_bf16_kernels(cuda_device):
 # the top bins), where an f32 ulp is 2e-3 rad, and the card divides by a
 # constant as a product with its reciprocal, so princarg can wrap a turn
 # elsewhere and that sum rounds another way (3e-4 seen).  Inside the gaps,
-# extrapolate within 2e-2 of each clip's gap peak for the same reason (4.7e-3
-# seen, in chip_smoke.py).  Griffin-Lim's waveform inside a gap is not a
-# stable function of its inputs (a 1e-7 change of the clip moves it by
-# 2.6e-3 of its peak after 4 iterations, 7e-2 after 64, on the CPU), so its
-# STFT magnitude over each gap's frames is held within 0.1 in relative L2
-# norm.  Griffin-Lim on a consistent spectrogram from a given phase, 4
-# iterations, within 1e-5 on the waveform.
+# the bounds of chip_smoke.py's serving_deployable phase, each a share of
+# each clip's gap peak: the GAN under extrapolate within 2e-2 (4.7e-3 seen
+# there), the CNN+BiLSTM within 5e-3 (1.4e-3 seen).  Griffin-Lim's waveform
+# inside a gap is not a stable function of its inputs (a 1e-7 change of the
+# clip moves it by 2.6e-3 of its peak after 4 iterations, 7e-2 after 64, on
+# the CPU); these tests run 4 iterations, and hold its STFT magnitude over
+# each gap's frames within 5e-2 in relative L2 norm (1.5e-2 seen at 64
+# iterations) and its waveform within 1e-2 of the gap peak (4.3e-3 seen).
+# Griffin-Lim on a consistent spectrogram from a given phase, 4 iterations,
+# within 1e-5 on the waveform.
 
-DEPLOYABLE_RTOL = 2e-2
-GL_SPEC_RTOL = 0.1
+GAN_DEPLOYABLE_RTOL = 2e-2
+CNN_DEPLOYABLE_RTOL = 5e-3
+GL_SPEC_RTOL = 5e-2
+GL4_RTOL = 1e-2
 
 
 def _gapped_clips(n=2, seconds=1.0):
@@ -637,10 +642,11 @@ def _gapped_clips(n=2, seconds=1.0):
     return torch.tensor(speech_like_batch(np.random.default_rng(31), n, seconds))
 
 
-def _check_deployable(got, want, audio, inside, phase, rtol_of_peak=DEPLOYABLE_RTOL):
+def _check_deployable(got, want, audio, inside, phase, rtol_of_peak):
     """Outside the gaps the input, bit for bit; inside, each row within
     ``rtol_of_peak`` of the CPU's gap peak under ``extrapolate``, and under
-    ``griffinlim`` the STFT magnitude (GAN hop) over the gaps' frames."""
+    ``griffinlim`` (4 iterations) the STFT magnitude (GAN hop) over the
+    gaps' frames and each row within ``GL4_RTOL`` of its gap peak."""
     got, want, audio, inside = (t.cpu() for t in (got, want, audio, inside))
     assert torch.isfinite(got).all()
     assert torch.equal(got[~inside], audio[~inside])
@@ -651,7 +657,7 @@ def _check_deployable(got, want, audio, inside, phase, rtol_of_peak=DEPLOYABLE_R
         g, w = (stft(x, 512, 128, 512).abs() for x in (got, want))
         mask = frame_mask_from_sample_mask((~inside).float(), *g.shape[-2:], 128) < 0.5
         assert (g - w)[mask].norm() <= GL_SPEC_RTOL * w[mask].norm()
-        return
+        rtol_of_peak = GL4_RTOL
     for g, w, i in zip(got, want, inside):
         np.testing.assert_allclose(g[i].numpy(), w[i].numpy(), rtol=0,
                                    atol=rtol_of_peak * w[i].abs().max().item())
@@ -729,17 +735,17 @@ def test_deployable_gan_on_card_matches_cpu(cuda_device, width, phase):
         got = make_gan_inpaint_fn(cfg, card_gen, mode="enhanced", phase=phase, gl_iters=4,
                                   compute_dtype=dtype)(*on)
         _check_deployable(got[0], want[0], audio, inside, phase,
-                          DEPLOYABLE_RTOL if dtype is None else 1e-2)
+                          GAN_DEPLOYABLE_RTOL if dtype is None else 1e-2)
     mask = gap_mask(audio.shape[-1], starts, lens)
     want = make_gan_inpaint_mask_fn(cfg, gen, phase=phase, gl_iters=4)(audio, mask)
     got = make_gan_inpaint_mask_fn(cfg, card_gen, phase=phase, gl_iters=4)(on[0],
                                                                            mask.to(cuda_device))
-    _check_deployable(got[0], want[0], audio, inside, phase)
+    _check_deployable(got[0], want[0], audio, inside, phase, GAN_DEPLOYABLE_RTOL)
     base = make_gan_inpaint_fn(cfg, gen, mode="enhanced", phase=phase, gl_iters=4)
     card_base = make_gan_inpaint_fn(cfg, card_gen, mode="enhanced", phase=phase, gl_iters=4)
     want = make_tta_shift_fn(base, 128, 4)(audio, starts, lens)
     got = make_tta_shift_fn(card_base, 128, 4)(*on)
-    _check_deployable(got[0], want[0], audio, inside, phase)
+    _check_deployable(got[0], want[0], audio, inside, phase, GAN_DEPLOYABLE_RTOL)
 
 
 @pytest.mark.gpu
@@ -758,12 +764,12 @@ def test_deployable_cnn_on_card_matches_cpu(cuda_device, phase):
     before = lstm_cell.bilstm_recurrence.launches
     got = card(audio, starts, lens)
     assert lstm_cell.bilstm_recurrence.launches == before + 3
-    _check_deployable(got, cpu(audio, starts, lens), audio, inside, phase)
+    _check_deployable(got, cpu(audio, starts, lens), audio, inside, phase, CNN_DEPLOYABLE_RTOL)
     mask = gap_mask(16000, starts, lens)
     want = make_cnn_inpaint_mask_fn(Config(), cpu.model, phase=phase, gl_iters=4)(audio, mask)
     got = make_cnn_inpaint_mask_fn(Config(), card.model, phase=phase, gl_iters=4)(
         audio.to(cuda_device), mask.to(cuda_device))
-    _check_deployable(got[0], want[0], audio, inside, phase)
+    _check_deployable(got[0], want[0], audio, inside, phase, CNN_DEPLOYABLE_RTOL)
 
 
 @pytest.mark.gpu
@@ -794,8 +800,89 @@ def test_longform_on_card_matches_cpu(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     inside = _interval_inside(len(audio), torch.tensor(starts), torch.tensor(lens))
-    _check_deployable(got[None], want[None], audio[None], inside.any(0)[None], "extrapolate")
+    _check_deployable(got[None], want[None], audio[None], inside.any(0)[None], "extrapolate",
+                      GAN_DEPLOYABLE_RTOL)
     want_p, want_s = longform_inpaint_centered(cpu, audio, starts, lens, window=24000, batch_size=2)
     assert torch.equal(pstarts.cpu(), want_s)
-    lsb = 1 + DEPLOYABLE_RTOL * want_p.abs().max().item()
+    lsb = 1 + GAN_DEPLOYABLE_RTOL * want_p.abs().max().item()
     assert (patches.cpu().int() - want_p.int()).abs().max().item() <= lsb
+
+
+# ------------------------------------------------------ evaluation path
+#
+# The quality metrics on the card against the same functions on the CPU, on
+# 5 s clips: cuFFT and the card's reductions sum in another order.  The dB
+# metrics within 1e-3 dB, PSM within 1e-5, the total NMR within 1e-3 dB and
+# ODG within 1e-4 (the bounds that hold the port to JAX on the CPU).  PEAQ's
+# band grouping runs in full f32 inside its own scope, so turning TF32 on
+# globally leaves the ODG unchanged, bit for bit.
+
+
+def _metric_clips(n=4, seconds=5.0):
+    from ml_audio_inpainting_torch.runtime.synthetic import speech_like_batch
+
+    rng = np.random.default_rng(41)
+    ref = speech_like_batch(rng, n, seconds)
+    est = ref + 0.03 * rng.standard_normal(ref.shape).astype(np.float32)
+    gap = np.zeros_like(ref)
+    gap[:, 32000:33280] = 1.0
+    est[0] = np.where(gap[0] > 0, 0.5 * est[0], ref[0])
+    return ref, est, gap
+
+
+@pytest.mark.gpu
+def test_metrics_on_card_match_cpu(cuda_device):
+    from ml_audio_inpainting_torch.train import auditory, metrics, peaq
+
+    ref, est, gap = _metric_clips()
+    cpu = [torch.tensor(a) for a in (ref, est, gap)]
+    card = [t.to(cuda_device) for t in cpu]
+    for name, fn, atol, takes_gap in (
+        ("gap_sdr", metrics.gap_sdr, 1e-3, True), ("snr", metrics.snr, 1e-3, False),
+        ("lsd", metrics.log_spectral_distance, 1e-3, False),
+        ("fwseg_snr", metrics.fwseg_snr, 1e-3, False), ("psm", auditory.psm_score, 1e-5, False),
+        ("nmr", peaq.nmr_total, 1e-3, False), ("odg", peaq.odg_score, 1e-4, False),
+    ):
+        args = (lambda t: t if takes_gap else t[:2])
+        want = fn(*args(cpu))
+        got = fn(*args(card))
+        assert got.device == card[0].device and got.shape == (4,), name
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=atol,
+                                   err_msg=name)
+
+
+@pytest.mark.gpu
+def test_odg_on_card_keeps_full_f32_under_global_tf32(cuda_device):
+    from ml_audio_inpainting_torch.train import peaq
+
+    ref, est, _ = _metric_clips(2)
+    r, e = torch.tensor(ref, device=cuda_device), torch.tensor(est, device=cuda_device)
+    want = peaq.nmr_total(r, e)
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_tf32 = True
+    try:
+        got = peaq.nmr_total(r, e)
+        assert matmul.allow_tf32  # the scope restores the caller's setting
+    finally:
+        matmul.allow_tf32 = False
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_codec_round_trip_on_the_cards_machine(cuda_device, tmp_path):
+    """The codec builds there (``g++``) and a FLAC written from the card's
+    tensors reads back with its MD5 verified, equal to the 16-bit
+    quantisation of what was written, bit for bit."""
+    from ml_audio_inpainting_torch.data import audio_io
+
+    ref, _, _ = _metric_clips(2)
+    audio_io.save_audio(torch.tensor(ref[0], device=cuda_device), tmp_path / "a.flac")
+    audio_io.write_audio(tmp_path / "b.wav", ref.T, 16000)
+    got, rate, md5_ok = audio_io.read_audio(tmp_path / "a.flac")
+    assert (rate, md5_ok) == (16000, 1)
+    written = ref[0] / np.abs(ref[0]).max()
+    v = written.astype(np.float64) * 32768.0
+    levels = np.clip(np.trunc(v + np.where(v >= 0, 0.5, -0.5)), -32768, 32767)
+    np.testing.assert_array_equal(got[:, 0], (levels / 32768.0).astype(np.float32))
+    wav, _, wav_md5 = audio_io.read_audio(tmp_path / "b.wav")
+    assert wav.shape == (80000, 2) and wav_md5 == -1
