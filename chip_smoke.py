@@ -137,7 +137,33 @@ Phases, each printing one flushed line per step with the seconds since start:
                  peak memory; each step must launch each of the three
                  kernels 3 times, all in bf16, and no f32 form; step 0's loss
                  and every gradient are held against an f32 step on the card
-                 from the same weights and batch.
+                 from the same weights and batch;
+9. gan_training -- the JAX package's fastest GAN recipe
+                 (``train/recipe.py::gan_recipe_config``: ``configs/gan.yaml``
+                 at B=32 clips of 5 s x 4 gaps of up to 0.2 s, all six loss
+                 terms with VGG19 from the port's seeded initialiser, Adam at
+                 lr 2e-4, betas (0.5, 0.999), EMA 0.999, full width): a
+                 64-clip ``formant_v2`` corpus synthesised on 8 threads and
+                 uploaded once (``data/pipeline.py::device_corpus_feed``,
+                 timed); G from the committed ``gan_formant_v2_r2.npz``, D
+                 seeded.  5 bf16 steps: step ms, warm step (median of steps
+                 1-4), s-audio/s (32 x 5 s a step), peak memory, host syncs
+                 in a step (0, or it fails), the device's idle share of one
+                 traced step; every loss finite; every parameter with a
+                 gradient moves (those with none are named); the EMA weights
+                 exported to the npz format serve ``gan_serving``'s request
+                 (``enhanced``, ``oracle``, PCM16 patches), equal to the input
+                 outside the gap bit for bit.  Then 3 steps with ``remat``; 4
+                 f32 steps (TF32 off) at the reference's B=8 (f32 at B=32
+                 does not fit: B=8 peaks at 29 GB).  Checks, at step 0 of
+                 the first batch's first 2 clips, VGG on: the card in f32
+                 against the port's f64 step on the CPU, the f64 step
+                 taking the card's branch at every kink (losses, every
+                 gradient, D's u and sigma); the bf16 step on the card
+                 against the card's f32 step, and a control, the bf16 step
+                 with every cast rounded through float8_e5m2, which must
+                 fall outside the same bounds; no hand-written kernel
+                 launched (the path has none).
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and the script
@@ -146,6 +172,7 @@ exits non-zero before the last line.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -157,9 +184,11 @@ import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from ml_audio_inpainting_torch.ops.cuda import lstm_cell
 from ml_audio_inpainting_torch.ops.cuda.lstm_cell import (
@@ -182,7 +211,10 @@ from ml_audio_inpainting_torch.ops.cuda.lstm_cell import (
 from ml_audio_inpainting_torch.cli import evaluate, inpaint
 from ml_audio_inpainting_torch.data import audio_io
 from ml_audio_inpainting_torch.data.audio_io import read_audio, save_audio
+from ml_audio_inpainting_torch.data.dataset import FormantSpeechDataset
 from ml_audio_inpainting_torch.data.multigap import multi_gap_mask
+from ml_audio_inpainting_torch.data.pipeline import device_corpus_feed
+from ml_audio_inpainting_torch.models.vgg import vgg19_params
 from ml_audio_inpainting_torch.ops import masking
 from ml_audio_inpainting_torch.ops.gaps import frame_mask_from_interval, gap_mask
 from ml_audio_inpainting_torch.ops.lstm import BiLSTM
@@ -211,19 +243,28 @@ from ml_audio_inpainting_torch.runtime.synthetic import (
     speech_like_batch,
     synthetic_dataset_batch,
 )
-from ml_audio_inpainting_torch.train import auditory, metrics, peaq
+from ml_audio_inpainting_torch.train import auditory, gan_trainer, metrics, peaq
 from ml_audio_inpainting_torch.train.checkpoints import export_params_npz
 from ml_audio_inpainting_torch.train.cnn_trainer import create_cnn_state, make_cnn_train_step
+from ml_audio_inpainting_torch.train.gan_trainer import (
+    SCOPES,
+    create_gan_states,
+    make_gan_train_step,
+)
 from ml_audio_inpainting_torch.train.recipe import (
     b128_recipe_config,
+    gan_gap_layouts,
+    gan_recipe_config,
     gap_starts,
     live_bilstm,
     multi_gap_layouts,
     recipe_config,
 )
+from ml_audio_inpainting_torch.utils.branch_tape import branch_tape
 from ml_audio_inpainting_torch.utils.config import Config
-from ml_audio_inpainting_torch.utils.precision import full_f32_convolutions
+from ml_audio_inpainting_torch.utils.precision import cast_floating, full_f32_convolutions
 from ml_audio_inpainting_torch.weights import load_params_npz
+from scripts.torch_cnn_serving_profile import busy_us
 
 DEVICE = "cuda"
 REPO = Path(__file__).resolve().parent
@@ -331,6 +372,44 @@ LONG_S, LONG_GAPS = 60.0, 8
 BF16_STEP_LOSS_RTOL = 1e-3
 BF16_GRAD_L2_RTOL = 0.3
 BF16_NOISE_OF_MAX_NORM = 1e-2
+# gan_training: the JAX package's fastest GAN recipe (train/recipe.py::
+# gan_recipe_config, bf16, B=32, 4 gaps a clip, VGG19 on, EMA 0.999) on the
+# formant_v2 corpus through the device-resident feed.  The checks run step 0
+# of the first batch's first 2 clips, VGG on, from the same weights; the
+# readings behind every bound are scripts/torch_gan_step_precision.py's at
+# that batch.  Card f32 against the port's f64 step on the CPU, the f64 step
+# taking the card's branch at every kink (LeakyReLU, ReLU, max pool:
+# utils/branch_tape.py; on an H100 397 LeakyReLU or ReLU inputs and 129 534
+# pool windows went another way than in f64, and without the replay D's
+# block3_conv bias lay 2.1e-3 of its largest entry from f64, with it every
+# gradient within 1.5e-5): the losses within 1e-4 relative; each gradient within
+# 1e-3 of its largest entry (or of the largest over both networks where its
+# own lies below f32's resolution of that), the CNN step's bound; D's u and
+# sigma after the D step within 1e-5 (unit vectors; sigmas relative).  The
+# card's bf16 step against its f32 step, each bound about three times the
+# port's bf16-vs-f32 reading on the CPU at this batch (losses 3.0e-3;
+# gradients 0.106 of their L2 norm, g.enc0.norm.bias; u 1.4e-3; sigma
+# 1.1e-2): losses 1e-2 relative, each gradient 0.3 of its own L2 norm, u
+# 5e-3, sigma 2e-2 relative.  Exempt: D's final bias, one scalar whose
+# gradient is the mean sigmoid of the real logits plus that of the fake
+# ones less 1, two means near 0.5 whose small difference bf16's rounding of
+# the logits swamps (0.302 of its norm on the CPU and on an H100); its
+# reading is logged.  The control, the bf16
+# step with every cast rounded through float8_e5m2, must fall outside these
+# bounds (on the CPU: losses 1.3e-2, u 3.5e-2, 12 gradients beyond 0.3).
+GAN_TRAIN_STEPS, GAN_REMAT_STEPS, GAN_F32_STEPS = 5, 3, 4
+GAN_F32_BATCH = 8
+GAN_CORPUS_ITEMS = 64
+GAN_EMA = 0.999
+GAN_CHECK_CLIPS = 2
+GAN_SN_ATOL = 1e-5
+GAN_STEP_GRAD_RTOL_OF_MAX = 1e-3
+GAN_BF16_LOSS_RTOL = 1e-2
+GAN_BF16_GRAD_L2_RTOL = 0.3
+GAN_BF16_GRAD_EXEMPT = ("d.final_conv.bias",)
+GAN_BF16_U_ATOL = 5e-3
+GAN_BF16_SIGMA_RTOL = 2e-2
+GAN_SCOPE_NAMES = set(SCOPES.values())
 
 
 def log(phase: str, msg: str) -> None:
@@ -1237,10 +1316,11 @@ def _pipelined(runner, audio_d, gs_d, gl_d, depth: int) -> float:
     return (time.perf_counter() - t0) / depth
 
 
-def _gan_checks(label: str, runner, audio: np.ndarray, audio_d, gs_d, gl_d) -> torch.Tensor:
+def _gan_checks(label: str, runner, audio: np.ndarray, audio_d, gs_d, gl_d,
+                phase: str = "gan_serving") -> torch.Tensor:
     """The generator's output finite; the composited clip equal to the input
     outside the gap; the host composite of the payload equal to a full-clip
-    PCM16 fetch.  Returns the restored batch."""
+    PCM16 fetch (messages under ``phase``).  Returns the restored batch."""
     with torch.inference_mode():
         restored, generated = runner.inpaint_fn(audio_d, gs_d, gl_d)
         patch, start = runner(audio_d, gs_d, gl_d)
@@ -1249,22 +1329,22 @@ def _gan_checks(label: str, runner, audio: np.ndarray, audio_d, gs_d, gl_d) -> t
         full = to_pcm16(composited).cpu().numpy()
     bad = (~torch.isfinite(generated)).sum().item()
     if bad or not torch.isfinite(restored).all():
-        raise AssertionError(f"gan_serving {label}: {bad} non-finite generator outputs")
+        raise AssertionError(f"{phase} {label}: {bad} non-finite generator outputs")
     outside = tmask.bool()
     if not torch.equal(composited[outside], audio_d[outside]):
-        raise AssertionError(f"gan_serving {label}: output differs from the input outside the gap")
+        raise AssertionError(f"{phase} {label}: output differs from the input outside the gap")
     client = to_pcm16(torch.tensor(audio)).numpy()
     host = composite_gap_patch(client, patch.cpu().numpy(), start.cpu().numpy())
     if not np.array_equal(host, full):
-        raise AssertionError(f"gan_serving {label}: host composite differs from the full fetch in "
+        raise AssertionError(f"{phase} {label}: host composite differs from the full fetch in "
                              f"{np.count_nonzero(host != full)} samples")
     if not np.array_equal(host[outside.cpu().numpy()], client[outside.cpu().numpy()]):
-        raise AssertionError(f"gan_serving {label}: delivered PCM differs from the input's outside "
+        raise AssertionError(f"{phase} {label}: delivered PCM differs from the input's outside "
                              "the gap")
-    log("gan_serving", f"{label}: generator output {tuple(generated.shape)} finite (range "
-                       f"{generated.min().item():.4f}..{generated.max().item():.4f}); composited "
-                       f"clip equal to the input outside the gap; host composite of the payload "
-                       f"equal to a full-clip PCM16 fetch, {host.size} int16 samples")
+    log(phase, f"{label}: generator output {tuple(generated.shape)} finite (range "
+               f"{generated.min().item():.4f}..{generated.max().item():.4f}); composited "
+               f"clip equal to the input outside the gap; host composite of the payload "
+               f"equal to a full-clip PCM16 fetch, {host.size} int16 samples")
     return restored
 
 
@@ -2047,6 +2127,346 @@ def phase_training_bf16(card: str) -> dict:
     return {k: sum(c[k] for c in launches) for k in launches[0]}
 
 
+# ----------------------------------------------------------- gan_training
+
+
+def _gan_states(cfg: Config, device, g_ema: float = 0.0) -> tuple:
+    """G from the committed GAN checkpoint and D drawn from seed 0, on
+    ``device``."""
+    return create_gan_states(cfg, device=device, generator=torch.Generator().manual_seed(0),
+                             g_ema=g_ema, params=load_params_npz(GAN_CHECKPOINT))
+
+
+def _gan_step_state(g, d) -> tuple:
+    """(gradients by network-prefixed name, D's u and sigma), f64 on the CPU."""
+    grads = {f"g.{n}": p.grad.detach().double().cpu() for n, p in g.model.named_parameters()}
+    grads.update({f"d.{n}": p.grad.detach().double().cpu() for n, p in d.model.named_parameters()})
+    sn = {k: v.double().cpu() for k, v in d.model.state_dict().items()
+          if k.endswith((".u", ".sigma"))}
+    return grads, sn
+
+
+def _device_busy_share(fn) -> tuple:
+    """(busy share of the wall time, wall ms) of ``fn()``, ending in a
+    synchronise, from a ``torch.profiler`` trace: the union of the device
+    kernels' intervals over the host's span (the trainer's profiler ranges
+    appear on the device's timeline too, and are not kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.name not in GAN_SCOPE_NAMES)
+    return busy / 1e3 / wall_ms, wall_ms
+
+
+def _gan_train(card: str, cfg: Config, label: str, batches: list, vgg, steps: int,
+               compute_dtype=None, remat: bool = False, check_syncs: bool = False) -> dict:
+    """``steps`` steps of the recipe in ``cfg`` from :func:`_gan_states`, on
+    the (audio, gaps) ``batches`` in turn; returns the timings, the states,
+    and which parameters moved and had a gradient."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    g, d = _gan_states(cfg, DEVICE, g_ema=GAN_EMA)
+    step = make_gan_train_step(cfg, vgg=vgg, compute_dtype=compute_dtype, remat=remat,
+                               g_ema=GAN_EMA)
+    params = {**{f"g.{n}": p for n, p in g.model.named_parameters()},
+              **{f"d.{n}": p for n, p in d.model.named_parameters()}}
+    before = {n: p.detach().clone() for n, p in params.items()}
+    seconds, metrics, nonzero, syncs = [], [], [], None
+    for i in range(steps):
+        audio, gaps = batches[i % len(batches)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if check_syncs and i == 2:  # host syncs inside one warm step
+            torch.cuda.set_sync_debug_mode("warn")
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                g, d, m = step(g, d, audio, *gaps)
+            torch.cuda.set_sync_debug_mode("default")
+            syncs = [str(w.message).splitlines()[0] for w in caught]
+        else:
+            g, d, m = step(g, d, audio, *gaps)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        metrics.append(m)
+        nonzero.append(torch.stack([p.grad.ne(0).any() for p in params.values()]))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    losses = [{k: v.item() for k, v in m.items()} for m in metrics]
+    bad = [(i, k) for i, m in enumerate(losses) for k, v in m.items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"gan_training {label}: non-finite losses {bad}")
+    had_grad = {n for n, any_step in zip(params, torch.stack(nonzero).any(0).tolist()) if any_step}
+    moved = {n for n, p in params.items() if not torch.equal(p.detach(), before[n])}
+    clips = audio.shape[0]
+    warm = sorted(seconds[1:])[len(seconds[1:]) // 2]
+    stats = {"warm_step_ms": 1e3 * warm, "step_ms": [1e3 * t for t in seconds],
+             "s_audio_per_s": clips * cfg.data.max_len_s / warm, "peak_mib": peak,
+             "g_total": [m["g_total"] for m in losses], "d_total": [m["d_total"] for m in losses]}
+    if syncs is not None:
+        stats["host_syncs"] = len(syncs)
+    log("gan_training", f"{label}: steps {', '.join(f'{1e3 * t:.1f}' for t in seconds)} ms; warm "
+                        f"step (median of steps 1-{steps - 1}) {1e3 * warm:.2f} ms, "
+                        f"{stats['s_audio_per_s']:.1f} s-audio/s ({clips} x "
+                        f"{cfg.data.max_len_s} s a step); peak device memory {peak:.1f} MiB; "
+                        f"g_total {[round(v, 4) for v in stats['g_total']]}, d_total "
+                        f"{[round(v, 4) for v in stats['d_total']]}"
+                        + (f"; host syncs in a step: {len(syncs)} {syncs[:3]}"
+                           if syncs is not None else "") + f" ({card})")
+    if syncs:
+        raise AssertionError(f"gan_training {label}: {len(syncs)} host syncs in a step: "
+                             f"{syncs[:3]}")
+    return {"stats": stats, "g": g, "d": d, "step": step, "moved": moved,
+            "had_grad": had_grad, "names": set(params)}
+
+
+def gan_training_batches(cfg: Config) -> tuple:
+    """(the phase's ``GAN_TRAIN_STEPS`` (audio, gaps) batches on the card,
+    the seconds the corpus took to synthesise and upload): a
+    ``GAN_CORPUS_ITEMS``-clip formant_v2 corpus (seed 0) through the device
+    feed, gap layouts drawn from seed 12."""
+    clips = cfg.training.batch_size
+    t0 = time.perf_counter()
+    corpus = FormantSpeechDataset(n_items=GAN_CORPUS_ITEMS, variant="v2", seed=0, cache=False)
+    feed = device_corpus_feed(corpus, clips, seed=0, device=DEVICE, workers=8)
+    torch.cuda.synchronize()
+    corpus_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(12)
+    batches = [(next(feed), [t.to(DEVICE) for t in gan_gap_layouts(gen, cfg, clips)])
+               for _ in range(GAN_TRAIN_STEPS)]
+    return batches, corpus_s
+
+
+def gan_check_batch(batches: list) -> tuple:
+    """The first ``GAN_CHECK_CLIPS`` clips of the first batch, with their gaps."""
+    audio, gaps = batches[0]
+    return audio[:GAN_CHECK_CLIPS], [t[:GAN_CHECK_CLIPS] for t in gaps]
+
+
+def _e5m2_rounded(x):
+    """``x`` rounded to float8_e5m2 (2 mantissa bits; bf16 keeps 7), its
+    gradient passed straight through; anything else as it is."""
+    if not (isinstance(x, torch.Tensor) and x.is_floating_point()):
+        return x
+    return x + (x.to(torch.float8_e5m2).to(x.dtype) - x).detach()
+
+
+def float8_rounded_casts(tree, dtype):
+    """``cast_floating`` with every floating tensor rounded through
+    float8_e5m2 first: patched into the trainer, the bf16 step computes on
+    operands of less precision than it states (the control of the bf16
+    check)."""
+    return cast_floating(tree_map(_e5m2_rounded, tree), dtype)
+
+
+def gan_step0(cfg: Config, batch: tuple, device, dtype=torch.float32, compute_dtype=None,
+              vgg=None, control: bool = False, states=_gan_states, tape=None,
+              replay: bool = False) -> tuple:
+    """Step 0 of ``batch`` from ``states(cfg, device)`` (G and D) on
+    ``device``, the networks in ``dtype`` (f32 or f64) and the step in
+    ``compute_dtype`` (None, or bf16: the mixed step), with
+    ``float8_rounded_casts`` if ``control``: (losses, gradients, D's u and
+    sigma), on the CPU in f64.  ``vgg`` defaults to the seeded one, drawn
+    anew, where ``cfg``'s VGG terms are on.  With a ``tape`` (a list), the
+    step records its kinks' branches into it, or with ``replay`` takes
+    them from it (``utils/branch_tape.py``)."""
+    audio, gaps = batch
+    g, d = states(cfg, device)
+    g.model.to(dtype)
+    d.model.to(dtype)
+    t = cfg.training
+    if vgg is None and (t.lambda_vgg_perceptual > 0 or t.lambda_vgg_style > 0):
+        vgg = vgg19_params(device=device).to(dtype)
+    step = make_gan_train_step(cfg, vgg=vgg, compute_dtype=compute_dtype)
+    casts = float8_rounded_casts if control else cast_floating
+    branches = contextlib.nullcontext() if tape is None else branch_tape(tape, replay)
+    with mock.patch.object(gan_trainer, "cast_floating", casts), branches:
+        _, _, m = step(g, d, audio.to(device=device, dtype=dtype), *[t.to(device) for t in gaps])
+    return ({k: v.item() for k, v in m.items()}, *_gan_step_state(g, d))
+
+
+def f32_grad_errors(got: dict, want: dict) -> dict:
+    """Each gradient's largest distance from ``want``'s over its scale: its
+    own largest entry, or the largest over both networks where its own
+    lies below f32's resolution of that."""
+    g_max = max(w.abs().max().item() for w in want.values())
+    out = {}
+    for name, w in want.items():
+        own = w.abs().max().item()
+        out[name] = (got[name] - w).abs().max().item() / (g_max if own <= F32_EPS * g_max else own)
+    return out
+
+
+def _check_gan_step_against_cpu(cfg: Config, batch: tuple, vgg) -> tuple:
+    """Step 0 of ``batch`` on the card in f32 against the port's step in f64
+    on the CPU from the same weights, taking the card's branch at every
+    kink (``utils/branch_tape.py``): the losses, every gradient, D's u and
+    sigma.  Returns (the card's step, the readings)."""
+    tape = []
+    card = gan_step0(cfg, batch, DEVICE, vgg=vgg, tape=tape)
+    (m_d, g_d, sn_d), (m_c, g_c, sn_c) = card, gan_step0(cfg, batch, "cpu", torch.float64,
+                                                         tape=tape, replay=True)
+    loss_err = max(abs(m_d[k] - v) / abs(v) for k, v in m_c.items() if v)
+    if not loss_err <= STEP_LOSS_RTOL:
+        raise AssertionError(f"gan_training step 0 losses: card {m_d} vs CPU {m_c}")
+    err = f32_grad_errors(g_d, g_c)
+    worst = max(err, key=err.get)
+    sn_err = {k: (sn_d[k] - v).abs().max().item() / (1.0 if k.endswith(".u") else v.item())
+              for k, v in sn_c.items()}
+    log("gan_training", f"step 0 of {batch[0].shape[0]} clips, VGG on, card f32 vs CPU f64 on the "
+                        f"card's {len(tape)} kink branches: losses within {loss_err:.3e} (rtol "
+                        f"{STEP_LOSS_RTOL}); {len(g_c)} gradient tensors within {err[worst]:.3e} of "
+                        f"their largest entry (worst {worst}; allowed {GAN_STEP_GRAD_RTOL_OF_MAX}); "
+                        f"D's u and sigma after the D step within {max(sn_err.values()):.3e} "
+                        f"({GAN_SN_ATOL})")
+    beyond = {k: e for k, e in err.items() if not e <= GAN_STEP_GRAD_RTOL_OF_MAX}
+    if beyond:
+        raise AssertionError(f"gan_training step 0 gradients, card vs CPU f64: {beyond}")
+    if not max(sn_err.values()) <= GAN_SN_ATOL:
+        raise AssertionError(f"gan_training step 0 spectral-norm state: {sn_err}")
+    return card, {"loss_rel_err": loss_err, "grad_rel_err": err[worst], "grad_worst": worst,
+                  "sn_err": max(sn_err.values())}
+
+
+def bf16_readings(got: tuple, want: tuple) -> dict:
+    """A bf16 step's distance from the f32 step (each ``(losses, gradients,
+    D's u and sigma)``): the losses relative, each gradient by its L2 norm,
+    u's largest entry, sigma relative."""
+    (m16, g16, sn16), (m32, g32, sn32) = got, want
+    return {
+        "loss": max(abs(m16[k] - v) / abs(v) for k, v in m32.items() if v),
+        "grad": {k: (g16[k] - v).norm().item() / v.norm().item() for k, v in g32.items()
+                 if v.norm().item() > 0},
+        "u": max((sn16[k] - v).abs().max().item() for k, v in sn32.items() if k.endswith(".u")),
+        "sigma": max(abs(sn16[k].item() / v.item() - 1) for k, v in sn32.items()
+                     if k.endswith(".sigma")),
+    }
+
+
+def bf16_outside(r: dict) -> list:
+    """What of :func:`bf16_readings` lies outside the bf16 check's bounds."""
+    out = [k for k, e in r["grad"].items()
+           if k not in GAN_BF16_GRAD_EXEMPT and not e <= GAN_BF16_GRAD_L2_RTOL]
+    return out + [k for k, e, bound in (("loss", r["loss"], GAN_BF16_LOSS_RTOL),
+                                        ("u", r["u"], GAN_BF16_U_ATOL),
+                                        ("sigma", r["sigma"], GAN_BF16_SIGMA_RTOL))
+                  if not e <= bound]
+
+
+def _check_gan_bf16_against_f32(cfg: Config, batch: tuple, vgg, card_f32: tuple) -> dict:
+    """Step 0 of ``batch`` in bf16 on the card against ``card_f32``, the f32
+    step from the same weights; then the control (the bf16 step on
+    float8_e5m2-rounded casts), which must fall outside the same bounds."""
+    r, c = (bf16_readings(gan_step0(cfg, batch, DEVICE, compute_dtype=torch.bfloat16, vgg=vgg,
+                                    control=control), card_f32)
+            for control in (False, True))
+    out, out_c = bf16_outside(r), bf16_outside(c)
+    grads = {k: e for k, e in r["grad"].items() if k not in GAN_BF16_GRAD_EXEMPT}
+    worst = max(grads, key=grads.get)
+    log("gan_training", f"bf16 step 0 vs f32 on the card, {batch[0].shape[0]} clips: losses within "
+                        f"{r['loss']:.3e} (rtol {GAN_BF16_LOSS_RTOL}); gradients within "
+                        f"{grads[worst]:.3e} of their L2 norm (worst {worst}; allowed "
+                        f"{GAN_BF16_GRAD_L2_RTOL}); exempt: "
+                        f"{ {k: r['grad'][k] for k in GAN_BF16_GRAD_EXEMPT} }; u within "
+                        f"{r['u']:.3e} ({GAN_BF16_U_ATOL}), sigma within {r['sigma']:.3e} "
+                        f"({GAN_BF16_SIGMA_RTOL}); outside: {out}.  Control, casts rounded "
+                        f"through float8_e5m2: losses {c['loss']:.3e}, gradients up to "
+                        f"{max(c['grad'].values()):.3e} (median "
+                        f"{sorted(c['grad'].values())[len(c['grad']) // 2]:.3e}), u {c['u']:.3e}, "
+                        f"sigma {c['sigma']:.3e}; outside: {len(out_c)} ({out_c[:4]}...)")
+    if out:
+        raise AssertionError(f"gan_training: the bf16 step 0 is outside its bounds against f32: "
+                             f"{out}")
+    if not out_c:
+        raise AssertionError("gan_training: the control (float8_e5m2 casts) is within the bf16 "
+                             "bounds: they cannot tell a lower precision")
+    return {"loss_rel_err": r["loss"], "grad_l2_rel_err": grads[worst], "grad_worst": worst,
+            "exempt": {k: r["grad"][k] for k in GAN_BF16_GRAD_EXEMPT}, "u_err": r["u"],
+            "sigma_rel_err": r["sigma"], "control_outside": len(out_c),
+            "control_loss_rel_err": c["loss"], "control_grad_l2_rel_err": max(c["grad"].values())}
+
+
+def phase_gan_training(card: str) -> dict:
+    """GAN training at the JAX package's fastest recipe; returns the launch
+    counts of the hand-written kernels (all 0: the path has none)."""
+    _reset_counts()
+    cfg = gan_recipe_config()
+    clips = cfg.training.batch_size
+    batches, corpus_s = gan_training_batches(cfg)
+    vgg = vgg19_params(device=DEVICE)  # MAI_VGG19_WEIGHTS unset: the seeded initialiser
+    log("gan_training", f"corpus: {GAN_CORPUS_ITEMS} formant_v2 clips of {cfg.data.max_len_s} s "
+                        f"synthesised (8 threads) and uploaded in {corpus_s:.2f} s; {clips} clips "
+                        f"x {cfg.data.train_n_gaps} gaps of up to {cfg.data.gap_len_s} s a step "
+                        f"(clip 0: starts {batches[0][1][0][0].tolist()}, lengths "
+                        f"{batches[0][1][1][0].tolist()}); G from {GAN_CHECKPOINT.name}, D seeded; "
+                        f"lambdas {cfg.training.lambda_adv}/{cfg.training.lambda_l1_valid}/"
+                        f"{cfg.training.lambda_l1_hole}/{cfg.training.lambda_vgg_perceptual}/"
+                        f"{cfg.training.lambda_vgg_style}/{cfg.training.lambda_mag_weighted}, "
+                        f"EMA {GAN_EMA}")
+    summary = {"card": card, "corpus_s": corpus_s}
+
+    # The production recipe: bf16, B=32, VGG on.
+    run = _gan_train(card, cfg, "bf16 B=32", batches, vgg, GAN_TRAIN_STEPS, torch.bfloat16,
+                     check_syncs=True)
+    if run["moved"] != run["had_grad"]:
+        raise AssertionError(f"gan_training: moved {sorted(run['moved'] - run['had_grad'])} "
+                             f"without a gradient, or stayed {sorted(run['had_grad'] - run['moved'])}"
+                             f" with one")
+    no_grad = sorted(run["names"] - run["had_grad"])
+    log("gan_training", f"bf16 B=32: {len(run['moved'])} of {len(run['names'])} parameter tensors "
+                        f"moved; no gradient in any step: {no_grad}")
+    audio0, gaps0 = batches[0]
+    busy, wall_ms = _device_busy_share(lambda: run["step"](run["g"], run["d"], audio0, *gaps0))
+    summary["bf16_b32"] = {**run["stats"], "device_idle_share": 1.0 - busy, "traced_step_ms": wall_ms,
+                           "no_grad": no_grad}
+    log("gan_training", f"bf16 B=32: one traced step {wall_ms:.1f} ms, device busy {100 * busy:.1f} "
+                        f"%, idle {100 * (1 - busy):.1f} % ({card})")
+
+    # The trained EMA weights, exported in the JAX package's npz format, serve a request.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "gan_ema.npz"
+        export_params_npz(path, run["g"].model, params=run["g"].ema_params)
+        runner = make_gan_runner(cfg, path, device=DEVICE, mode="enhanced", phase="oracle",
+                                 transport_window=DEFAULT_PATCH_WINDOW)
+        audio = synthetic_dataset_batch(B, cfg.data.max_len_s)
+        _gan_checks("EMA weights", runner, audio, torch.tensor(audio, device=DEVICE),
+                    torch.full((B,), GAP_START, device=DEVICE),
+                    torch.full((B,), GAP_LEN, device=DEVICE), phase="gan_training")
+    del run, runner
+
+    remat = _gan_train(card, cfg, "bf16 B=32 remat", batches, vgg, GAN_REMAT_STEPS,
+                       torch.bfloat16, remat=True)
+    summary["bf16_b32_remat"] = remat["stats"]
+    del remat
+
+    # f32 (TF32 off) at the reference's batch, B=8 (configs/gan.yaml); B=32
+    # does not fit (B=8 peaks at 29 GB).
+    cfg_8 = gan_recipe_config()
+    cfg_8.training.batch_size = GAN_F32_BATCH
+    f32 = _gan_train(card, cfg_8, f"f32 B={GAN_F32_BATCH}",
+                     [(a[:GAN_F32_BATCH], [t[:GAN_F32_BATCH] for t in gs]) for a, gs in batches],
+                     vgg, GAN_F32_STEPS)
+    summary["f32_b8"] = f32["stats"]
+    del f32
+
+    # Correctness on the card.
+    small = gan_check_batch(batches)
+    card_f32, summary["check_cpu"] = _check_gan_step_against_cpu(cfg, small, vgg)
+    summary["check_bf16"] = _check_gan_bf16_against_f32(cfg, small, vgg, card_f32)
+
+    launches = _counts()
+    if any(launches.values()):
+        raise AssertionError(f"gan_training launched a hand-written kernel: {launches}")
+    summary["launches"] = launches
+    log("gan_training", f"summary ({card}): {json.dumps(summary)}")
+    return launches
+
+
 def main() -> int:
     smi = phase_device()
     card = f"{torch.cuda.get_device_name(0)}, power limit {smi.split(',')[-1].strip()}"
@@ -2061,6 +2481,7 @@ def main() -> int:
     paths["evaluation"] = phase_evaluation(card)
     paths["training"] = phase_training(card)
     paths["training_bf16"] = phase_training_bf16(card)
+    paths["gan_training"] = phase_gan_training(card)
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()
                                  if counts[k["name"]]}

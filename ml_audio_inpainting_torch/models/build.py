@@ -1,14 +1,15 @@
 """Model construction from a config (port of
 ``ml_audio_inpainting_tpu/train/cnn_trainer.py::build_model`` and
-``train/gan_trainer.py::build_generator``)."""
+``train/gan_trainer.py::build_generator``, ``build_discriminator``)."""
 
 from __future__ import annotations
 
 from ml_audio_inpainting_torch.models.cnn_blstm import StackedBLSTMCNN
+from ml_audio_inpainting_torch.models.discriminator import Discriminator
 from ml_audio_inpainting_torch.models.pconv_unet import PConvUNet
 from ml_audio_inpainting_torch.utils.config import Config
 
-__all__ = ["build_model", "build_generator"]
+__all__ = ["build_model", "build_generator", "build_discriminator"]
 
 
 def build_model(cfg: Config, device="cuda") -> StackedBLSTMCNN:
@@ -36,3 +37,15 @@ def build_generator(cfg: Config, device="cuda") -> PConvUNet:
         final_kernel=g.final_kernel,
         output_channels=g.output_channels,
     ).to(device).eval()
+
+
+def build_discriminator(cfg: Config, device="cuda") -> Discriminator:
+    """The spectral-norm PatchGAN of ``cfg`` on ``device``, weights not yet
+    drawn or loaded (its ``u`` vectors are zero until then)."""
+    d = cfg.model.discriminator
+    return Discriminator(
+        layer_cfg=tuple(tuple(layer) for layer in d.layer_cfg),
+        kernel_size=d.kernel_size,
+        use_spectral_norm=d.use_spectral_norm,
+        input_channels=d.input_channels,
+    ).to(device)

@@ -20,15 +20,16 @@ mode; the serving entry points put it in eval mode.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Sequence
+from typing import Iterator, Sequence
 
 import torch
 from torch import nn
 
 from ml_audio_inpainting_torch.ops.lstm import BiLSTM
 
-__all__ = ["FlaxBatchNorm2d", "StackedBLSTMCNN"]
+__all__ = ["FlaxBatchNorm2d", "StackedBLSTMCNN", "running_stats_frozen"]
 
 BN_EPS = 1e-5  # flax.linen.BatchNorm default
 BN_MOMENTUM = 0.99  # flax.linen.BatchNorm default: running = 0.99 * running + 0.01 * batch
@@ -53,10 +54,15 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     statistics stay f32 and move in f32, and ``y`` is computed in f32 (the
     bf16 scale and bias upcast) and returned in ``x``'s type.  For f32 (and
     f64) input every cast is the identity and the result is the f32 rule's.
+
+    ``update_running`` (True) says whether a train-mode forward moves the
+    running statistics; :func:`running_stats_frozen` clears it for a forward
+    that repeats one whose update was already kept.
     """
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
+        self.update_running = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -66,13 +72,35 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         xf = x.to(acc)
         mean = xf.mean(dim=dims)
         var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
-        with torch.no_grad():
-            self.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
-            self.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
-            self.num_batches_tracked.add_(1)
+        if self.update_running:
+            with torch.no_grad():
+                self.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
+                self.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
+                self.num_batches_tracked.add_(1)
         mul = torch.rsqrt(var + self.eps) * self.weight.to(acc)
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.to(acc)[:, None, None]
         return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def running_stats_frozen(module: nn.Module, frozen: bool = True) -> Iterator[None]:
+    """A scope in which the train-mode forwards of ``module``'s
+    :class:`FlaxBatchNorm2d` layers normalise with their batch statistics
+    but leave the running ones as they are (with ``frozen=False``, a scope
+    that changes nothing); the switches are restored on exit.  A flax step
+    keeps the ``batch_stats`` of one forward of its choice; a torch module
+    updates them on every train-mode forward, so a step that runs the same
+    forward again (the GAN's G step after the D step's detached forward, a
+    checkpointed forward recomputed in the backward) runs it in here."""
+    norms = [m for m in module.modules() if isinstance(m, FlaxBatchNorm2d)]
+    before = [m.update_running for m in norms]
+    for m in norms:
+        m.update_running = not frozen and m.update_running
+    try:
+        yield
+    finally:
+        for m, flag in zip(norms, before):
+            m.update_running = flag
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:

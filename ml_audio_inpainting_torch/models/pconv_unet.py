@@ -19,8 +19,12 @@ algebra is the JAX model's, single-channel:
 
 BatchNorm is flax's inference rule (:class:`FlaxBatchNorm2d`, eps 1e-5, the
 running statistics).  Where a hole's whole window is masked (``updated ==
-0``) the ratio is ~1e8 times the window size; the next layer's mask, 0 there,
-removes whatever the convolution left at such a position.
+0``) the convolution's input is 0 over the window and the JAX model's output
+there is an exact 0 (times a ratio of ~1e8 times the window size).  The
+ratio is set to 0 at such positions, so the output is that exact 0 whatever
+the convolution algorithm leaves there (an FFT or Winograd algorithm mixes
+neighbouring windows, and the ratio would multiply its round-off by ~1e8),
+and no gradient flows back there.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ml_audio_inpainting_torch.models.cnn_blstm import FlaxBatchNorm2d
+from ml_audio_inpainting_torch.models.cnn_blstm import FlaxBatchNorm2d, _lecun_normal_
 
 __all__ = ["PartialConv", "EncDecBlock", "PConvUNet", "ones_conv", "reflect_pad", "resize_nearest"]
 
@@ -130,7 +134,7 @@ class PartialConv(nn.Module):
                 mask_channel_sum: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         out = _conv(self.conv, x if self.premasked else x * mask)
         updated = ones_conv(mask_channel_sum, self.kernel, self.stride, self.pad)
-        out = out * (self.window_size / (updated + MASK_EPS))
+        out = out * torch.where(updated > 0, self.window_size / (updated + MASK_EPS), 0.0)
         if self.bias is not None:
             out = out + self.bias[:, None, None]
         return out, torch.clamp(updated, 0.0, 1.0)
@@ -191,6 +195,23 @@ class PConvUNet(nn.Module):
         self.total_downsampling = 1
         for _, _, s in enc_layer_cfg:
             self.total_downsampling *= s
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Fresh weights with the JAX init's distributions (not its stream),
+        flax's defaults: ``lecun_normal`` convolution kernels (a normal
+        truncated to two standard deviations, variance 1/fan_in), zero
+        partial-convolution biases, BatchNorm scale 1, bias 0, running mean 0
+        and variance 1.  Drawn on the CPU from ``generator``, in module
+        order.  (torch's own default, ``kaiming_uniform_(a=sqrt(5))``, has a
+        third of that variance.)"""
+        for module in self.modules():
+            if isinstance(module, PartialConv):
+                _lecun_normal_(module.conv.weight, module.conv.weight[0].numel(), generator)
+                if module.bias is not None:
+                    module.bias.zero_()
+            elif isinstance(module, FlaxBatchNorm2d):
+                module.reset_parameters()
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if x.ndim == 3:

@@ -1,5 +1,6 @@
-"""Training features of the CNN+BiLSTM: waveforms and gap positions -> model
-batches (port of ``ml_audio_inpainting_tpu/train/features.py::cnn_features``).
+"""Training features of both families: waveforms and gap positions -> model
+batches (port of ``ml_audio_inpainting_tpu/train/features.py::gan_features``
+and ``cnn_features``).
 
 The JAX function draws the gap positions from a ``jax.random`` key inside
 the step; this one takes them as explicit tensors, ``(B, G)`` starts of one
@@ -17,11 +18,73 @@ import torch
 
 from ml_audio_inpainting_torch.data.multigap import gaps_mask
 from ml_audio_inpainting_torch.ops import masking
-from ml_audio_inpainting_torch.ops.gaps import frame_mask_from_sample_mask, gap_mask
+from ml_audio_inpainting_torch.ops.gaps import (
+    frame_mask_from_interval,
+    frame_mask_from_sample_mask,
+    gap_mask,
+)
 from ml_audio_inpainting_torch.ops.stft import stft
 from ml_audio_inpainting_torch.utils.config import SpectrogramConfig
 
-__all__ = ["cnn_features"]
+__all__ = ["gan_features", "cnn_features"]
+
+
+def gan_features(
+    audio: torch.Tensor,
+    gap_start: torch.Tensor,
+    spec: SpectrogramConfig,
+    gap_len_s: float = 0.2,
+    sample_rate: int = 16000,
+    n_gaps: int = 1,
+    gap_len: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """GAN batch features of ``audio (B, S)``, each ``(B, F, N)``:
+
+    * ``original_magnitude`` ``log1p(|STFT(clean)|)``;
+    * ``impaired_magnitude`` ``log1p(|STFT(clean * mask)|)``;
+    * ``mask``               1 = valid frame, 0 = hole;
+    * ``original_phase``     ``angle(STFT(clean))``.
+
+    With ``n_gaps == 1``, ``gap_start (B,)`` holds integer starts of one gap
+    of ``int(gap_len_s * sample_rate)`` samples (``random_gap_mask``'s
+    rule: a gap of length 0 or less is none, one as long as the clip or
+    longer is the whole clip, and then ``gap_start`` is not read); frames
+    ``[start // hop, ceil(end / hop))`` are holes.  With ``n_gaps > 1``,
+    ``gap_start`` and ``gap_len`` are ``(B, n_gaps)`` integer starts and
+    lengths (``data/multigap.py``'s layout), and a frame is a hole when it
+    is one for any of its clip's gaps (the minimum of the per-gap masks,
+    ``features.py:83-95``).
+    """
+    B, S = audio.shape
+    kw = dict(n_fft=spec.n_fft, hop_length=spec.hop_length, win_length=spec.win_length)
+    start = gap_start.to(device=audio.device, dtype=torch.int64)
+    if n_gaps == 1:
+        length = int(gap_len_s * sample_rate)
+        if length <= 0 or length >= S:
+            start = torch.zeros_like(start)
+            length = 0 if length <= 0 else S
+        end = start + length
+        masks = gap_mask(S, start, end - start, dtype=audio.dtype)  # (B, S)
+    else:
+        if gap_len is None or tuple(gap_start.shape) != (B, n_gaps) or (
+                gap_len.shape != gap_start.shape):
+            raise ValueError(f"n_gaps={n_gaps} takes (B, {n_gaps}) gap_start and gap_len, got "
+                             f"{tuple(gap_start.shape)} and "
+                             f"{None if gap_len is None else tuple(gap_len.shape)}")
+        end = start + gap_len.to(device=audio.device, dtype=torch.int64)
+        masks = gaps_mask(S, start, end - start, dtype=audio.dtype)  # (B, S)
+
+    spec_clean = stft(audio, **kw)
+    F, N = spec_clean.shape[-2:]
+    frame_masks = frame_mask_from_interval(start, end, F, N, spec.hop_length, dtype=audio.dtype)
+    if n_gaps > 1:
+        frame_masks = frame_masks.amin(dim=1)  # (B, K, F, N) -> (B, F, N)
+    return {
+        "original_magnitude": masking.log1p_norm(spec_clean.abs()),
+        "impaired_magnitude": masking.log1p_norm(stft(audio * masks, **kw).abs()),
+        "mask": frame_masks,
+        "original_phase": torch.angle(spec_clean),
+    }
 
 
 def cnn_features(

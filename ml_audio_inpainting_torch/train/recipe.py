@@ -1,9 +1,11 @@
-"""The CNN+BiLSTM training recipes as the port's card runs them
-(``chip_smoke.py``, ``scripts/torch_cnn_training_profile.py``): the values
-of ``configs/cnn_blstm.yaml`` and of the production recipe
-(``configs/cnn_blstm_b128.yaml`` trained with ``--train-n-gaps 3``) built in
-Python (the card's machine has no YAML package), seeded gap positions, and
-weights with a live BiLSTM."""
+"""The training recipes as the port's card runs them (``chip_smoke.py``,
+``scripts/torch_cnn_training_profile.py``,
+``scripts/torch_gan_training_profile.py``): the values of
+``configs/cnn_blstm.yaml``, of the CNN production recipe
+(``configs/cnn_blstm_b128.yaml`` trained with ``--train-n-gaps 3``) and of
+the GAN's (``configs/gan.yaml`` at B=32 with 4 gaps a clip) built in Python
+(the card's machine has no YAML package), seeded gap positions, and weights
+with a live BiLSTM."""
 
 from __future__ import annotations
 
@@ -16,8 +18,8 @@ from ml_audio_inpainting_torch.data.multigap import random_multi_gap_layout
 from ml_audio_inpainting_torch.ops.gaps import random_gap_mask
 from ml_audio_inpainting_torch.utils.config import Config
 
-__all__ = ["recipe_config", "b128_recipe_config", "gap_starts", "multi_gap_layouts",
-           "live_bilstm"]
+__all__ = ["recipe_config", "b128_recipe_config", "gan_recipe_config", "gap_starts",
+           "multi_gap_layouts", "gan_gap_layouts", "live_bilstm"]
 
 
 def recipe_config() -> Config:
@@ -54,6 +56,28 @@ def b128_recipe_config() -> Config:
     })
 
 
+def gan_recipe_config() -> Config:
+    """The JAX package's fastest GAN recipe: ``configs/gan.yaml``'s data,
+    model and training values (5 s clips at 16 kHz, STFT 512/128/512, the
+    default PConv U-Net and PatchGAN, Adam lr 2e-4 with betas (0.5, 0.999),
+    lambdas adv 0.01, l1_valid 1, l1_hole 2, vgg_perceptual 4, vgg_style
+    500, mag_weighted 0.2) at ``batch_size`` 32 with ``train_n_gaps=4``
+    (``results/gan_b32_bf16_r4_eval.json``: B=32, 4 gaps a clip, bf16, EMA
+    0.999, the device feed).  The dtype and the EMA are the train step's
+    arguments, not the config's."""
+    return Config.from_dict({
+        "data": {"sample_rate": 16000, "max_len_s": 5.0, "gap_len_s": 0.2, "train_limit": 3000,
+                 "train_n_gaps": 4,
+                 "spectrogram": {"n_fft": 512, "hop_length": 128, "win_length": 512}},
+        "model": {"generator": {"input_channels": 1, "mask_channels": 1, "output_channels": 1},
+                  "discriminator": {"input_channels": 1}},
+        "training": {"batch_size": 32, "epochs": 100, "g_lr": 2e-4, "d_lr": 2e-4, "b1": 0.5,
+                     "b2": 0.999, "lambda_adv": 0.01, "lambda_l1_valid": 1.0,
+                     "lambda_l1_hole": 2.0, "lambda_vgg_perceptual": 4.0,
+                     "lambda_vgg_style": 500.0, "lambda_mag_weighted": 0.2},
+    })
+
+
 def gap_starts(gen: torch.Generator, cfg: Config, clips: int, variants: int) -> torch.Tensor:
     """``(clips, variants)`` int64 gap starts in samples, drawn as the
     trainer's random gaps are (``ops/gaps.py::random_gap_mask``)."""
@@ -72,6 +96,18 @@ def multi_gap_layouts(gen: torch.Generator, cfg: Config, clips: int, variants: i
         gen, (clips, variants), cfg.data.max_samples, cfg.data.train_n_gaps,
         max_gap_ms=cfg.data.gap_len_s * 1000.0, sample_rate=cfg.data.sample_rate)
     return starts.to(torch.int64), lengths.to(torch.int64)
+
+
+def gan_gap_layouts(gen: torch.Generator, cfg: Config, clips: int) -> tuple:
+    """The gap tensors ``make_gan_train_step`` takes for ``clips`` clips,
+    drawn from ``gen`` as the JAX trainer's ``gan_features`` draws them:
+    with ``cfg.data.train_n_gaps`` 1, ``(starts,)``, int64 ``(clips,)``
+    (``random_gap_mask``); with K > 1, ``(starts, lengths)``, int64
+    ``(clips, K)`` (``multi_gap_mask`` of gaps of up to ``gap_len_s``)."""
+    if cfg.data.train_n_gaps == 1:
+        return (gap_starts(gen, cfg, clips, 1)[:, 0],)
+    starts, lengths = multi_gap_layouts(gen, cfg, clips, 1)
+    return starts[:, 0], lengths[:, 0]
 
 
 def live_bilstm(flat: dict, seed: int) -> dict:

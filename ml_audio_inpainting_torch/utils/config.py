@@ -1,11 +1,11 @@
-"""Configuration tree of the port: the CNN+BiLSTM serving and training subset
-and the GAN generator.
+"""Configuration tree of the port: the CNN+BiLSTM and the GAN, serving and
+training.
 
 A copy of the dataclasses of ``ml_audio_inpainting_tpu/utils/config.py``
 that the port's paths read, with the same field names, defaults and YAML
 key layout, so a config file loads the same in both packages.  Sections and
-keys the paths do not read (the discriminator, the GAN optimizers and loss
-weights, paths, logging, mesh) are ignored by :meth:`Config.from_dict`.
+keys the paths do not read (resuming, paths, logging, mesh) are ignored by
+:meth:`Config.from_dict`.
 
 ``yaml`` is imported only inside :meth:`Config.from_yaml`: code that builds
 its config in Python (``gan_profile_config(None)``, ``Config()``) needs no
@@ -23,6 +23,7 @@ __all__ = [
     "SpectrogramConfig",
     "DataConfig",
     "GeneratorConfig",
+    "DiscriminatorConfig",
     "CNNBLSTMConfig",
     "ModelConfig",
     "TrainingConfig",
@@ -127,6 +128,18 @@ class GeneratorConfig:
 
 
 @dataclass
+class DiscriminatorConfig:
+    """Spectral-norm PatchGAN: ``(out_channels, stride)`` a block."""
+
+    input_channels: int = 1
+    layer_cfg: List[Tuple[int, int]] = field(
+        default_factory=lambda: [(64, 2), (128, 2), (256, 2), (512, 1)]
+    )
+    kernel_size: int = 4
+    use_spectral_norm: bool = True
+
+
+@dataclass
 class CNNBLSTMConfig:
     """CNN encoder -> BiLSTM bottleneck -> CNN decoder."""
 
@@ -140,13 +153,19 @@ class CNNBLSTMConfig:
 @dataclass
 class ModelConfig:
     generator: GeneratorConfig = field(default_factory=GeneratorConfig)
+    discriminator: DiscriminatorConfig = field(default_factory=DiscriminatorConfig)
     cnn_blstm: CNNBLSTMConfig = field(default_factory=CNNBLSTMConfig)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "ModelConfig":
         cfg = cls()
-        if "generator" in d:
+        if "generator" in d:  # "channels" is informational in the reference YAML
             cfg.generator = GeneratorConfig(**_filtered(GeneratorConfig, d["generator"]))
+        if "discriminator" in d:
+            # As the JAX package: a YAML "use_spectral_norm" is dropped, so
+            # spectral norm stays on.
+            dd = {k: v for k, v in d["discriminator"].items() if k != "use_spectral_norm"}
+            cfg.discriminator = DiscriminatorConfig(**_filtered(DiscriminatorConfig, dd))
         # The CNN+BiLSTM keys sit at the top level of `model:`.
         cnn_keys = _filtered(CNNBLSTMConfig, d)
         if cnn_keys:
@@ -156,9 +175,21 @@ class ModelConfig:
 
 @dataclass
 class TrainingConfig:
-    """The CNN+BiLSTM optimizer keys (``cnn_blstm.yaml:32-37``)."""
+    """The GAN's optimizers and loss weights (``configs/gan.yaml``) and the
+    CNN+BiLSTM optimizer keys (``cnn_blstm.yaml:32-37``)."""
 
     batch_size: int = 8
+    epochs: int = 100
+    g_lr: float = 2e-4
+    d_lr: float = 2e-4
+    b1: float = 0.5
+    b2: float = 0.999
+    lambda_adv: float = 0.01
+    lambda_l1_valid: float = 1.0
+    lambda_l1_hole: float = 2.0
+    lambda_vgg_perceptual: float = 4.0
+    lambda_vgg_style: float = 500.0
+    lambda_mag_weighted: float = 0.2
     optimizer_type: str = "adam"
     starter_learning_rate: float = 1e-4
     lr_decay: float = 1.0

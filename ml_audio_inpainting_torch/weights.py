@@ -15,7 +15,11 @@ memory.  This module turns such a flat dict into the port's modules:
 :func:`cnn_blstm_flat_variables` goes the other way, so weights trained by
 the port load in the JAX package (``train/checkpoints.py`` writes them).
 :func:`pconv_unet_state_dict` and :func:`pconv_unet_flat_variables` do the
-same for the GAN generator.
+same for the GAN generator (its ``params/`` and ``batch_stats/``, from an
+npz or from a flax train state flattened the same way),
+:func:`discriminator_state_dict` and :func:`discriminator_flat_variables`
+for the spectral-norm PatchGAN, and :func:`vgg19_state_dict` and
+:func:`vgg19_flat_variables` for the VGG19 of the perceptual losses.
 """
 
 from __future__ import annotations
@@ -35,6 +39,10 @@ __all__ = [
     "cnn_blstm_from_numpy",
     "pconv_unet_state_dict",
     "pconv_unet_flat_variables",
+    "discriminator_state_dict",
+    "discriminator_flat_variables",
+    "vgg19_state_dict",
+    "vgg19_flat_variables",
 ]
 
 _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
@@ -185,4 +193,93 @@ def pconv_unet_flat_variables(tensors: Mapping[str, torch.Tensor]) -> Dict[str, 
         else:
             raise ValueError(f"unexpected PConv U-Net tensor {name!r}")
         flat[key] = np.ascontiguousarray(arr)
+    return flat
+
+
+def _hwio_to_oihw(arr: np.ndarray) -> np.ndarray:
+    return arr.transpose(3, 2, 0, 1)
+
+
+def _oihw_to_hwio(tensor: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(tensor.detach().to("cpu", torch.float32).numpy().transpose(2, 3, 1, 0))
+
+
+def discriminator_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """``state_dict`` of :class:`~ml_audio_inpainting_torch.models.discriminator.Discriminator`
+    from flat flax variables: ``params/{name}/kernel`` (HWIO -> OIHW) and
+    ``params/{name}/bias``, and the spectral norm's
+    ``batch_stats/SpectralNorm_{i}/{name}/kernel/u`` and ``.../sigma`` (flax
+    names that collection ``{name}/kernel/u``, with its own slashes) as
+    ``{name}.u`` and ``{name}.sigma``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, value in flat.items():
+        arr = _widen(value)
+        parts = key.split("/")
+        if parts[0] == "params" and len(parts) == 3 and parts[2] in ("kernel", "bias"):
+            name, leaf = parts[1], parts[2]
+            out = f"{name}.{'weight' if leaf == 'kernel' else 'bias'}"
+            if leaf == "kernel":
+                arr = _hwio_to_oihw(arr)
+        elif (parts[0] == "batch_stats" and len(parts) == 5 and parts[1].startswith("SpectralNorm_")
+              and parts[3] == "kernel" and parts[4] in ("u", "sigma")):
+            out = f"{parts[2]}.{parts[4]}"
+        else:
+            raise ValueError(f"unexpected discriminator weight key {key!r}")
+        sd[out] = torch.tensor(arr)
+    return sd
+
+
+def discriminator_flat_variables(tensors: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`discriminator_state_dict`: flat flax variables (f32
+    numpy) from a ``Discriminator`` ``state_dict`` or any subset of it;
+    ``final_conv``'s spectral norm is ``SpectralNorm_{n}`` after the ``n``
+    blocks'."""
+    n_blocks = len({name.split(".")[0] for name in tensors if name.startswith("block")})
+    flat: Dict[str, np.ndarray] = {}
+    for name, value in tensors.items():
+        module, leaf = name.split(".")
+        if leaf == "weight":
+            flat[f"params/{module}/kernel"] = _oihw_to_hwio(value)
+            continue
+        arr = value.detach().to("cpu", torch.float32).numpy().copy()  # keeps sigma 0-d
+        if leaf == "bias":
+            flat[f"params/{module}/bias"] = arr
+        elif leaf in ("u", "sigma"):
+            index = n_blocks if module == "final_conv" else int(module[len("block"):-len("_conv")])
+            flat[f"batch_stats/SpectralNorm_{index}/{module}/kernel/{leaf}"] = arr
+        else:
+            raise ValueError(f"unexpected discriminator tensor {name!r}")
+    return flat
+
+
+def vgg19_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """``state_dict`` of :class:`~ml_audio_inpainting_torch.models.vgg.VGG19Features`
+    (torchvision's ``features.N.weight`` and ``.bias``) from the JAX
+    package's VGG params, flat: ``params/conv{N}/kernel`` (HWIO -> OIHW) and
+    ``params/conv{N}/bias``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        if not (len(parts) == 3 and parts[0] == "params" and parts[1].startswith("conv")
+                and parts[2] in ("kernel", "bias")):
+            raise ValueError(f"unexpected VGG19 weight key {key!r}")
+        arr = _widen(value)
+        index = int(parts[1][len("conv"):])
+        if parts[2] == "kernel":
+            sd[f"features.{index}.weight"] = torch.tensor(_hwio_to_oihw(arr))
+        else:
+            sd[f"features.{index}.bias"] = torch.tensor(arr)
+    return sd
+
+
+def vgg19_flat_variables(tensors: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`vgg19_state_dict`."""
+    flat: Dict[str, np.ndarray] = {}
+    for name, value in tensors.items():
+        _, index, leaf = name.split(".")
+        if leaf == "weight":
+            flat[f"params/conv{index}/kernel"] = _oihw_to_hwio(value)
+        else:
+            flat[f"params/conv{index}/bias"] = np.ascontiguousarray(
+                value.detach().to("cpu", torch.float32).numpy())
     return flat

@@ -49,7 +49,11 @@ from ml_audio_inpainting_torch.models.cnn_blstm import StackedBLSTMCNN
 from ml_audio_inpainting_torch.ops.cuda import lstm_cell
 from ml_audio_inpainting_torch.runtime.inference import make_gan_inpaint_fn
 from ml_audio_inpainting_torch.runtime.serve import make_cnn_runner, make_gan_runner
-from ml_audio_inpainting_torch.runtime.synthetic import gan_config, synthetic_dataset_batch
+from ml_audio_inpainting_torch.runtime.synthetic import (
+    gan_config,
+    speech_like_batch,
+    synthetic_dataset_batch,
+)
 from ml_audio_inpainting_torch.train.cnn_trainer import create_cnn_state, make_cnn_train_step
 from ml_audio_inpainting_torch.utils.config import Config
 from ml_audio_inpainting_torch.weights import cnn_blstm_flat_variables
@@ -886,3 +890,115 @@ def test_codec_round_trip_on_the_cards_machine(cuda_device, tmp_path):
     np.testing.assert_array_equal(got[:, 0], (levels / 32768.0).astype(np.float32))
     wav, _, wav_md5 = audio_io.read_audio(tmp_path / "b.wav")
     assert wav.shape == (80000, 2) and wav_md5 == -1
+
+
+# ------------------------------------------------------------ GAN training
+
+def _tiny_gan_cfg(n_gaps=1):
+    """``tests/test_gan.py::tiny_gan_config``'s sizes, built here (this file
+    imports nothing of the JAX package)."""
+    cfg = gan_config()
+    cfg.data.max_len_s, cfg.data.gap_len_s, cfg.data.train_n_gaps = 1.0, 0.1, n_gaps
+    cfg.model.generator.enc_layer_cfg = [(8, 7, 2), (16, 5, 2), (16, 3, 2)]
+    cfg.model.generator.dec_layer_cfg = [(16, 3, 1), (8, 3, 1)]
+    cfg.model.generator.final_interim_ch = 8
+    cfg.model.discriminator.layer_cfg = [(8, 2), (16, 2)]
+    cfg.training.lambda_vgg_perceptual = cfg.training.lambda_vgg_style = 0.0
+    return cfg
+
+
+def _gan_step_on(device, cfg, dtype=torch.float32, tape=None, replay=False, **kw):
+    """One GAN step from seeded weights on ``device`` in ``dtype``: (metrics,
+    gradients by name, the D state's u and sigma, G's running statistics).
+    With a ``tape``, the step records its kinks' branches into it, or with
+    ``replay`` takes them from it."""
+    import contextlib
+
+    from ml_audio_inpainting_torch.train.gan_trainer import create_gan_states, make_gan_train_step
+    from ml_audio_inpainting_torch.train.recipe import gan_gap_layouts
+    from ml_audio_inpainting_torch.utils.branch_tape import branch_tape
+
+    g, d = create_gan_states(cfg, device="cpu", generator=torch.Generator().manual_seed(2))
+    g.model.to(device=device, dtype=dtype)  # in place: the optimizers keep the parameters
+    d.model.to(device=device, dtype=dtype)
+    audio = torch.tensor(speech_like_batch(np.random.default_rng(3), 2)[:, :cfg.data.max_samples],
+                         device=device, dtype=dtype)
+    gaps = [t.to(device) for t in gan_gap_layouts(torch.Generator().manual_seed(4), cfg, 2)]
+    with contextlib.nullcontext() if tape is None else branch_tape(tape, replay):
+        g, d, m = make_gan_train_step(cfg, **kw)(g, d, audio, *gaps)
+    grads = {f"g.{n}": p.grad.double().cpu() for n, p in g.model.named_parameters()}
+    grads.update({f"d.{n}": p.grad.double().cpu() for n, p in d.model.named_parameters()})
+    state = {f"d.{k}": v.double().cpu() for k, v in d.model.state_dict().items()
+             if k.endswith((".u", ".sigma"))}
+    state.update({f"g.{k}": v.double().cpu() for k, v in g.model.state_dict().items()
+                  if k.endswith(("running_mean", "running_var"))})
+    return {k: float(v) for k, v in m.items()}, grads, state
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_gaps", [1, 4])
+def test_gan_step_on_card_matches_cpu(cuda_device, n_gaps):
+    """The f32 GAN step on the card (TF32 off) against the port's step in
+    f64 on the CPU from the same weights and batch, the f64 step taking the
+    card's branch at every LeakyReLU (``utils/branch_tape.py``): losses
+    rtol 1e-4, each gradient within 1e-3 of its largest entry (the CNN
+    step's bound), D's u and sigma and G's running statistics after the
+    step within 1e-5.  Without the replay two LeakyReLU inputs within f32's
+    rounding of 0 go the other way in f64, and one entry of a BatchNorm
+    bias's gradient lies 1.0e-3 (1 gap) and 1.2e-3 (4 gaps) of the largest
+    from f64 on an H100 (with it, within 8.4e-7); the port's f32 step on
+    that machine's CPU lies as far with 4 gaps
+    (``scripts/torch_gan_step_precision.py --tiny N``)."""
+    cfg = _tiny_gan_cfg(n_gaps)
+    tape = []
+    m_d, g_d, s_d = _gan_step_on(cuda_device, cfg, tape=tape)
+    m_c, g_c, s_c = _gan_step_on(torch.device("cpu"), cfg, torch.float64, tape=tape, replay=True)
+    for k, v in m_c.items():
+        assert abs(m_d[k] - v) <= 1e-4 * abs(v) + 1e-7, (k, m_d[k], v)
+    for name, want in g_c.items():
+        scale = want.abs().max().item()
+        assert (g_d[name] - want).abs().max().item() <= 1e-3 * scale + 1e-12, name
+    for name, want in s_c.items():
+        assert (s_d[name] - want).abs().max().item() <= 1e-5, name
+
+
+@pytest.mark.gpu
+def test_gan_remat_equals_plain_on_card(cuda_device):
+    """``remat`` recomputes G, D and VGG in the backward: on the card the
+    same losses (rtol 1e-6), gradients (1e-5 of each tensor's largest entry:
+    cuDNN may pick another algorithm for a recomputed convolution),
+    spectral-norm state and running statistics (1e-6) as the plain step."""
+    cfg = _tiny_gan_cfg(4)
+    m_p, g_p, s_p = _gan_step_on(cuda_device, cfg)
+    m_r, g_r, s_r = _gan_step_on(cuda_device, cfg, remat=True)
+    for k, v in m_p.items():
+        assert abs(m_r[k] - v) <= 1e-6 * abs(v) + 1e-9, k
+    for name, want in g_p.items():
+        assert (g_r[name] - want).abs().max().item() <= 1e-5 * want.abs().max().item() + 1e-12, name
+    for name, want in s_p.items():
+        assert (s_r[name] - want).abs().max().item() <= 1e-6, name
+
+
+@pytest.mark.gpu
+def test_device_corpus_feed_on_card_keeps_the_order(cuda_device):
+    from ml_audio_inpainting_torch.data.pipeline import (
+        batch_iterator,
+        device_corpus_feed,
+        prefetch_to_device,
+    )
+
+    class Items:
+        def __len__(self):
+            return 13
+
+        def __getitem__(self, i):
+            return np.arange(6, dtype=np.float32) + i
+
+    want = list(batch_iterator(Items(), 4, seed=5, epochs=2))
+    got = list(device_corpus_feed(Items(), 4, seed=5, epochs=2, device=cuda_device))
+    assert len(got) == len(want) == 6
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and np.array_equal(a.cpu().numpy(), b)
+    moved = list(prefetch_to_device(iter(want), device=cuda_device))
+    for a, b in zip(moved, want):
+        assert a.device.type == "cuda" and np.array_equal(a.cpu().numpy(), b)

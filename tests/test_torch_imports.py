@@ -85,7 +85,8 @@ def test_port_package_has_every_slice_module():
         "runtime.serve", "train.features", "train.losses", "train.cnn_trainer",
         "train.checkpoints", "train.recipe", "data.dataset", "ops.pcm", "models.pconv_unet",
         "runtime.transport", "data.multigap", "train.metrics", "train.auditory", "train.peaq",
-        "data.audio_io", "data.probe", "cli.inpaint", "cli.evaluate",
+        "data.audio_io", "data.probe", "cli.inpaint", "cli.evaluate", "models.discriminator",
+        "models.vgg", "train.gan_trainer", "data.pipeline",
     ):
         assert f"ml_audio_inpainting_torch.{mod}" in names
 

@@ -90,6 +90,31 @@ def _inputs(rng, b, f, t, gap=(0.4, 0.55)):
     return x, mask
 
 
+def test_partial_conv_is_exactly_the_bias_where_the_window_is_all_hole():
+    """Where ``updated == 0`` the output is the bias alone and nothing flows
+    back, whatever the convolution left there.  The JAX model's direct
+    convolution of the all-zero window gives an exact 0 (times a ratio of
+    ~1e8 x the window); here the premasked input holds 1e-6 under its hole,
+    standing for the round-off of a convolution algorithm that mixes
+    neighbouring windows (an FFT or Winograd one), which that ratio would
+    make ~1e4."""
+    rng = np.random.default_rng(5)
+    mask = np.ones((2, 1, 17, 23), np.float32)
+    mask[:, :, :, 5:14] = 0.0
+    x = rng.standard_normal((2, 3, 17, 23)).astype(np.float32)
+    x = np.where(mask > 0, x, 1e-6).astype(np.float32)
+    mod = PartialConv(3, 4, 3, 1, use_bias=True, premasked=True)
+    with torch.no_grad():
+        mod.bias.copy_(torch.arange(4.0))
+    out, new_mask = mod(torch.tensor(x), None, torch.tensor(3 * mask))
+    dead = (new_mask == 0).expand_as(out)
+    assert dead.any()
+    bias = mod.bias.detach()[None, :, None, None].expand_as(out)
+    torch.testing.assert_close(out[dead], bias[dead], rtol=0, atol=0)
+    (grad,) = torch.autograd.grad(out[dead].sum(), mod.conv.weight)
+    assert torch.count_nonzero(grad) == 0
+
+
 @pytest.mark.parametrize("features,kernel,stride,c_in", [(6, 7, 2, 2), (5, 3, 1, 9), (4, 5, 2, 3)])
 @pytest.mark.parametrize("mask_kind", ["full", "holes", "premasked"])
 def test_partial_conv_matches_flax(features, kernel, stride, c_in, mask_kind):
