@@ -164,6 +164,27 @@ Phases, each printing one flushed line per step with the seconds since start:
                  with every cast rounded through float8_e5m2, which must
                  fall outside the same bounds; no hand-written kernel
                  launched (the path has none).
+10. classical -- the classical family at the CLI's defaults, built by the
+                 port's ``inpaint`` CLI (``_build_runner``): ``arinpaint``,
+                 ``janssen``, ``segmentation`` (p=512, context 4096,
+                 ``maxit`` 10), ``aspain``, ``sspain``, ``aspain_learned``,
+                 ``sspain_learned`` (100 iterations) and ``sspain_omp`` (30),
+                 then ``--ar-preset tuned`` for arinpaint and janssen at 80 ms
+                 and for janssen at 200 ms (context 16384, max_gap 4096,
+                 banded), each on B=32 synthetic 5 s clips in f32 on the
+                 card: first call s, warm ms, s-audio/s, peak memory, host
+                 syncs in a request (0, or it fails), device operations a
+                 request and the idle share of one traced request.  Checks:
+                 the input outside the gap bit for bit; the same solve in f64
+                 on the card against the port in f64 on the CPU (clip 0);
+                 f32 against f64 on the card, per clip gap SDR; janssen under
+                 torch's global TF32 switch equal to it switched off, and the
+                 switch left as it was.  A quality table (gap SDR, PSM) over
+                 the synthetic clips and the formant FLACs; then the
+                 ``inpaint`` (arinpaint, tuned) and ``evaluate`` (janssen and
+                 arinpaint, tuned) CLIs over the formant FLACs on the card
+                 against the same CLIs on the CPU; no hand-written kernel
+                 launched (the family has none).
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and the script
@@ -264,6 +285,7 @@ from ml_audio_inpainting_torch.utils.branch_tape import branch_tape
 from ml_audio_inpainting_torch.utils.config import Config
 from ml_audio_inpainting_torch.utils.precision import cast_floating, full_f32_convolutions
 from ml_audio_inpainting_torch.weights import load_params_npz
+from scripts.torch_classical_precision import CLASSICAL_RUNS, classical_runner
 from scripts.torch_cnn_serving_profile import busy_us
 
 DEVICE = "cuda"
@@ -1351,8 +1373,9 @@ def _gan_checks(label: str, runner, audio: np.ndarray, audio_d, gs_d, gl_d,
 # ------------------------------------------------------- serving_deployable
 
 
-def _timed_requests(fn, label: str, seconds_of_audio: float) -> tuple:
-    """The first call's seconds, GAN_WARM warm calls (ms and s-audio/s, each
+def _timed_requests(fn, label: str, seconds_of_audio: float,
+                    phase: str = "serving_deployable", warm: int = GAN_WARM) -> tuple:
+    """The first call's seconds, ``warm`` warm calls (ms and s-audio/s, each
     ending in a fetch of what ``fn`` returns), host syncs inside one call,
     and the peak device memory from the first call on.  Returns the numbers
     and the last call's result."""
@@ -1365,7 +1388,7 @@ def _timed_requests(fn, label: str, seconds_of_audio: float) -> tuple:
     fetch(fn())
     first_s = time.perf_counter() - t0
     warm_ms = []
-    for _ in range(GAN_WARM):
+    for _ in range(warm):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
@@ -1381,7 +1404,7 @@ def _timed_requests(fn, label: str, seconds_of_audio: float) -> tuple:
     fetch(out)
     peak = torch.cuda.max_memory_allocated() / 2**20
     rate = seconds_of_audio / (min(warm_ms) / 1e3)
-    log("serving_deployable", f"{label}: first request {first_s:.3f} s; warm requests "
+    log(phase, f"{label}: first request {first_s:.3f} s; warm requests "
                               f"{', '.join(f'{t:.2f}' for t in warm_ms)} ms ({rate:.1f} s-audio/s "
                               f"at the best); host syncs in a request: {len(syncs)} "
                               f"{syncs[:2]}; peak device memory {peak:.1f} MiB")
@@ -2467,6 +2490,245 @@ def phase_gan_training(card: str) -> dict:
     return launches
 
 
+# classical: the card in f64 against the port in f64 on the CPU (clip 0), within
+# 1e-9 of the CPU's largest |sample| in the gap.  Every sum runs in another
+# order; on the CPU a change of one ulp in every input sample moves these
+# solves by at most 2.1e-11 of that peak (segmentation; Janssen 1.8e-12, the
+# rest <= 5e-13: scripts/torch_classical_precision.py), and the port and JAX
+# agree to 1e-11 in f64.
+CLASSICAL_F64_RTOL = 1e-9
+# classical: f32 against f64 on the card, per clip gap SDR over the 32 clips.
+# f32 rounding flips discrete decisions on a few clips (which coefficients a
+# threshold keeps, when a SPAIN loop stops, which system a Janssen iteration
+# solves), so single clips move by up to 0.89 dB (the port on the CPU, the
+# same clips, scripts/torch_classical_precision.py: sspain; on the card
+# segmentation's worst clip moved 1.33 dB in the first run of this phase); the
+# median moves by at most 4e-3 dB on the CPU (janssen), 2.7e-2 dB for
+# segmentation, whose 256 windowed Janssen solves each round in f32.  A fault
+# moves every clip.  Bounds: the median |difference| within 1e-2 dB (1e-1 for
+# janssen and segmentation), every clip within 2 dB.
+CLASSICAL_F32_MEDIAN_DB = {"janssen": 1e-1, "segmentation": 1e-1}
+CLASSICAL_F32_MEDIAN_DB_DEFAULT = 1e-2
+CLASSICAL_F32_MAX_DB = 2.0
+CLASSICAL_WARM = 2
+# classical CLIs, the card against the CPU, both f32: the decoded files within
+# one LSB outside the gap and within 3 LSB or 1e-3 of the gap's peak inside it
+# (the bounds tests/test_torch_classical_cli.py holds the port to JAX with);
+# evaluate's metrics within 2e-3 (arinpaint) and 0.3 (janssen: its f32 system
+# is ill-conditioned, and each f32 solve lies up to 0.15 dB from the f64 one).
+CLASSICAL_CLI_GAP_LSB, CLASSICAL_CLI_GAP_RTOL = 3, 1e-3
+CLASSICAL_EVAL_ATOL = {"arinpaint": 2e-3, "janssen": 0.3}
+
+
+def _classical_runner(model: str, flags: list, device=None):
+    """The solver as the ``inpaint`` CLI builds it, on ``device`` (the card
+    if None)."""
+    return classical_runner(model, flags, str(device or DEVICE))
+
+
+def _trace_request(fn) -> tuple:
+    """(device operations, busy share of the wall time, wall ms) of one
+    ``fn()`` ending in a synchronise, from a ``torch.profiler`` trace of the
+    device's activity (read as Kineto's raw events: building the profiler's
+    event tree takes seconds for the ~80 000 operations of a request)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    spans = [(e.start_ns() / 1e3, e.end_ns() / 1e3) for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    return len(spans), busy_us(spans) / 1e3 / wall_ms, wall_ms
+
+
+def _gap_rel_err(got: torch.Tensor, want: torch.Tensor, gap: torch.Tensor) -> float:
+    g, w = got.cpu()[gap.cpu()], want.cpu()[gap.cpu()]
+    return ((g - w).abs().max() / w.abs().max()).item()
+
+
+def _classical_quality(clean: torch.Tensor, restored: torch.Tensor, gap: torch.Tensor) -> dict:
+    """Gap SDR and PSM means of a batch, and how many clips came out non-finite
+    (their metrics are left out of the means)."""
+    finite = torch.isfinite(restored).all(-1)
+    sdr = metrics.gap_sdr(clean.double(), restored.double(), gap.double())
+    psm = auditory.psm_score(clean, torch.nan_to_num(restored.float()))
+    keep = finite.cpu()
+    return {"gap_sdr_db": sdr.cpu()[keep].mean().item(), "psm": psm.cpu()[keep].mean().item(),
+            "non_finite_clips": int((~keep).sum())}
+
+
+def _classical_solver(card: str, label: str, model: str, flags: list, gap_len: int,
+                      audio: torch.Tensor, flacs: torch.Tensor) -> dict:
+    """One solver of the classical phase: timings, trace, checks, quality."""
+    runner = _classical_runner(model, flags)
+    b, n = audio.shape
+    gs = torch.full((b,), GAP_START, device=DEVICE)
+    gl = torch.full((b,), gap_len, device=DEVICE)
+    valid = gap_mask(n, gs, gl)
+    gap = valid == 0
+    stats, out32 = _timed_requests(lambda: runner(audio, gs, gl), label, b * n / SAMPLE_RATE,
+                                   phase="classical", warm=CLASSICAL_WARM)
+    _check_outside(f"classical {label}", out32, audio, valid)
+    t0 = time.perf_counter()
+    ops, busy, wall_ms = _trace_request(lambda: runner(audio, gs, gl))
+    stats.update(device_ops=ops, idle_share=1.0 - busy, traced_ms=wall_ms,
+                 trace_s=time.perf_counter() - t0)
+
+    # f64 on the card, against f64 on the CPU (clip 0) and against f32 (every clip).
+    audio64 = audio.double()
+    t0 = time.perf_counter()
+    out64 = runner(audio64, gs, gl)
+    torch.cuda.synchronize()
+    stats["f64_ms"] = 1e3 * (time.perf_counter() - t0)
+    _check_outside(f"classical {label} f64", out64, audio64, valid)
+    t0 = time.perf_counter()
+    cpu64 = _classical_runner(model, flags, "cpu")(audio64[:1].cpu(), gs[:1].cpu(), gl[:1].cpu())
+    stats["cpu_f64_clip_s"] = time.perf_counter() - t0
+    stats["f64_card_vs_cpu"] = _gap_rel_err(out64[:1], cpu64, gap[:1])
+    sdr32 = metrics.gap_sdr(audio64, out32.double(), gap.double())
+    sdr64 = metrics.gap_sdr(audio64, out64, gap.double())
+    diff = (sdr32 - sdr64).abs().cpu()
+    stats.update(f32_vs_f64_median_db=diff.median().item(), f32_vs_f64_max_db=diff.max().item())
+    median_bound = CLASSICAL_F32_MEDIAN_DB.get(model, CLASSICAL_F32_MEDIAN_DB_DEFAULT)
+    log("classical", f"{label}: {ops} device operations a request, idle {100 * (1 - busy):.1f} % "
+                     f"of a traced {wall_ms:.1f} ms (trace {stats['trace_s']:.1f} s); f64 "
+                     f"{stats['f64_ms']:.1f} ms; the CPU's f64 clip {stats['cpu_f64_clip_s']:.1f} "
+                     f"s; f64 card vs "
+                     f"CPU (clip 0) {stats['f64_card_vs_cpu']:.3e} of the gap's peak (bound "
+                     f"{CLASSICAL_F64_RTOL}); f32 vs f64 gap SDR |difference| median "
+                     f"{stats['f32_vs_f64_median_db']:.2e} dB (bound {median_bound}), max "
+                     f"{stats['f32_vs_f64_max_db']:.3f} dB (bound {CLASSICAL_F32_MAX_DB}) ({card})")
+    if not stats["f64_card_vs_cpu"] <= CLASSICAL_F64_RTOL:
+        raise AssertionError(f"classical {label}: f64 card and CPU disagree: "
+                             f"{stats['f64_card_vs_cpu']} > {CLASSICAL_F64_RTOL}")
+    if not (stats["f32_vs_f64_median_db"] <= median_bound
+            and stats["f32_vs_f64_max_db"] <= CLASSICAL_F32_MAX_DB):
+        raise AssertionError(f"classical {label}: f32 and f64 gap SDR too far apart: {diff}")
+
+    # Quality, f32 on the card: the synthetic clips and the formant FLACs.
+    fb = flacs.shape[0]
+    fgs = torch.full((fb,), GAP_START, device=DEVICE)
+    fgl = torch.full((fb,), gap_len, device=DEVICE)
+    fvalid = gap_mask(flacs.shape[-1], fgs, fgl)
+    fout = runner(flacs, fgs, fgl)
+    keep = fvalid.bool()
+    if not torch.equal(fout[keep], flacs[keep]):
+        raise AssertionError(f"classical {label}: FLAC output differs from the input outside "
+                             f"the gap")
+    stats["synthetic"] = _classical_quality(audio, out32, 1 - valid)
+    stats["flacs"] = _classical_quality(flacs, fout, 1 - fvalid)
+    return stats
+
+
+def _classical_clis(card: str, work: Path) -> dict:
+    """The inpaint and evaluate CLIs over the formant FLACs on the card
+    against the same CLIs on the CPU."""
+    out = {}
+    argv = ["--model", "arinpaint", "--ar-preset", "tuned", "--input", str(FORMANT_DIR)]
+    walls = {}
+    for where, device in (("card", DEVICE), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        inpaint.main([*argv, "--output", str(work / where), "--device", device])
+        walls[where] = time.perf_counter() - t0
+    worst_out, worst_gap = 0.0, 0.0
+    gap = slice(GAP_START, GAP_START + GAP_LEN)
+    for f in sorted((work / "cpu").glob("*.flac")):
+        got, want = read_audio(work / "card" / f.name)[0][:, 0], read_audio(f)[0][:, 0]
+        outside = np.ones(len(want), bool)
+        outside[gap] = False
+        d_out = np.abs(got - want)[outside].max() * 32768
+        d_gap = np.abs(got - want)[gap].max()
+        bound = max(CLASSICAL_CLI_GAP_LSB / 32768, CLASSICAL_CLI_GAP_RTOL * np.abs(want[gap]).max())
+        if not (d_out <= 1.0001 and d_gap <= bound * 1.0001):
+            raise AssertionError(f"classical inpaint CLI: {f.name} card vs CPU {d_out} LSB outside "
+                                 f"the gap, {d_gap} inside (bound {bound})")
+        worst_out, worst_gap = max(worst_out, float(d_out)), max(worst_gap, float(d_gap) * 32768)
+    out["inpaint"] = {"wall_s": dict(walls), "lsb_outside": worst_out, "lsb_gap": worst_gap}
+    log("classical", f"inpaint --model arinpaint --ar-preset tuned, 3 FLACs: card {walls['card']:.2f}"
+                     f" s, CPU {walls['cpu']:.2f} s; card vs CPU {worst_out:.0f} LSB outside the "
+                     f"gap, {worst_gap:.0f} LSB inside")
+
+    argv = ["--models", "janssen", "arinpaint", "--ar-preset", "tuned", "--input", str(FORMANT_DIR)]
+    results = {}
+    for where, device in (("card", DEVICE), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        evaluate.main([*argv, "--output-json", str(work / f"{where}.json"), "--device", device])
+        walls[f"evaluate_{where}"] = time.perf_counter() - t0
+        results[where] = json.loads((work / f"{where}.json").read_text())
+    if results["card"]["condition"] != results["cpu"]["condition"] or "phase" in results["card"][
+            "condition"]:
+        raise AssertionError("classical evaluate CLI: the conditions differ or carry a phase")
+    worst = {}
+    for model, bound in CLASSICAL_EVAL_ATOL.items():
+        for key in METRIC_KEYS:
+            d = np.abs(np.subtract(results["card"]["results"][model][key],
+                                   results["cpu"]["results"][model][key])).max()
+            worst[f"{model} {key}"] = float(d)
+            if not d <= bound + 1e-9:
+                raise AssertionError(f"classical evaluate CLI: {model} {key} card vs CPU {d} > "
+                                     f"{bound}")
+    out["evaluate"] = {"wall_s": {k: v for k, v in walls.items() if k.startswith("evaluate")},
+                       "worst": worst, "card": results["card"]["results"]}
+    log("classical", f"evaluate --models janssen arinpaint --ar-preset tuned, 3 FLACs: card "
+                     f"{walls['evaluate_card']:.2f} s, CPU {walls['evaluate_cpu']:.2f} s; card vs "
+                     f"CPU worst {json.dumps(worst)}")
+    return out
+
+
+def phase_classical(card: str) -> dict:
+    """The classical family on the card through the inpaint CLI's runners and
+    both CLIs; returns the launch counts of the hand-written kernels (all 0:
+    the family has none)."""
+    _reset_counts()
+    audio = torch.tensor(synthetic_dataset_batch(B), device=DEVICE)
+    files = sorted(FORMANT_DIR.glob("*.flac"))
+    flacs = torch.tensor(evaluate.load_clean(files, Config()), device=DEVICE)
+    log("classical", f"B={B} synthetic 5 s clips, gap at {GAP_START} samples; {len(files)} "
+                     f"formant FLACs; f32 solves, checks in f64 ({card})")
+    summary = {"card": card, "batch": B}
+    for label, model, flags, gap_len in CLASSICAL_RUNS:
+        summary[label] = _classical_solver(card, label, model, flags, gap_len, audio, flacs)
+
+    # The solvers set full-f32 products in a scope of their own: under torch's
+    # global TF32 switch janssen gives the same samples, and the switch stays on.
+    runner = _classical_runner("janssen", [])
+    gs = torch.full((B,), GAP_START, device=DEVICE)
+    gl = torch.full((B,), GAP_LEN, device=DEVICE)
+    want = runner(audio, gs, gl)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = runner(audio, gs, gl)
+        if not torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("classical: janssen turned the global TF32 switch off")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if not torch.equal(got, want):
+        raise AssertionError("classical: janssen under the global TF32 switch differs from full f32")
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_classical_"))
+    try:
+        summary["clis"] = _classical_clis(card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    log("classical", "quality (f32 on the card; means over finite clips), gap SDR dB / PSM:")
+    for label, *_ in CLASSICAL_RUNS:
+        syn, fl = summary[label]["synthetic"], summary[label]["flacs"]
+        log("classical", f"{label:>22} | synthetic {syn['gap_sdr_db']:7.3f} / {syn['psm']:.4f}"
+                         f" ({syn['non_finite_clips']} non-finite) | FLACs {fl['gap_sdr_db']:7.3f}"
+                         f" / {fl['psm']:.4f} ({fl['non_finite_clips']} non-finite)")
+    launches = _counts()
+    if any(launches.values()):
+        raise AssertionError(f"classical launched a hand-written kernel: {launches}")
+    summary["launches"] = launches
+    log("classical", f"summary ({card}): {json.dumps(summary)}")
+    return launches
+
+
 def main() -> int:
     smi = phase_device()
     card = f"{torch.cuda.get_device_name(0)}, power limit {smi.split(',')[-1].strip()}"
@@ -2482,6 +2744,7 @@ def main() -> int:
     paths["training"] = phase_training(card)
     paths["training_bf16"] = phase_training_bf16(card)
     paths["gan_training"] = phase_gan_training(card)
+    paths["classical"] = phase_classical(card)
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()
                                  if counts[k["name"]]}

@@ -1,6 +1,6 @@
-"""Evaluation CLI: the neural models' quality on a set of clips (port of
-``ml_audio_inpainting_tpu/cli/evaluate.py``, its ``gan`` and ``cnn_blstm``
-families)::
+"""Evaluation CLI: the models' quality on a set of clips (port of
+``ml_audio_inpainting_tpu/cli/evaluate.py``: the ``gan`` and ``cnn_blstm``
+families and the classical solvers)::
 
     python -m ml_audio_inpainting_torch.cli.evaluate --models gan cnn_blstm \\
         --checkpoint results/checkpoints/gan_formant_v2_r2.npz \\
@@ -17,9 +17,13 @@ clips as FLAC.
 
 ``--n-gaps > 1`` draws its layout from a ``torch.Generator`` seeded 7
 (``data/multigap.py::random_multi_gap_layout``); the JAX CLI draws it from
-``jax.random.PRNGKey(7)``, so the two place the gaps differently.  Unported
-models and options raise ``SystemExit`` naming their ROADMAP item
-(``cli/inpaint.py``), as do ``--golden`` and ``--adapt-steps``.
+``jax.random.PRNGKey(7)``, so the two place the gaps differently.  The
+neural models restore every gap of a clip in one mask-driven pass, the
+classical solvers one gap after another, left to right.  The ``phase`` of
+the JSON's condition is written only when a neural model is evaluated (the
+classical solvers have no phase regime).  Unported models and options raise
+``SystemExit`` naming their ROADMAP item (``cli/inpaint.py``), as do
+``--golden`` and ``--adapt-steps``.
 """
 
 from __future__ import annotations
@@ -42,7 +46,9 @@ MIN_DIST_SAMPLES = 5000
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Evaluate inpainting models")
     p.add_argument("--models", nargs="+", required=True,
-                   help="gan and/or cnn_blstm (the JAX CLI's other models raise)")
+                   help="gan, cnn_blstm and the classical solvers (janssen, arinpaint, "
+                        "segmentation, aspain, sspain, sspain_omp, aspain_learned, "
+                        "sspain_learned); the JAX CLI's other models raise")
     p.add_argument("--gan-checkpoint", type=str,
                    default="results/checkpoints/gan_formant_v2_r2.npz",
                    help="GAN weights npz for the refiner model")
@@ -67,7 +73,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--ar-blend", choices=["cos2", "linear", "sigmoid"], default="cos2")
     p.add_argument("--ar-blend-param", type=float, default=0.0)
     p.add_argument("--maxit", type=int, default=10)
-    p.add_argument("--ar-preset", choices=["default", "tuned"], default="default")
+    p.add_argument("--ar-preset", choices=["default", "tuned"], default="default",
+                   help="'tuned' applies the measured per-gap-length configurations of "
+                        "arinpaint and janssen (classical/presets.py), picked once from the "
+                        "nominal --gap-len")
     p.add_argument("--ar-method", choices=["lpc", "arburg"], default="lpc")
     p.add_argument("--mode", choices=["parity", "enhanced"], default="parity")
     p.add_argument("--infer-dtype", choices=["f32", "bf16"], default="f32",
@@ -147,10 +156,18 @@ def score(clean: torch.Tensor, restored: torch.Tensor, gap: torch.Tensor) -> Dic
 
 
 def restore(args, runner, clean: torch.Tensor, layout: dict) -> torch.Tensor:
-    """One model's ``(B, S)`` restoration of ``clean`` on the device: every
-    gap of a clip in one mask-driven pass with ``--n-gaps > 1``."""
+    """One model's ``(B, S)`` restoration of ``clean`` on the device; with
+    ``--n-gaps > 1`` every gap of a clip in one mask-driven pass (neural
+    models) or one gap after another, left to right (classical solvers)."""
+    from ml_audio_inpainting_torch.cli.inpaint import CLASSICAL
+
     if args.n_gaps <= 1:
         return runner(clean, layout["gs"], layout["gl"])
+    if args.model in CLASSICAL:
+        restored = clean * layout["valid"]
+        for g in range(args.n_gaps):
+            restored = runner(restored, layout["starts"][:, g], layout["lengths"][:, g])
+        return restored
     from ml_audio_inpainting_torch.runtime.inference import (
         make_cnn_inpaint_mask_fn,
         make_gan_inpaint_mask_fn,
@@ -252,8 +269,9 @@ def main(argv=None) -> None:
             "gap_start_s": args.gap_start,
             "gap_len_s": args.gap_len,
             "files": [f.name for f in files],
-            "phase": args.phase,
         }
+        if any(m in ("gan", "cnn_blstm") for m in args.models):
+            condition["phase"] = args.phase  # the classical solvers ignore it
         if args.n_gaps > 1:
             condition.update({
                 "n_gaps": args.n_gaps,

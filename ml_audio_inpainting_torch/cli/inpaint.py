@@ -1,22 +1,27 @@
-"""Inference CLI: inpaint FLAC/WAV files with a neural model (port of
-``ml_audio_inpainting_tpu/cli/inpaint.py``, its ``gan`` and ``cnn_blstm``
-families)::
+"""Inference CLI: inpaint FLAC/WAV files (port of
+``ml_audio_inpainting_tpu/cli/inpaint.py``: the ``gan`` and ``cnn_blstm``
+families and the classical solvers)::
 
     python -m ml_audio_inpainting_torch.cli.inpaint --model gan \\
         --checkpoint results/checkpoints/gan_formant_v2_r2.npz --mode enhanced \\
         --phase extrapolate --input in.flac --output out.flac [--device cpu]
+    python -m ml_audio_inpainting_torch.cli.inpaint --model arinpaint --ar-preset tuned \\
+        --input dir/ --output outdir/ [--device cpu]
 
 It takes the JAX CLI's flags and ``--device`` (``cuda`` unless the caller
-asks for ``cpu``).  Weights are exported ``.npz`` files.  What the port does
-not have yet raises ``SystemExit`` naming the ROADMAP item that ports it: the
-``refiner``, ``cnn_phase[_anchored]`` and classical models, ``--ar-preset
-tuned``, and a checkpoint that is an orbax directory or a reference ``.pt``
+asks for ``cpu``).  Weights are exported ``.npz`` files; the classical
+solvers (``janssen``, ``arinpaint``, ``segmentation``, ``aspain``,
+``sspain``, ``sspain_omp``, ``aspain_learned``, ``sspain_learned``) need
+none.  What the port does not have yet raises ``SystemExit`` naming the
+ROADMAP item that ports it: the ``refiner`` and ``cnn_phase[_anchored]``
+models, and a checkpoint that is an orbax directory or a reference ``.pt``
 (or none: the JAX CLI then serves fresh initial weights).
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 from pathlib import Path
 from typing import List
 
@@ -33,12 +38,11 @@ UNPORTED_MODELS = {
     "refiner": "ROADMAP Queue A item 6 (refiner, adaptation and soups)",
     "cnn_phase": "ROADMAP Queue A item 4 (the phase-mode CNN)",
     "cnn_phase_anchored": "ROADMAP Queue A item 4 (the phase-mode CNN)",
-    **{m: "ROADMAP Queue A item 5 (the classical family)" for m in CLASSICAL},
 }
 CHECKPOINT_ITEM = ("ROADMAP Queue A item 4 (a CheckpointManager counterpart for orbax "
                    "directories and fresh initial weights; models/port_torch.py for .pt files)")
 
-__all__ = ["build_argparser", "main", "check_ported", "route"]
+__all__ = ["build_argparser", "main", "check_ported", "route", "apply_preset"]
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -77,14 +81,21 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="test-time ensemble of N sub-hop shifts, averaged inside the gap "
                         "(1 = off)")
     p.add_argument("--ar-order", type=int, default=512)
-    p.add_argument("--ar-context", type=int, default=4096)
-    p.add_argument("--ar-blend", choices=["cos2", "linear", "sigmoid"], default="cos2")
-    p.add_argument("--ar-blend-param", type=float, default=0.0)
+    p.add_argument("--ar-context", type=int, default=4096,
+                   help="AR fit context samples per side (arinpaint.m's maxlen)")
+    p.add_argument("--ar-blend", choices=["cos2", "linear", "sigmoid"], default="cos2",
+                   help="arinpaint's forward/backward crossfade (cos2 = the reference's)")
+    p.add_argument("--ar-blend-param", type=float, default=0.0,
+                   help="floor c for linear, steepness k for sigmoid (0 = family default)")
     p.add_argument("--maxit", type=int, default=10)
-    p.add_argument("--ar-preset", choices=["default", "tuned"], default="default")
+    p.add_argument("--ar-preset", choices=["default", "tuned"], default="default",
+                   help="'tuned' applies the measured per-gap-length configurations of "
+                        "arinpaint and janssen (classical/presets.py) over the --ar-* flags")
     p.add_argument("--ar-method", choices=["lpc", "arburg"], default="lpc")
     p.add_argument("--batch-size", type=int, default=8)
-    p.add_argument("--basis", type=str, default=None)
+    p.add_argument("--basis", type=str, default=None,
+                   help="npz file with a unitary 'basis' matrix for the learned-SPAIN "
+                        "solvers (identity when omitted)")
     p.add_argument("--longform", action="store_true",
                    help="inpaint audio of any duration: overlapping model windows, "
                         "overlap-added (runtime/longform.py); the gap may be anywhere")
@@ -101,16 +112,15 @@ def _collect(inp: Path) -> List[Path]:
 
 
 def check_ported(models, args) -> None:
-    """Raise ``SystemExit`` for a model or option this slice does not port."""
+    """Raise ``SystemExit`` for a model or option the port does not have
+    yet.  The classical solvers read no checkpoint."""
     for m in models:
         if m in UNPORTED_MODELS:
             raise SystemExit(f"--model {m} is not ported to ml_audio_inpainting_torch yet: "
                              f"{UNPORTED_MODELS[m]}")
-    if args.ar_preset == "tuned":
-        raise SystemExit("--ar-preset tuned is not ported to ml_audio_inpainting_torch yet: "
-                         "ROADMAP Queue A item 5 (the classical family)")
     ckpt = args.checkpoint
-    if ckpt is None or not str(ckpt).endswith(".npz"):
+    if any(m not in CLASSICAL for m in models) and (ckpt is None
+                                                    or not str(ckpt).endswith(".npz")):
         raise SystemExit(f"--checkpoint {ckpt}: the port serves exported .npz weights only; "
                          f"the rest waits for {CHECKPOINT_ITEM}")
 
@@ -157,6 +167,8 @@ def main(argv=None) -> None:
         return out_path / f"{f.stem}_{args.model}_inpainted.flac" if out_is_dir else out_path
 
     if args.longform:
+        if not hasattr(run_fn, "inpaint_fn"):
+            raise SystemExit("--longform requires a neural model (gan/cnn_blstm)")
         from ml_audio_inpainting_torch.data.audio_io import read_audio, resample
         from ml_audio_inpainting_torch.runtime.longform import longform_inpaint
 
@@ -196,8 +208,12 @@ def _build_runner(args, cfg):
     from ml_audio_inpainting_torch.utils.precision import full_f32_convolutions
 
     check_ported([args.model], args)
+    if args.ar_preset == "tuned":
+        apply_preset(args)
     if args.infer_dtype == "bf16" and args.model != "gan":
         raise SystemExit("--infer-dtype bf16 is supported for --model gan only")
+    if args.model in CLASSICAL:
+        return _build_classical_runner(args, cfg)
     device = args.device
     compute_dtype = torch.bfloat16 if args.infer_dtype == "bf16" else None
     if args.model == "gan":
@@ -229,6 +245,95 @@ def _build_runner(args, cfg):
     runner.model = model
     runner.cfg = cfg
     runner.compute_dtype = compute_dtype
+    return runner
+
+
+def apply_preset(args) -> None:
+    """``--ar-preset tuned``: set the measured configuration of ``args.model``
+    for ``args.gap_len`` on ``args`` (over any ``--ar-*``/``--maxit`` given:
+    the preset is the measured choice) and say on stderr what it set.  Only
+    ``arinpaint`` and ``janssen`` have presets."""
+    from ml_audio_inpainting_torch.classical.presets import (
+        tuned_arinpaint_preset,
+        tuned_janssen_preset,
+    )
+
+    picker = {"arinpaint": tuned_arinpaint_preset, "janssen": tuned_janssen_preset}.get(args.model)
+    if picker is None:
+        return
+    overrides = picker(float(args.gap_len))
+    if overrides:
+        print(f"--ar-preset tuned ({args.model}, gap {float(args.gap_len):.3f}s): applying "
+              "measured overrides " + ", ".join(f"{k}={v}" for k, v in overrides.items()),
+              file=sys.stderr)
+    for k, v in overrides.items():
+        setattr(args, k, v)
+
+
+def _build_classical_runner(args, cfg):
+    """The classical solver ``args.model`` over a batch, with the JAX CLI's
+    settings: ``max_gap`` the next power of two of the gap, the SPAIN
+    solvers at least 100 iterations (``sspain_omp`` 30), the learned ones on
+    ``cfg``'s STFT with ``--basis`` or the identity.  ``runner(audio, gs,
+    gl)`` zeroes each gap and solves on ``args.device``, in ``audio``'s
+    floating dtype (f32 from numpy)."""
+    from ml_audio_inpainting_torch.ops.gaps import gap_mask
+
+    device = args.device
+    max_gap = 1 << (int(args.gap_len * cfg.data.sample_rate) - 1).bit_length()
+    m = args.model
+    if m == "janssen":
+        from ml_audio_inpainting_torch.classical.janssen import janssen_gapwise
+
+        def solve(x, mask, gs, gl):
+            return janssen_gapwise(x, mask, gs, gl, p=args.ar_order, maxit=args.maxit,
+                                   method=args.ar_method, max_gap=max_gap,
+                                   context=args.ar_context)
+    elif m == "arinpaint":
+        from ml_audio_inpainting_torch.classical.arinpaint import arinpaint
+
+        def solve(x, mask, gs, gl):
+            return arinpaint(x, mask, gs, gl, order=args.ar_order, max_gap=max_gap,
+                             context=args.ar_context, method=args.ar_method,
+                             blend=args.ar_blend, blend_param=args.ar_blend_param)
+    elif m == "segmentation":
+        from ml_audio_inpainting_torch.classical.ola import segmentation_inpaint
+
+        def solve(x, mask, gs, gl):
+            return segmentation_inpaint(x, mask, gs, gl, p=args.ar_order, maxit=args.maxit,
+                                        method=args.ar_method, max_gap=max_gap)
+    elif m in ("aspain_learned", "sspain_learned"):
+        from ml_audio_inpainting_torch.classical.basisopt import aspain_learned, sspain_learned
+
+        spec = cfg.data.spectrogram
+        if args.basis:
+            basis = torch.from_numpy(np.load(args.basis)["basis"]).to(torch.complex64)
+        else:
+            basis = torch.eye(spec.freq_bins, dtype=torch.complex64)
+        basis = basis.to(device)
+        core = aspain_learned if m == "aspain_learned" else sspain_learned
+
+        def solve(x, mask, gs, gl):
+            return core(x, mask, basis, maxit=max(args.maxit, 100), n_fft=spec.n_fft,
+                        hop_length=spec.hop_length, win_length=spec.win_length)
+    else:
+        from ml_audio_inpainting_torch.classical.spain import spain_inpaint
+
+        spain_maxit = max(args.maxit, 30 if m == "sspain_omp" else 100)
+
+        def solve(x, mask, gs, gl):
+            return spain_inpaint(x, mask, gs, gl, algorithm=m, maxit=spain_maxit,
+                                 max_gap=max_gap)
+
+    def runner(audio, gap_start, gap_len) -> torch.Tensor:
+        if not torch.is_tensor(audio):
+            audio = torch.as_tensor(audio, dtype=torch.float32)
+        audio = audio.to(device)
+        gs = torch.as_tensor(gap_start, dtype=torch.int64, device=device)
+        gl = torch.as_tensor(gap_len, dtype=torch.int64, device=device)
+        mask = gap_mask(audio.shape[-1], gs, gl, dtype=audio.dtype)
+        return solve(audio * mask, mask, gs, gl)
+
     return runner
 
 

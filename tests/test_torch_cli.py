@@ -382,9 +382,7 @@ def _inpaint_args(narrow, *extra, model="gan"):
             "--output", "unused", *extra]
 
 
-@pytest.mark.parametrize("model", ["refiner", "cnn_phase", "cnn_phase_anchored", "janssen",
-                                   "arinpaint", "segmentation", "aspain", "sspain", "sspain_omp",
-                                   "aspain_learned", "sspain_learned"])
+@pytest.mark.parametrize("model", ["refiner", "cnn_phase", "cnn_phase_anchored"])
 def test_unported_models_raise(narrow, model):
     with pytest.raises(SystemExit, match="ROADMAP Queue A item"):
         inpaint.main(["--model", model, "--checkpoint", narrow["gan"]["checkpoint"],
@@ -405,7 +403,6 @@ def test_unported_checkpoints_raise(narrow, tmp_path, checkpoint):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--ar-preset", "tuned"], "ROADMAP Queue A item 5"),
     (["--infer-dtype", "bf16"], "gan only"),
 ])
 def test_unported_inpaint_options_raise(narrow, extra, match):
@@ -416,7 +413,6 @@ def test_unported_inpaint_options_raise(narrow, extra, match):
 @pytest.mark.parametrize("extra,match", [
     (["--golden", "somewhere"], "reference"),
     (["--adapt-steps", "5"], "ROADMAP Queue A item 6"),
-    (["--ar-preset", "tuned"], "ROADMAP Queue A item 5"),
 ])
 def test_unported_evaluate_options_raise(narrow, extra, match):
     with pytest.raises(SystemExit, match=match):

@@ -1002,3 +1002,103 @@ def test_device_corpus_feed_on_card_keeps_the_order(cuda_device):
     moved = list(prefetch_to_device(iter(want), device=cuda_device))
     for a, b in zip(moved, want):
         assert a.device.type == "cuda" and np.array_equal(a.cpu().numpy(), b)
+
+
+# The classical solvers: the same port code on the card and on the CPU, in f64
+# within 1e-9 of the CPU's largest |sample| in the gaps (every sum in another
+# order; measured 1e-12 between the port and JAX on the CPU), and with no host
+# sync inside a solve.
+
+
+def _classical_inputs(device, dtype, n=8000):
+    sig = speech_like_batch(np.random.default_rng(17), 3, n / 16000).astype(np.float64)
+    gs = np.array([3000, 100, 7900])
+    gl = np.array([320, 320, 320])
+    mask = np.ones_like(sig)
+    for i, (s, l) in enumerate(zip(gs, gl)):
+        mask[i, s : s + l] = 0.0
+    return [torch.tensor(a, device=device, dtype=t) for a, t in
+            ((sig * mask, dtype), (mask, dtype), (gs, torch.int64), (gl, torch.int64))]
+
+
+def _classical_solvers():
+    from ml_audio_inpainting_torch.classical.arinpaint import arinpaint
+    from ml_audio_inpainting_torch.classical.basisopt import aspain_learned
+    from ml_audio_inpainting_torch.classical.janssen import janssen_gapwise
+    from ml_audio_inpainting_torch.classical.ola import segmentation_inpaint
+    from ml_audio_inpainting_torch.classical.spain import spain_inpaint
+
+    return {
+        "arinpaint": lambda *a: arinpaint(*a, order=64, context=1024, max_gap=512),
+        "janssen_dense": lambda *a: janssen_gapwise(*a, p=32, maxit=3, max_gap=512,
+                                                    context=1024, solver="dense"),
+        "janssen_banded": lambda *a: janssen_gapwise(*a, p=32, maxit=3, max_gap=512,
+                                                     context=1024),
+        "segmentation": lambda *a: segmentation_inpaint(*a, p=32, maxit=2, max_gap=512),
+        "aspain": lambda *a: spain_inpaint(*a, algorithm="aspain", maxit=30, max_gap=512),
+        "sspain_omp": lambda *a: spain_inpaint(*a, algorithm="sspain_omp", maxit=4,
+                                               max_gap=512),
+        "aspain_learned": lambda x, m, gs, gl: aspain_learned(
+            x, m, torch.eye(257, dtype=torch.complex64, device=x.device), maxit=30, n_fft=512,
+            hop_length=192, win_length=384),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["arinpaint", "janssen_dense", "janssen_banded",
+                                    "segmentation", "aspain", "sspain_omp", "aspain_learned"])
+def test_classical_solver_on_card_matches_cpu_f64(cuda_device, solver):
+    fn = _classical_solvers()[solver]
+    card_in = _classical_inputs(cuda_device, torch.float64)
+    want = fn(*_classical_inputs("cpu", torch.float64))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fn(*card_in)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got.device.type == "cuda" and got.dtype == torch.float64
+    gap = card_in[1].cpu() == 0
+    got = got.cpu()
+    assert (got[gap] - want[gap]).abs().max() <= 1e-9 * want[gap].abs().max()
+    assert torch.equal(got[~gap], card_in[0].cpu()[~gap])
+
+
+@pytest.mark.gpu
+def test_classical_linalg_on_card_matches_cpu_f64(cuda_device):
+    from ml_audio_inpainting_torch.ops import linalg
+
+    x = torch.tensor(speech_like_batch(np.random.default_rng(3), 4, 0.25), dtype=torch.float64)
+    for fn in (linalg.lpc, linalg.arburg):
+        want = fn(x, 64)
+        got = fn(x.to(cuda_device), 64).cpu()
+        assert (got - want).abs().max() <= 1e-9 * want.abs().max()
+    q, nb = 16, 3
+    D = torch.eye(q, dtype=torch.float64).repeat(2, nb, 1, 1) * 4
+    D[1, 1] = -D[1, 1]  # the second system's second block is indefinite
+    E = torch.full((2, nb, q, q), 0.01, dtype=torch.float64)
+    r = torch.ones(2, nb * q, dtype=torch.float64)
+    want, want_ok = linalg.block_tridiag_cholesky_solve(D, E, r)
+    got, ok = linalg.block_tridiag_cholesky_solve(*(t.to(cuda_device) for t in (D, E, r)))
+    assert ok.cpu().tolist() == want_ok.tolist() == [True, False]
+    assert (got.cpu() - want).abs().max() <= 1e-9 * want.abs().max()
+
+
+@pytest.mark.gpu
+def test_classical_cli_on_card_matches_cpu(cuda_device, tmp_path):
+    from ml_audio_inpainting_torch.cli import inpaint
+    from ml_audio_inpainting_torch.data.audio_io import read_audio
+
+    common = ["--model", "arinpaint", "--ar-preset", "tuned", "--input",
+              os.path.join(REPO, "results", "formant_corpus_samples")]
+    inpaint.main([*common, "--output", str(tmp_path / "card")])
+    inpaint.main([*common, "--output", str(tmp_path / "cpu"), "--device", "cpu"])
+    for f in sorted((tmp_path / "cpu").glob("*.flac")):
+        got, want = read_audio(tmp_path / "card" / f.name)[0], read_audio(f)[0]
+        # f32 on both: one LSB outside the gap (the peak's rounding), and the
+        # f32 Levinson of order 512 within 1e-3 of the gap's peak inside it.
+        gap = slice(32000, 33280)
+        outside = np.ones(len(want), bool)
+        outside[gap] = False
+        assert np.abs(got - want)[outside].max() <= 1.0001 / 32768
+        assert np.abs(got - want)[gap].max() <= max(3 / 32768, 1e-3 * np.abs(want[gap]).max())

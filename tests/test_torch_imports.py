@@ -86,7 +86,10 @@ def test_port_package_has_every_slice_module():
         "train.checkpoints", "train.recipe", "data.dataset", "ops.pcm", "models.pconv_unet",
         "runtime.transport", "data.multigap", "train.metrics", "train.auditory", "train.peaq",
         "data.audio_io", "data.probe", "cli.inpaint", "cli.evaluate", "models.discriminator",
-        "models.vgg", "train.gan_trainer", "data.pipeline",
+        "models.vgg", "train.gan_trainer", "data.pipeline", "ops.linalg", "classical",
+        "classical.arinpaint", "classical.presets", "classical.janssen", "classical.ola",
+        "classical.support", "classical.spain", "classical.basisopt", "classical._slices",
+        "cli.ar_benchmark",
     ):
         assert f"ml_audio_inpainting_torch.{mod}" in names
 
