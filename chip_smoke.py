@@ -164,6 +164,34 @@ Phases, each printing one flushed line per step with the seconds since start:
                  with every cast rounded through float8_e5m2, which must
                  fall outside the same bounds; no hand-written kernel
                  launched (the path has none).
+9b. training_cli -- the training CLI (``cli/train.py``) in-process on the
+                 card: the CNN+BiLSTM production recipe
+                 (``b128_recipe_config`` as a JSON ``--config``, bf16,
+                 B=128 x 3 gaps, the device feed, EMA 0.999) over a 128-clip
+                 formant_v2 corpus for 8 steps with a 32-clip probe every 4
+                 and saves at steps 4 and 8: 3 bf16 launches of each kernel
+                 a step and 3 f32 ``lstm_fwd`` a probe, finite losses, the
+                 checkpoints and ``best_inference.npz`` where the intervals
+                 put them, 0 host syncs in the steps after which no interval
+                 work ran; ``inpaint --checkpoint best_inference.npz`` equal,
+                 bit for bit, to a runner of the restored best state; the
+                 saved state restored bit for bit, one step from it equal to
+                 one step from the state in memory (deterministic cuDNN),
+                 and ``--resume-from`` one step on.  The phase-mode CNN,
+                 anchored, at ``configs/cnn_blstm.yaml``'s values (1 clip x
+                 25 variants, f32): step 0 plain and anchored on the card
+                 against f64 on the CPU, 3 steps through the CLI (3 f32
+                 launches a step), then its checkpoint directory served by
+                 ``inpaint`` and ``evaluate`` (``cnn_phase_anchored``) on
+                 the card against the CPU over 4 synthetic FLACs and the
+                 formant FLACs.  Seeded reference-layout ``.pt`` files (full
+                 width, and the global-pool lineage at hidden 64) through
+                 ``inpaint``, card against CPU.  The GAN recipe
+                 (``gan_recipe_config``, bf16, B=32, EMA) for 6 steps: a
+                 sample FLAC, ``{g, d}`` restored bit for bit, no
+                 hand-written kernel.  Prints the CLI's warm step against
+                 the bare steps of ``training_bf16`` and ``gan_training``,
+                 save and restore seconds and MB, and the probe's seconds;
 10. classical -- the classical family at the CLI's defaults, built by the
                  port's ``inpaint`` CLI (``_build_runner``): ``arinpaint``,
                  ``janssen``, ``segmentation`` (p=512, context 4096,
@@ -196,6 +224,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -230,11 +259,14 @@ from ml_audio_inpainting_torch.ops.cuda.lstm_cell import (
     lstm_recurrence_backward_reference,
 )
 from ml_audio_inpainting_torch.cli import evaluate, inpaint
+from ml_audio_inpainting_torch.cli import train as train_cli
 from ml_audio_inpainting_torch.data import audio_io
 from ml_audio_inpainting_torch.data.audio_io import read_audio, save_audio
 from ml_audio_inpainting_torch.data.dataset import FormantSpeechDataset
 from ml_audio_inpainting_torch.data.multigap import multi_gap_mask
 from ml_audio_inpainting_torch.data.pipeline import device_corpus_feed
+from ml_audio_inpainting_torch.models.build import build_model
+from ml_audio_inpainting_torch.models.port_torch import seeded_reference_cnn_state_dict
 from ml_audio_inpainting_torch.models.vgg import vgg19_params
 from ml_audio_inpainting_torch.ops import masking
 from ml_audio_inpainting_torch.ops.gaps import frame_mask_from_interval, gap_mask
@@ -243,6 +275,7 @@ from ml_audio_inpainting_torch.ops.pcm import to_pcm16
 from ml_audio_inpainting_torch.ops.phase import window_clear_frame_mask
 from ml_audio_inpainting_torch.ops.stft import stft
 from ml_audio_inpainting_torch.runtime.inference import (
+    make_cnn_inpaint_fn,
     make_cnn_inpaint_mask_fn,
     make_gan_inpaint_fn,
     make_gan_inpaint_mask_fn,
@@ -265,7 +298,11 @@ from ml_audio_inpainting_torch.runtime.synthetic import (
     synthetic_dataset_batch,
 )
 from ml_audio_inpainting_torch.train import auditory, gan_trainer, metrics, peaq
-from ml_audio_inpainting_torch.train.checkpoints import export_params_npz
+from ml_audio_inpainting_torch.train.checkpoints import (
+    CheckpointManager,
+    export_params_npz,
+    state_tree,
+)
 from ml_audio_inpainting_torch.train.cnn_trainer import create_cnn_state, make_cnn_train_step
 from ml_audio_inpainting_torch.train.gan_trainer import (
     SCOPES,
@@ -282,9 +319,9 @@ from ml_audio_inpainting_torch.train.recipe import (
     recipe_config,
 )
 from ml_audio_inpainting_torch.utils.branch_tape import branch_tape
-from ml_audio_inpainting_torch.utils.config import Config
+from ml_audio_inpainting_torch.utils.config import Config, load_config
 from ml_audio_inpainting_torch.utils.precision import cast_floating, full_f32_convolutions
-from ml_audio_inpainting_torch.weights import load_params_npz
+from ml_audio_inpainting_torch.weights import cnn_blstm_flat_variables, load_params_npz
 from scripts.torch_classical_precision import CLASSICAL_RUNS, classical_runner
 from scripts.torch_cnn_serving_profile import busy_us
 
@@ -1426,15 +1463,15 @@ def _check_outside(label: str, restored: torch.Tensor, audio: torch.Tensor,
 
 
 def _check_against_cpu(label: str, got: torch.Tensor, want: torch.Tensor, valid: torch.Tensor,
-                       rtol_of_peak: float) -> float:
+                       rtol_of_peak: float, phase: str = "serving_deployable") -> float:
     """The card against the port on the CPU (clip 0, or a long signal's gap
     0): inside the gaps within ``rtol_of_peak`` of the CPU's largest
     |sample| there.  Returns the error as that share."""
     gap = ~valid.bool().cpu()
     g, w = got.cpu()[gap], want.cpu()[gap]
     err = ((g - w).abs().max() / w.abs().max()).item()
-    log("serving_deployable", f"{label}: card vs CPU inside the gaps {err:.3e} of the gaps' "
-                              f"peak (bound {rtol_of_peak})")
+    log(phase, f"{label}: card vs CPU inside the gaps {err:.3e} of the gaps' peak (bound "
+               f"{rtol_of_peak})")
     if not err <= rtol_of_peak:
         raise AssertionError(f"{label}: card and CPU disagree: {err} > {rtol_of_peak}")
     return err
@@ -1930,24 +1967,26 @@ def _evaluation(card: str, work: Path) -> dict:
 
 
 def _check_step_against_cpu(cfg: Config, flat: dict, audio: np.ndarray, starts: torch.Tensor,
-                            label: str) -> dict:
+                            label: str, phase: str = "training",
+                            grad_rtol: float = STEP_GRAD_RTOL_OF_MAX, **step_kw) -> dict:
     """Step 0 of a reduced batch on the card in f32 and on the CPU in f64
-    from the same weights and inputs: the loss and every gradient tensor.
-    Returns the names of the tensors whose gradient is exactly zero on the
-    card."""
+    from the same weights and inputs (``step_kw`` to ``make_cnn_train_step``):
+    the loss and every gradient tensor, within ``grad_rtol`` of the tensor's
+    largest entry.  Returns the names of the tensors whose gradient is
+    exactly zero on the card."""
     out = {}
     for side, device, dtype in (("card", DEVICE, torch.float32), ("cpu", "cpu", torch.float64)):
         state = create_cnn_state(cfg, device=device, params=flat)
         state.model.to(dtype)
-        _, m = make_cnn_train_step(cfg)(state, torch.tensor(audio, device=device, dtype=dtype),
-                                        starts.to(device))
+        _, m = make_cnn_train_step(cfg, **step_kw)(
+            state, torch.tensor(audio, device=device, dtype=dtype), starts.to(device))
         out[side] = (m["loss"].item(), {n: p.grad.detach().cpu().double()
                                         for n, p in state.model.named_parameters()})
     (loss_d, g_d), (loss_c, g_c) = out["card"], out["cpu"]
     rel = abs(loss_d - loss_c) / abs(loss_c)
-    log("training", f"{label}: step 0 of {tuple(starts.shape)} clips x variants: loss card "
-                    f"{loss_d:.6f}, CPU f64 {loss_c:.6f}, relative difference {rel:.3e} "
-                    f"(rtol {STEP_LOSS_RTOL})")
+    log(phase, f"{label}: step 0 of {tuple(starts.shape)} clips x variants: loss card "
+               f"{loss_d:.6f}, CPU f64 {loss_c:.6f}, relative difference {rel:.3e} "
+               f"(rtol {STEP_LOSS_RTOL})")
     if not rel <= STEP_LOSS_RTOL:
         raise AssertionError(f"{label} step 0 loss: card {loss_d} vs CPU {loss_c}")
     g_max = max(g.abs().max().item() for g in g_c.values())
@@ -1956,15 +1995,15 @@ def _check_step_against_cpu(cfg: Config, flat: dict, audio: np.ndarray, starts: 
         own = want.abs().max().item()
         scale = g_max if name in NOISE_GRAD or own <= F32_EPS * g_max else own
         err = (g_d[name] - want).abs().max().item()
-        if not err <= STEP_GRAD_RTOL_OF_MAX * scale:
+        if not err <= grad_rtol * scale:
             raise AssertionError(f"{label} step 0 gradient {name}: card vs CPU max err {err} > "
-                                 f"{STEP_GRAD_RTOL_OF_MAX} x {scale}")
+                                 f"{grad_rtol} x {scale}")
         if scale > 0 and err / scale > worst[0]:
             worst = (err / scale, name)
     zero = sorted(n for n, g in g_d.items() if not g.any())
-    log("training", f"{label}: step 0 gradients, {len(g_c)} tensors: card vs CPU f64 within "
-                    f"{worst[0]:.3e} of their largest entry (worst {worst[1]}; allowed "
-                    f"{STEP_GRAD_RTOL_OF_MAX}); exactly zero on the card: {len(zero)} tensors")
+    log(phase, f"{label}: step 0 gradients, {len(g_c)} tensors: card vs CPU f64 within "
+               f"{worst[0]:.3e} of their largest entry (worst {worst[1]}; allowed "
+               f"{grad_rtol}); exactly zero on the card: {len(zero)} tensors")
     return {"loss_rel_err": rel, "grad_rel_err": worst[0], "zero_grad": zero}
 
 
@@ -2146,6 +2185,7 @@ def phase_training_bf16(card: str) -> dict:
         runs[label] = {**stats, **{k: v for k, v in check.items() if k != "zero_grad"}}
         launches.append(counts)
         del state
+    BARE_STEP_MS["cnn_bf16_b128"] = runs["live BiLSTM"]["warm_step_ms"]
     log("training_bf16", f"summary ({card}): {json.dumps(runs)}")
     return {k: sum(c[k] for c in launches) for k in launches[0]}
 
@@ -2447,6 +2487,7 @@ def phase_gan_training(card: str) -> dict:
     busy, wall_ms = _device_busy_share(lambda: run["step"](run["g"], run["d"], audio0, *gaps0))
     summary["bf16_b32"] = {**run["stats"], "device_idle_share": 1.0 - busy, "traced_step_ms": wall_ms,
                            "no_grad": no_grad}
+    BARE_STEP_MS["gan_bf16_b32"] = run["stats"]["warm_step_ms"]
     log("gan_training", f"bf16 B=32: one traced step {wall_ms:.1f} ms, device busy {100 * busy:.1f} "
                         f"%, idle {100 * (1 - busy):.1f} % ({card})")
 
@@ -2729,6 +2770,457 @@ def phase_classical(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ training_cli
+
+# training_cli: the training CLI (cli/train.py) driven in-process on the card.
+CLI_CNN_CORPUS = 128  # formant_v2 clips: one epoch is one step of the production batch
+CLI_CNN_STEPS = 8
+CLI_PROBE_CLIPS = 32
+CLI_CNN_LOGGING = {"metric_interval": 2, "checkpoint_interval": 4}  # saves at steps 4 and 8
+CLI_CNN_PROBE_EVERY = 4
+CLI_CNN_CLEAN_STEPS = (2, 4, 6, 8)  # steps after which nothing ran but the step itself
+CLI_PHASE_CORPUS = 4
+CLI_PHASE_STEPS = 3
+CLI_GAN_CORPUS = 64  # B=32: two steps an epoch
+CLI_GAN_STEPS = 6
+CLI_GAN_LOGGING = {"log_interval": 2, "sample_interval": 4, "checkpoint_interval": 2}
+CLI_GAN_CLEAN_STEPS = (2, 4, 6)
+# The anchored phase-mode step 0, card f32 against the CPU in f64: the
+# anchor (the phase of the gapped STFT carried across the gap) is
+# ill-conditioned on bins that are quiet at the gap's edge, and its f32
+# rounding turns the complex L1's unit error vectors there.  The same step
+# in f32 against f64, both on the CPU (full width, 1 clip x 2 variants),
+# reads 1.2e-5 on the loss and up to 2.2e-2 of a gradient tensor's largest
+# entry (projection.bias; 1e-3 to 8e-3 for most); without the anchor
+# 5.7e-8 and within 1e-3.  So the plain phase-mode step is held at the
+# training phase's 1e-3, and the anchored one at 5e-2.
+CLI_ANCHORED_GRAD_RTOL = 5e-2
+# Phase-mode and .pt serving (the .pt models under --phase extrapolate, so
+# that every sample outside the gap is the input's): f32 on the card held to
+# f64 on the CPU inside the gap, within 5e-2 of the gap's peak.  The
+# anchored phase-mode model's anchor and the extrapolated phase of bins
+# quiet at the gap's edge are ill-conditioned: f32 on the card and on the
+# CPU lay 2.9e-3 to 1.3e-2 of the gap's peak from f64 (an H100 80GB HBM3 at
+# 700 W), card and CPU 1.3e-2 apart on the formant FLACs.  A fault (a sign,
+# swapped channels, a wrong anchor) moves the gap by the order of its peak.
+CLI_SERVE_F64_RTOL = 5e-2
+# The evaluate CLI's per clip gap SDR against the same metric of the
+# runners' outputs on each device (dB): the same computation, in f32 on the
+# device against f64 here.
+CLI_EVAL_SDR_DB = 1e-3
+BARE_STEP_MS: dict = {}  # the bare warm steps of training_bf16 and gan_training
+SYNC_WARNING = "synchronizing CUDA operation"
+
+
+def _cli_config(work: Path, name: str, cfg: Config, logging: dict) -> str:
+    """``cfg`` with ``logging`` merged in, as a JSON file (which the CLIs
+    read without a YAML package), in the YAML files' layout: the CNN+BiLSTM
+    keys at the top of ``model``."""
+    tree = cfg.to_dict()
+    model = tree["model"]
+    tree["model"] = {**model.pop("cnn_blstm"), **model}
+    tree["logging"] = {**tree["logging"], **logging}
+    path = work / f"{name}.json"
+    path.write_text(json.dumps(tree))
+    return str(path)
+
+
+def _cli_train(label: str, argv: list, clean_steps: tuple) -> tuple:
+    """``cli/train.main(argv)`` on the card, host syncs caught
+    (``set_sync_debug_mode("warn")``) and counted by step: a step's share
+    is what ran between the launch of the step before it and its own.
+    Returns the result and the wall seconds; raises if a step of
+    ``clean_steps`` (one after which no log, probe, sample or save ran)
+    synchronised."""
+    marks = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = train_cli.main(argv, on_step=lambda s: marks.__setitem__(s, len(caught)))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    wall = time.perf_counter() - t0
+    syncs = {s: [f"{Path(w.filename).name}:{w.lineno}" for w in caught[marks[s - 1]:marks[s]]
+                 if SYNC_WARNING in str(w.message)] for s in clean_steps}
+    log("training_cli", f"{label}: host syncs in steps {list(clean_steps)} (no interval work "
+                        f"between them): {[len(v) for v in syncs.values()]}")
+    bad = {s: v for s, v in syncs.items() if v}
+    if bad:
+        raise AssertionError(f"training_cli {label}: host syncs in steps (where): {bad}")
+    return res, wall
+
+
+def _clean_step_ms(res, busy_steps: set) -> float:
+    """Median ms a step over the logged intervals that no probe, sample or
+    save of their first step ran into."""
+    per = [1e3 * sec / (b - a) for a, b, sec in res.intervals if a > 0 and a not in busy_steps]
+    if not per:
+        raise AssertionError(f"training_cli: no clean interval in {res.intervals}")
+    return sorted(per)[len(per) // 2]
+
+
+def _tree_equal(label: str, got, want, path: str = "state") -> int:
+    """Every tensor and value of two checkpoint trees equal, bit for bit;
+    returns how many tensors were compared."""
+    if torch.is_tensor(want):
+        if not (torch.is_tensor(got) and got.dtype == want.dtype and torch.equal(got, want)):
+            raise AssertionError(f"{label}: {path} differs")
+        return 1
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{label}: {path} keys differ")
+        return sum(_tree_equal(label, got[k], want[k], f"{path}/{k}") for k in want)
+    if isinstance(want, (list, tuple)):
+        return sum(_tree_equal(label, g, w, f"{path}/{i}") for i, (g, w) in
+                   enumerate(zip(got, want, strict=True)))
+    if got != want:
+        raise AssertionError(f"{label}: {path} {got} != {want}")
+    return 0
+
+
+def _runner_of(model: str, flags: list, device: str):
+    args = inpaint.build_argparser().parse_args(
+        ["--model", model, "--input", "unused", "--output", "unused", *flags, "--device", device])
+    cfg = load_config(args.config) if args.config else Config()
+    return inpaint._build_runner(args, cfg), cfg
+
+
+def _serve_card_and_cpu(label: str, model: str, flags: list, files: list, out: Path) -> dict:
+    """``model`` with the ``inpaint`` CLI's ``flags`` over ``files`` (80 ms at
+    2.0 s): the card's runner and the CPU's in f32, and the CPU's with the
+    model and audio in f64, the reference.  Every sample outside the gap is
+    the input's, bit for bit, in each; inside, the card lies within
+    ``CLI_SERVE_F64_RTOL`` of the gap's peak from the f64 answer.
+    ``inpaint.main`` on the card equals ``save_audio`` of the card runner's
+    output, bit for bit.  Returns the errors and per clip gap SDR (dB) of
+    the three outputs."""
+    from ml_audio_inpainting_torch.data.audio_io import load_audio
+
+    audio = np.stack([load_audio(f)[0] for f in files])
+    n = len(files)
+    gs, gl = np.full(n, GAP_START), np.full(n, GAP_LEN)
+    valid = gap_mask(audio.shape[-1], torch.tensor(gs), torch.tensor(gl)).bool()
+    outs = {}
+    for device in (DEVICE, "cpu"):
+        runner, _ = _runner_of(model, flags, device)
+        outs[device] = runner(audio, gs, gl).cpu()
+    runner.model.double()  # the CPU runner's model, now the f64 reference
+    outs["f64"] = runner.inpaint_fn(torch.tensor(audio, dtype=torch.float64), torch.tensor(gs),
+                                    torch.tensor(gl))[0]
+    clean = torch.tensor(audio, dtype=torch.float64)
+    for key, x in outs.items():
+        if not torch.equal(x[valid], clean.to(x.dtype)[valid]) or not torch.isfinite(x).all():
+            raise AssertionError(f"training_cli {label} ({key}): not finite, or samples outside "
+                                 "the gap differ from the input")
+    gap = ~valid
+    peak = outs["f64"][gap].abs().max().item()
+    err = {key: (outs[key].double()[gap] - outs["f64"][gap]).abs().max().item() / peak
+           for key in (DEVICE, "cpu")}
+    log("training_cli", f"{label}: against f64 on the CPU inside the gap, card {err[DEVICE]:.3e} "
+                        f"and CPU f32 {err['cpu']:.3e} of the gap's peak (bound "
+                        f"{CLI_SERVE_F64_RTOL}); card vs CPU f32 "
+                        f"{(outs[DEVICE][gap] - outs['cpu'][gap]).abs().max().item() / peak:.3e}")
+    if not err[DEVICE] <= CLI_SERVE_F64_RTOL:
+        raise AssertionError(f"training_cli {label}: card {err[DEVICE]} from f64 > "
+                             f"{CLI_SERVE_F64_RTOL}")
+    got_dir, want_dir = out / "cli", out / "runner"
+    inpaint.main(["--model", model, "--input", str(files[0].parent), "--output", str(got_dir),
+                  *flags, "--device", DEVICE])
+    for f, x in zip(files, outs[DEVICE].numpy()):
+        save_audio(x, want_dir / f"{f.stem}_{model}_inpainted.flac", SAMPLE_RATE)
+    _same_decoded(f"training_cli {label}", sorted(got_dir.glob("*.flac")),
+                  sorted(want_dir.glob("*.flac")))
+    sdr = {key: metrics.gap_sdr(clean, x.double(), gap.double()).numpy()
+           for key, x in outs.items()}
+    return {"card_err_of_peak": err[DEVICE], "cpu_f32_err_of_peak": err["cpu"], "files": n,
+            "gap_sdr_db": sdr}
+
+
+def phase_training_cli(card: str) -> dict:
+    """The training CLI of both families on the card, resume, the phase-mode
+    CNN and reference ``.pt`` checkpoints through the serving CLIs; returns
+    the launch counts of the hand-written kernels."""
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    cache = os.environ.get("MAI_FORMANT_CACHE")
+    os.environ["MAI_FORMANT_CACHE"] = str(work / "formant_cache")  # clips made once a phase
+    try:
+        return _training_cli(card, work)
+    finally:
+        if cache is None:
+            os.environ.pop("MAI_FORMANT_CACHE", None)
+        else:
+            os.environ["MAI_FORMANT_CACHE"] = cache
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _training_cli(card: str, work: Path) -> dict:
+    summary = {"card": card}
+    counts_all = []
+
+    # 1. The CNN production recipe through the CLI: bf16, B=128 x 3 gaps, the
+    # device feed, EMA, a probe of 32 clips every 4 steps, saves at 4 and 8.
+    cfg = b128_recipe_config()
+    cfg_path = _cli_config(work, "cnn_b128", cfg, CLI_CNN_LOGGING)
+    base = ["--model", "cnn_blstm", "--config", cfg_path, "--synthetic", str(CLI_CNN_CORPUS),
+            "--corpus", "formant_v2", "--train-dtype", "bf16", "--batch-size",
+            str(cfg.training.batch_size), "--train-n-gaps", str(cfg.data.train_n_gaps), "--feed",
+            "device", "--ema", str(GAN_EMA), "--workers", "8", "--device", DEVICE]
+    _reset_counts()
+    res, wall = _cli_train("cnn bf16 B=128", [
+        *base, "--steps", str(CLI_CNN_STEPS), "--probe-every", str(CLI_CNN_PROBE_EVERY),
+        "--probe-clips", str(CLI_PROBE_CLIPS), "--base-dir", str(work / "cnn")],
+        CLI_CNN_CLEAN_STEPS)
+    counts = _counts()
+    counts_all.append(counts)
+    n_probes = len(res.probes)
+    expected = {"lstm_fwd": 3 * n_probes, "lstm_bwd": 0, "lstm_dwhh": 0,
+                **{f"{k}_bf16": 3 * CLI_CNN_STEPS for k in WRAPPERS}}
+    if counts != expected:
+        raise AssertionError(f"training_cli cnn: launches {counts}, expected {expected} (3 bf16 "
+                             f"launches of each kernel a step, 3 f32 lstm_fwd a probe)")
+    losses = [v["loss"] for _, v in res.losses]
+    steps_saved = CheckpointManager(res.checkpoint_dir).all_steps()
+    if (not all(math.isfinite(v) for v in losses) or steps_saved != [4, 8]
+            or res.best_npz is None or not res.best_npz.is_file() or res.feed != "device"):
+        raise AssertionError(f"training_cli cnn: losses {losses}, checkpoints {steps_saved}, "
+                             f"best {res.best_npz}, feed {res.feed}")
+    busy = {s for s, *_ in res.saves} | {s for s, *_ in res.probes}
+    cli_ms = _clean_step_ms(res, busy)
+    bare_ms = BARE_STEP_MS.get("cnn_bf16_b128")
+    stats = {"wall_s": wall, "warm_step_ms": cli_ms, "bare_step_ms": bare_ms,
+             "losses": losses, "checkpoints": steps_saved,
+             "saves": [{"step": s, "s": t, "mb": b / 1e6} for s, t, b in res.saves],
+             "probes": [{"step": s, "gap_sdr_db": d, "psm": p, "s": t}
+                        for s, d, p, t in res.probes], "best_step": res.best_step,
+             "launches": counts}
+    log("training_cli", f"cnn bf16 B=128 x 3 gaps: {CLI_CNN_STEPS} steps in {wall:.1f} s (the "
+                        f"corpus of {CLI_CNN_CORPUS} clips, the probe set, the model included); "
+                        f"losses {[round(v, 2) for v in losses]}; warm step {cli_ms:.2f} ms "
+                        f"through the CLI against {bare_ms} ms bare (training_bf16); saves "
+                        + ", ".join(f"step {s}: {t:.2f} s {b / 1e6:.1f} MB" for s, t, b in res.saves)
+                        + "; probes " + ", ".join(f"step {s}: {d:.2f} dB, PSM {p:.4f}, {t:.2f} s"
+                                                  for s, d, p, t in res.probes)
+                        + f"; launches {counts} ({card})")
+
+    # best_inference.npz through the inpaint CLI against a runner of the
+    # restored best state (its EMA weights rounded to f16 as the export
+    # stores them), bit for bit.
+    clips_dir = work / "clips"
+    clips = speech_like_batch(np.random.default_rng(41), 4)
+    files = [clips_dir / f"clip{i}.flac" for i in range(len(clips))]
+    for clip, f in zip(clips, files):
+        save_audio(clip, f, SAMPLE_RATE)
+    tree = CheckpointManager(res.checkpoint_dir / "best").load_tree(res.best_step)
+    best_model = build_model(cfg, DEVICE)
+    best_model.load_state_dict({k: v.half().float() if v.is_floating_point() else v
+                                for k, v in {**tree["model"], **tree["ema_params"]}.items()})
+    from ml_audio_inpainting_torch.data.audio_io import load_audio
+
+    audio = torch.tensor(np.stack([load_audio(f)[0] for f in files]), device=DEVICE)
+    with full_f32_convolutions():
+        want = make_cnn_inpaint_fn(cfg, best_model)(
+            audio, torch.full((len(files),), GAP_START, device=DEVICE),
+            torch.full((len(files),), GAP_LEN, device=DEVICE))[0]
+    for f, x in zip(files, want.cpu().numpy()):
+        save_audio(x, work / "best_runner" / f"{f.stem}_cnn_blstm_inpainted.flac", SAMPLE_RATE)
+    inpaint.main(["--model", "cnn_blstm", "--config", cfg_path, "--checkpoint", str(res.best_npz),
+                  "--input", str(clips_dir), "--output", str(work / "best_cli"), "--device",
+                  DEVICE])
+    _same_decoded("training_cli best_inference.npz", sorted((work / "best_cli").glob("*.flac")),
+                  sorted((work / "best_runner").glob("*.flac")))
+    log("training_cli", f"best_inference.npz (step {res.best_step}) served by the inpaint CLI: "
+                        f"{len(files)} files equal, bit for bit, to a runner of the restored best "
+                        f"state's EMA weights")
+    del best_model
+
+    # 2. Resume: the saved state restored bit for bit, one step from it equal
+    # to one step from the state in memory, then the CLI's --resume-from.
+    template = create_cnn_state(cfg, device=DEVICE, ema=GAN_EMA)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    CheckpointManager(res.checkpoint_dir).restore(template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    n_tensors = _tree_equal("training_cli restore", state_tree(template), state_tree(res.state))
+    batch = torch.tensor(speech_like_batch(np.random.default_rng(42), cfg.training.batch_size),
+                         device=DEVICE)
+    gaps = train_cli.GapDraws(cfg, DEVICE, seed=43).cnn(cfg.training.batch_size)
+    step = make_cnn_train_step(cfg, ema=GAN_EMA, compute_dtype=torch.bfloat16)
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False  # deterministic convolution algorithms
+    try:
+        for s in (template, res.state):
+            step(s, batch, *gaps)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    _tree_equal("training_cli one step from the restored state", state_tree(template),
+                state_tree(res.state))
+    del template
+    _reset_counts()
+    res2, _ = _cli_train("cnn resumed", [
+        *base, "--steps", str(CLI_CNN_STEPS + 1), "--base-dir", str(work / "cnn_resume"),
+        "--resume-from", str(res.checkpoint_dir)], ())
+    counts = _counts()
+    counts_all.append(counts)
+    adam_steps = {int(v["step"]) for v in res2.state.optimizer.state.values()}
+    if (res2.step != CLI_CNN_STEPS + 1 or adam_steps != {CLI_CNN_STEPS + 1}
+            or CheckpointManager(res2.checkpoint_dir).all_steps() != [CLI_CNN_STEPS + 1]
+            or counts["lstm_fwd_bf16"] != 3):
+        raise AssertionError(f"training_cli resume: step {res2.step}, Adam steps {adam_steps}, "
+                             f"launches {counts}")
+    summary["cnn"] = {**stats, "restore_s": restore_s, "restored_tensors": n_tensors}
+    log("training_cli", f"resume: {n_tensors} tensors restored bit for bit in {restore_s:.2f} s "
+                        f"(parameters, running statistics, Adam moments and step counts, EMA); "
+                        f"one bf16 step from them equal, bit for bit, to one from the state in "
+                        f"memory (deterministic cuDNN algorithms); --resume-from went on to step "
+                        f"{res2.step}, Adam's step count {adam_steps}")
+    del res, res2
+
+    # 3. The phase-mode CNN, anchored, at full width: configs/cnn_blstm.yaml's
+    # values (1 clip x 25 variants, f32, one gap).
+    pcfg = recipe_config()
+    pcfg_path = _cli_config(work, "cnn_phase", pcfg, {"metric_interval": 1})
+    pcfg.model.cnn_blstm.in_channels = 2
+    init = create_cnn_state(pcfg, device="cpu", seed=0)
+    flat = live_bilstm(cnn_blstm_flat_variables(init.model.state_dict()), seed=6)
+    del init
+    clip = speech_like_batch(np.random.default_rng(100), 1)
+    starts = gap_starts(torch.Generator().manual_seed(5), pcfg, 1, 2)
+    checks = {}
+    for label, anchor, rtol in (("phase-mode", False, STEP_GRAD_RTOL_OF_MAX),
+                                ("phase-mode anchored", True, CLI_ANCHORED_GRAD_RTOL)):
+        checks[label] = _check_step_against_cpu(pcfg, flat, clip, starts, label,
+                                                phase="training_cli", grad_rtol=rtol,
+                                                phase_mode=True, phase_anchor=anchor)
+    pargv = ["--model", "cnn_blstm", "--config", pcfg_path, "--synthetic", str(CLI_PHASE_CORPUS),
+             "--corpus", "formant_v2", "--phase-mode", "--phase-anchor", "--feed", "device",
+             "--workers", "8", "--steps", str(CLI_PHASE_STEPS), "--base-dir", str(work / "phase"),
+             "--device", DEVICE]
+    _reset_counts()
+    pres, pwall = _cli_train("phase-mode anchored", pargv, ())
+    counts = _counts()
+    counts_all.append(counts)
+    expected = {**{k: 3 * CLI_PHASE_STEPS for k in WRAPPERS}, **{f"{k}_bf16": 0 for k in WRAPPERS}}
+    plosses = [v["loss"] for _, v in pres.losses]
+    if counts != expected or not all(math.isfinite(v) for v in plosses):
+        raise AssertionError(f"training_cli phase: launches {counts} (expected {expected}), "
+                             f"losses {plosses}")
+    log("training_cli", f"phase-mode anchored, 1 clip x 25 variants, f32: {CLI_PHASE_STEPS} steps "
+                        f"in {pwall:.1f} s, losses {[round(v, 2) for v in plosses]}, launches "
+                        f"{counts} ({card})")
+    # Served from its checkpoint directory, card against CPU, by both CLIs.
+    _reset_counts()
+    serving = {}
+    flags = ["--config", pcfg_path, "--checkpoint", str(pres.checkpoint_dir)]
+    for name, fs in (("synthetic", files), ("formant", sorted(FORMANT_DIR.glob("*.flac")))):
+        served = _serve_card_and_cpu(f"cnn_phase_anchored on the {name} FLACs",
+                                     "cnn_phase_anchored", flags, fs, work / f"ph_{name}")
+        sdr = served.pop("gap_sdr_db")
+        runs = {}
+        for device in (DEVICE, "cpu"):
+            eargs = evaluate.build_argparser().parse_args(
+                ["--models", "cnn_phase_anchored", *flags, "--input", str(fs[0].parent),
+                 "--device", device])
+            runs[device] = evaluate.run(eargs)[1]["cnn_phase_anchored"]
+        own = max(np.abs(runs[d]["gap_sdr_db"] - sdr[d]).max() for d in (DEVICE, "cpu"))
+        if not own <= CLI_EVAL_SDR_DB:
+            raise AssertionError(f"training_cli evaluate cnn_phase_anchored ({name}): gap SDR "
+                                 f"{own} dB from the runners' outputs' > {CLI_EVAL_SDR_DB}")
+        diff = np.abs(runs[DEVICE]["gap_sdr_db"] - runs["cpu"]["gap_sdr_db"]).max()
+        serving[name] = {**served, "eval_gap_sdr_db": float(np.mean(runs[DEVICE]["gap_sdr_db"])),
+                         "eval_card_vs_cpu_db": float(diff),
+                         "f64_gap_sdr_db": float(np.mean(sdr["f64"]))}
+        log("training_cli", f"evaluate cnn_phase_anchored ({name}): gap SDR "
+                            f"{serving[name]['eval_gap_sdr_db']:.3f} dB (f64 "
+                            f"{serving[name]['f64_gap_sdr_db']:.3f}), each device within {own:.1e} dB "
+                            f"of its runner's outputs (bound {CLI_EVAL_SDR_DB}); card vs CPU "
+                            f"{diff:.2e} dB")
+    counts = _counts()
+    counts_all.append(counts)
+    if counts["lstm_fwd"] % 3 or not counts["lstm_fwd"] or any(
+            v for k, v in counts.items() if k != "lstm_fwd"):
+        raise AssertionError(f"training_cli phase serving: launches {counts}")
+    summary["phase"] = {"checks": {k: {m: v for m, v in c.items() if m != "zero_grad"}
+                                   for k, c in checks.items()},
+                        "wall_s": pwall, "losses": plosses, "serving": serving}
+
+    # 4. Reference .pt checkpoints (seeded, the reference's layout): full
+    # width, and the v2 global-pool lineage (hidden 64, the BiLSTM reading
+    # the encoder's 32 channels), card against CPU.
+    _reset_counts()
+    summary["pt"] = {}
+    for label, kw in (("full width", {}),
+                      ("global pool", {"hidden": 64, "global_pool": True})):
+        path = work / f"{label.replace(' ', '_')}.pt"
+        torch.save(seeded_reference_cnn_state_dict(51, **kw), path)
+        served = _serve_card_and_cpu(
+            f".pt {label}", "cnn_blstm", ["--checkpoint", str(path), "--phase", "extrapolate"],
+            files, work / path.stem)
+        served.pop("gap_sdr_db")
+        summary["pt"][label] = served
+    counts = _counts()
+    counts_all.append(counts)
+    if counts["lstm_fwd"] != 3 * 2 * 2 or any(v for k, v in counts.items() if k != "lstm_fwd"):
+        raise AssertionError(f"training_cli .pt: launches {counts} (3 a card request)")
+
+    # 5. GAN training through the CLI: gan_recipe_config, bf16, B=32, EMA.
+    gcfg_path = _cli_config(work, "gan", gan_recipe_config(), CLI_GAN_LOGGING)
+    gargv = ["--model", "gan", "--config", gcfg_path, "--synthetic", str(CLI_GAN_CORPUS),
+             "--corpus", "formant_v2", "--train-dtype", "bf16", "--feed", "device", "--ema",
+             str(GAN_EMA), "--workers", "8", "--steps", str(CLI_GAN_STEPS), "--base-dir",
+             str(work / "gan"), "--device", DEVICE]
+    _reset_counts()
+    gres, gwall = _cli_train("gan bf16 B=32", gargv, CLI_GAN_CLEAN_STEPS)
+    counts = _counts()
+    counts_all.append(counts)
+    if any(counts.values()):
+        raise AssertionError(f"training_cli gan launched a hand-written kernel: {counts}")
+    glosses = [(v["g_total"], v["d_total"]) for _, v in gres.losses]
+    mgr = CheckpointManager(gres.checkpoint_dir)
+    if (not all(math.isfinite(x) for pair in glosses for x in pair) or mgr.all_steps() != [4, 6]
+            or len(gres.samples) != 1):
+        raise AssertionError(f"training_cli gan: losses {glosses}, checkpoints "
+                             f"{mgr.all_steps()}, samples {gres.samples}")
+    samples, rate, md5_ok = read_audio(gres.samples[0])
+    if md5_ok != 1 or rate != SAMPLE_RATE or samples.shape[0] != SAMPLE_RATE * 5:
+        raise AssertionError(f"training_cli gan sample: md5_ok {md5_ok}, rate {rate}, "
+                             f"{samples.shape}")
+    gtemplate = dict(zip(("g", "d"), create_gan_states(gan_recipe_config(), device=DEVICE,
+                                                         g_ema=GAN_EMA)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.restore(gtemplate)
+    torch.cuda.synchronize()
+    grestore_s = time.perf_counter() - t0
+    n_gtensors = _tree_equal("training_cli gan restore", state_tree(gtemplate),
+                             state_tree(gres.state))
+    del gtemplate
+    gbusy = {s for s, *_ in gres.saves} | {4}
+    gcli_ms = _clean_step_ms(gres, gbusy)
+    summary["gan"] = {"wall_s": gwall, "warm_step_ms": gcli_ms,
+                      "bare_step_ms": BARE_STEP_MS.get("gan_bf16_b32"), "losses": glosses,
+                      "saves": [{"step": s, "s": t, "mb": b / 1e6} for s, t, b in gres.saves],
+                      "restore_s": grestore_s, "restored_tensors": n_gtensors,
+                      "sample": gres.samples[0].name}
+    log("training_cli", f"gan bf16 B=32: {CLI_GAN_STEPS} steps in {gwall:.1f} s; warm step "
+                        f"{gcli_ms:.2f} ms through the CLI against "
+                        f"{BARE_STEP_MS.get('gan_bf16_b32')} ms bare (gan_training); saves "
+                        + ", ".join(f"step {s}: {t:.2f} s {b / 1e6:.1f} MB" for s, t, b in gres.saves)
+                        + f"; {{g, d}} ({n_gtensors} tensors) restored bit for bit in "
+                        f"{grestore_s:.2f} s; sample {gres.samples[0].name} (FLAC, MD5 verified); "
+                        f"no hand-written kernel ({card})")
+    del gres
+
+    launches = {k: sum(c[k] for c in counts_all) for k in counts_all[0]}
+    summary["launches"] = launches
+    log("training_cli", f"summary ({card}): {json.dumps(summary)}")
+    return launches
+
+
 def main() -> int:
     smi = phase_device()
     card = f"{torch.cuda.get_device_name(0)}, power limit {smi.split(',')[-1].strip()}"
@@ -2744,6 +3236,7 @@ def main() -> int:
     paths["training"] = phase_training(card)
     paths["training_bf16"] = phase_training_bf16(card)
     paths["gan_training"] = phase_gan_training(card)
+    paths["training_cli"] = phase_training_cli(card)
     paths["classical"] = phase_classical(card)
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()

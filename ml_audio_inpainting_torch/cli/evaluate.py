@@ -1,6 +1,7 @@
 """Evaluation CLI: the models' quality on a set of clips (port of
-``ml_audio_inpainting_tpu/cli/evaluate.py``: the ``gan`` and ``cnn_blstm``
-families and the classical solvers)::
+``ml_audio_inpainting_tpu/cli/evaluate.py``: the ``gan``, ``cnn_blstm`` and
+phase-mode ``cnn_phase``/``cnn_phase_anchored`` models and the classical
+solvers)::
 
     python -m ml_audio_inpainting_torch.cli.evaluate --models gan cnn_blstm \\
         --checkpoint results/checkpoints/gan_formant_v2_r2.npz \\
@@ -21,9 +22,10 @@ clips as FLAC.
 neural models restore every gap of a clip in one mask-driven pass, the
 classical solvers one gap after another, left to right.  The ``phase`` of
 the JSON's condition is written only when a neural model is evaluated (the
-classical solvers have no phase regime).  Unported models and options raise
-``SystemExit`` naming their ROADMAP item (``cli/inpaint.py``), as do
-``--golden`` and ``--adapt-steps``.
+classical solvers have no phase regime).  The phase-mode models take one gap
+a clip only (``--n-gaps > 1`` raises, as in JAX).  Unported models and
+options raise ``SystemExit`` naming their ROADMAP item (``cli/inpaint.py``),
+as do ``--golden`` and ``--adapt-steps``.
 """
 
 from __future__ import annotations
@@ -46,9 +48,9 @@ MIN_DIST_SAMPLES = 5000
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Evaluate inpainting models")
     p.add_argument("--models", nargs="+", required=True,
-                   help="gan, cnn_blstm and the classical solvers (janssen, arinpaint, "
-                        "segmentation, aspain, sspain, sspain_omp, aspain_learned, "
-                        "sspain_learned); the JAX CLI's other models raise")
+                   help="gan, cnn_blstm, cnn_phase, cnn_phase_anchored and the classical "
+                        "solvers (janssen, arinpaint, segmentation, aspain, sspain, "
+                        "sspain_omp, aspain_learned, sspain_learned); the refiner raises")
     p.add_argument("--gan-checkpoint", type=str,
                    default="results/checkpoints/gan_formant_v2_r2.npz",
                    help="GAN weights npz for the refiner model")
@@ -198,7 +200,13 @@ def run(args, timings: Optional[Dict[str, float]] = None
     restoration (``model``), its metrics (``metrics``) and the written
     reconstructions (``write``) are added to it, the device synchronised at
     each boundary."""
-    from ml_audio_inpainting_torch.cli.inpaint import _build_runner, _collect, check_ported, route
+    from ml_audio_inpainting_torch.cli.inpaint import (
+        PHASE_MODELS,
+        _build_runner,
+        _collect,
+        check_ported,
+        route,
+    )
     from ml_audio_inpainting_torch.data.audio_io import save_audio
     from ml_audio_inpainting_torch.utils.config import Config, load_config
 
@@ -210,6 +218,8 @@ def run(args, timings: Optional[Dict[str, float]] = None
                          "ROADMAP Queue A item 6 (refiner, adaptation and soups)")
     route(args)
     check_ported(args.models, args)
+    if args.n_gaps > 1 and set(PHASE_MODELS) & set(args.models):
+        raise SystemExit("--models cnn_phase[_anchored] supports single-gap eval only")
     cfg = load_config(args.config) if args.config else Config()
     sr = cfg.data.sample_rate
     clock = {} if timings is None else timings

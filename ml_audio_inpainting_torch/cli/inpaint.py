@@ -1,6 +1,7 @@
 """Inference CLI: inpaint FLAC/WAV files (port of
-``ml_audio_inpainting_tpu/cli/inpaint.py``: the ``gan`` and ``cnn_blstm``
-families and the classical solvers)::
+``ml_audio_inpainting_tpu/cli/inpaint.py``: the ``gan``, ``cnn_blstm`` and
+phase-mode ``cnn_phase``/``cnn_phase_anchored`` models and the classical
+solvers)::
 
     python -m ml_audio_inpainting_torch.cli.inpaint --model gan \\
         --checkpoint results/checkpoints/gan_formant_v2_r2.npz --mode enhanced \\
@@ -9,18 +10,22 @@ families and the classical solvers)::
         --input dir/ --output outdir/ [--device cpu]
 
 It takes the JAX CLI's flags and ``--device`` (``cuda`` unless the caller
-asks for ``cpu``).  Weights are exported ``.npz`` files; the classical
+asks for ``cpu``).  ``--checkpoint`` is an exported ``.npz``, a reference
+``.pt``/``.pth`` (``models/port_torch.py``; not for the phase-mode model,
+of which the reference shipped none), a directory of the port's training
+checkpoints (``train/checkpoints.py``), or absent: fresh weights from the
+port's initialiser seeded 0 (``runtime/serve.py``).  The phase-mode models
+predict the complex spectrogram and take no ``--phase``.  The classical
 solvers (``janssen``, ``arinpaint``, ``segmentation``, ``aspain``,
-``sspain``, ``sspain_omp``, ``aspain_learned``, ``sspain_learned``) need
-none.  What the port does not have yet raises ``SystemExit`` naming the
-ROADMAP item that ports it: the ``refiner`` and ``cnn_phase[_anchored]``
-models, and a checkpoint that is an orbax directory or a reference ``.pt``
-(or none: the JAX CLI then serves fresh initial weights).
+``sspain``, ``sspain_omp``, ``aspain_learned``, ``sspain_learned``) need no
+weights.  The ``refiner`` raises ``SystemExit`` naming the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import sys
 from pathlib import Path
 from typing import List
@@ -32,15 +37,12 @@ CLASSICAL = (
     "janssen", "arinpaint", "segmentation", "aspain", "sspain", "sspain_omp",
     "aspain_learned", "sspain_learned",
 )
-# Models and options of the JAX CLI that wait for a later slice, and the
-# ROADMAP item (Queue A) that ports each.
+PHASE_MODELS = ("cnn_phase", "cnn_phase_anchored")
+# Models of the JAX CLI that wait for a later slice, and the ROADMAP item
+# (Queue A) that ports each.
 UNPORTED_MODELS = {
     "refiner": "ROADMAP Queue A item 6 (refiner, adaptation and soups)",
-    "cnn_phase": "ROADMAP Queue A item 4 (the phase-mode CNN)",
-    "cnn_phase_anchored": "ROADMAP Queue A item 4 (the phase-mode CNN)",
 }
-CHECKPOINT_ITEM = ("ROADMAP Queue A item 4 (a CheckpointManager counterpart for orbax "
-                   "directories and fresh initial weights; models/port_torch.py for .pt files)")
 
 __all__ = ["build_argparser", "main", "check_ported", "route", "apply_preset"]
 
@@ -56,7 +58,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--gan-config", type=str, default=None,
                    help="GAN YAML for --model refiner (default: GAN profile)")
     p.add_argument("--config", type=str, default=None)
-    p.add_argument("--checkpoint", type=str, default=None, help="exported .npz weights")
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="exported .npz weights, a reference .pt/.pth, or a training "
+                        "checkpoint directory (fresh initial weights when omitted)")
     p.add_argument("--checkpoint-longgap", type=str, default=None,
                    help="long-gap variant weights, used instead of --checkpoint when "
                         "--gap-len exceeds --longgap-threshold")
@@ -112,17 +116,16 @@ def _collect(inp: Path) -> List[Path]:
 
 
 def check_ported(models, args) -> None:
-    """Raise ``SystemExit`` for a model or option the port does not have
-    yet.  The classical solvers read no checkpoint."""
+    """Raise ``SystemExit`` for a model the port does not have yet, and for
+    a reference ``.pt`` given to the phase-mode model (the reference shipped
+    none; the JAX CLI refuses it too)."""
     for m in models:
         if m in UNPORTED_MODELS:
             raise SystemExit(f"--model {m} is not ported to ml_audio_inpainting_torch yet: "
                              f"{UNPORTED_MODELS[m]}")
-    ckpt = args.checkpoint
-    if any(m not in CLASSICAL for m in models) and (ckpt is None
-                                                    or not str(ckpt).endswith(".npz")):
-        raise SystemExit(f"--checkpoint {ckpt}: the port serves exported .npz weights only; "
-                         f"the rest waits for {CHECKPOINT_ITEM}")
+    if any(m in PHASE_MODELS for m in models) and str(args.checkpoint).endswith((".pt", ".pth")):
+        raise SystemExit("--model cnn_phase has no torch checkpoint port (the reference shipped "
+                         "none); use an npz or a checkpoint directory")
 
 
 def route(args) -> None:
@@ -203,7 +206,11 @@ def _build_runner(args, cfg):
     ``runner.compute_dtype`` expose the pieces.  Raises ``SystemExit`` for
     what the port does not have yet (:func:`check_ported`)."""
     from ml_audio_inpainting_torch.runtime.inference import make_tta_shift_fn
-    from ml_audio_inpainting_torch.runtime.serve import make_cnn_runner, make_gan_runner
+    from ml_audio_inpainting_torch.runtime.serve import (
+        make_cnn_phase_runner,
+        make_cnn_runner,
+        make_gan_runner,
+    )
     from ml_audio_inpainting_torch.utils.config import gan_profile_config
     from ml_audio_inpainting_torch.utils.precision import full_f32_convolutions
 
@@ -223,6 +230,13 @@ def _build_runner(args, cfg):
                                phase=args.phase, compute_dtype=compute_dtype,
                                gl_iters=args.gl_iters)
         model = base.generator
+    elif args.model in PHASE_MODELS:
+        # The complex 2-channel model predicts magnitude and phase: no --phase regime.
+        cfg = copy.deepcopy(cfg)
+        cfg.model.cnn_blstm.in_channels = 2
+        base = make_cnn_phase_runner(cfg, args.checkpoint, device=device,
+                                     anchored=args.model == "cnn_phase_anchored")
+        model = base.model
     else:
         base = make_cnn_runner(cfg, args.checkpoint, device=device, phase=args.phase,
                                gl_iters=args.gl_iters)

@@ -10,8 +10,8 @@ reserved between gaps and at both edges.  Here :func:`multi_gap_layout` is
 that layout as a pure function of the two uniform draws, computed in
 float32 and int32 exactly as JAX computes it (lengths truncated to int32,
 the proportional shrink and the slot widths in f32), so the same uniforms
-give the same ``starts``, ``lengths`` and mask bit for bit.
-:func:`random_multi_gap_layout` draws the uniforms from an explicit
+give the same ``starts``, ``lengths`` and mask bit for bit, on the
+uniforms' device.  :func:`random_multi_gap_layout` draws the uniforms from an explicit
 ``torch.Generator`` instead of a key (the two give different numbers).
 Every function takes leading batch dimensions: ``(..., K)`` draws give
 ``(..., K)`` gaps and ``(..., audio_len)`` masks.
@@ -24,6 +24,7 @@ and :func:`eval_gap_table` the fixed evaluation masks (one gap a signal,
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -72,28 +73,30 @@ def multi_gap_layout(
     f32, i32 = torch.float32, torch.int32
     u_len, u_pos = u_len.to(f32), u_pos.to(f32)
     n_gaps = u_len.shape[-1]
-    min_len = torch.tensor(min_gap_ms * sample_rate / 1000.0, dtype=f32)
-    max_len = torch.tensor(max_gap_ms * sample_rate / 1000.0, dtype=f32)
+    # Constants made where the uniforms are (a fill, not a host copy: no sync on a card).
+    const = functools.partial(torch.full, (), dtype=f32, device=u_len.device)
+    min_len = const(min_gap_ms * sample_rate / 1000.0)
+    max_len = const(max_gap_ms * sample_rate / 1000.0)
     lengths = torch.maximum(min_len, u_len * (max_len - min_len) + min_len).to(i32)
 
     total = lengths.sum(-1, keepdim=True, dtype=i32)
     reserved = (n_gaps + 1) * min_dist_samples
     free = audio_len - total - reserved
-    shrink = torch.tensor(float(audio_len - reserved), dtype=f32) / torch.clamp_min(total, 1).to(f32)
-    scale = torch.where(free < 0, shrink, torch.ones((), dtype=f32))
+    shrink = const(float(audio_len - reserved)) / torch.clamp_min(total, 1).to(f32)
+    scale = torch.where(free < 0, shrink, const(1.0))
     lengths = torch.clamp_min((lengths.to(f32) * torch.clamp(scale, 0.05, 1.0)).to(i32), MIN_LENGTH)
     total = lengths.sum(-1, keepdim=True, dtype=i32)
     free = torch.clamp_min(audio_len - total - reserved, 0)
 
     # Stick-breaking: the free space over the K+1 slots, cut at the sorted uniforms.
     u = torch.sort(u_pos, dim=-1).values
-    edge = torch.zeros((*u.shape[:-1], 1), dtype=f32)
+    edge = torch.zeros((*u.shape[:-1], 1), dtype=f32, device=u.device)
     bounds = torch.cat([edge, u, edge + 1.0], dim=-1)
     slots = (torch.diff(bounds, dim=-1) * free.to(f32)).to(i32)  # (..., K+1)
 
     gap_offsets = torch.cumsum(lengths, -1, dtype=i32) - lengths
     spacing = torch.cumsum(slots[..., :-1], -1, dtype=i32) + min_dist_samples * (
-        torch.arange(n_gaps, dtype=i32) + 1)
+        torch.arange(n_gaps, dtype=i32, device=u.device) + 1)
     return spacing + gap_offsets, lengths
 
 

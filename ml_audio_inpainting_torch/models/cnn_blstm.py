@@ -2,12 +2,16 @@
 ``ml_audio_inpainting_tpu/models/cnn_blstm.py::StackedBLSTMCNN``).
 
 The convs run in NCHW with H = frequency and W = time; the public interface
-stays ``(B, F, T)`` log spectrograms, as in the JAX model.  The JAX model
-works in NHWC ``(B, F, T, C)``, so the two reshapes around the BiLSTM follow
-its element order exactly:
+stays the JAX model's: ``(B, F, T)`` log spectrograms, or ``(B, F, T, C)``
+channels last (the phase-mode model's stacked real and imaginary STFT,
+``in_channels=2``), permuted inside.  The JAX model works in NHWC ``(B, F,
+T, C)``, so the two reshapes around the BiLSTM follow its element order
+exactly:
 
 * into the sequence, JAX flattens ``(B, F, T, C) -> (B, T, C, F) -> (B, T, C*F)``,
-  so here ``(B, C, F, T) -> (B, T, C, F)`` before the flatten;
+  so here ``(B, C, F, T) -> (B, T, C, F)`` before the flatten; with
+  ``global_pool`` (the v2-era lineage, ``cnn_blstm.py:71-74``) it takes the
+  mean over F instead, so the BiLSTM sees ``(B, T, C)``;
 * out of the projection, JAX reads ``(B, T, C*F)`` as ``(B, T, C, F)`` and
   moves it to ``(B, F, T, C)``, so here ``(B, T, C, F) -> (B, C, F, T)``.
 
@@ -124,14 +128,8 @@ class StackedBLSTMCNN(nn.Module):
         global_pool: bool = False,
     ):
         super().__init__()
-        if in_channels != 1:
-            raise NotImplementedError(
-                "in_channels=2 (phase-mode CNN) waits for the phase-mode slice of the port"
-            )
-        if global_pool:
-            raise NotImplementedError(
-                "global_pool (v2-era frequency mean-pool) waits for a later slice of the port"
-            )
+        self.in_channels = in_channels
+        self.global_pool = global_pool
         self.dec_filters = tuple(dec_filters)
         enc_channels = list(enc_filters) + [lstm_hidden_dim // 2]
         c_in = in_channels
@@ -140,7 +138,8 @@ class StackedBLSTMCNN(nn.Module):
             self.add_module(f"enc_bn{i}", FlaxBatchNorm2d(ch))
             c_in = ch
         self.num_enc = len(enc_channels)
-        self.lstm = BiLSTM(freq_bins * c_in, lstm_hidden_dim, num_lstm_layers)
+        self.lstm = BiLSTM(c_in if global_pool else freq_bins * c_in, lstm_hidden_dim,
+                           num_lstm_layers)
         self.projection = nn.Linear(2 * lstm_hidden_dim, freq_bins * self.dec_filters[0])
         self.dec_conv0 = nn.Conv2d(self.dec_filters[0], self.dec_filters[1], 3, padding=1)
         self.dec_bn0 = FlaxBatchNorm2d(self.dec_filters[1])
@@ -170,14 +169,19 @@ class StackedBLSTMCNN(nn.Module):
                 raise TypeError(f"no init rule for {name}: {type(module).__name__}")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``(B, F, T)`` log spectrograms -> ``(B, F, T)``."""
-        B, F, T = x.shape
-        h = x[:, None]  # (B, 1, F, T)
+        """``(B, F, T)`` -> ``(B, F, T)``, or ``(B, F, T, C)`` -> ``(B, F, T,
+        in_channels)`` (as the JAX model: a 3-D input is one channel)."""
+        squeeze = x.dim() == 3
+        h = x[:, None] if squeeze else x.permute(0, 3, 1, 2)  # (B, C, F, T)
+        B, _, F, T = h.shape
         for i in range(self.num_enc):
             h = getattr(self, f"enc_conv{i}")(h)
             h = torch.relu(getattr(self, f"enc_bn{i}")(h))
 
-        seq = h.permute(0, 3, 1, 2).reshape(B, T, -1)  # (B, T, C*F), JAX's order
+        if self.global_pool:
+            seq = h.mean(dim=2).transpose(1, 2)  # (B, T, C)
+        else:
+            seq = h.permute(0, 3, 1, 2).reshape(B, T, -1)  # (B, T, C*F), JAX's order
         seq = self.lstm(seq)
         seq = self.projection(seq)  # (B, T, dec0*F)
         h = seq.reshape(B, T, self.dec_filters[0], F).permute(0, 2, 3, 1)  # (B, dec0, F, T)
@@ -185,4 +189,21 @@ class StackedBLSTMCNN(nn.Module):
         h = torch.relu(self.dec_bn0(self.dec_conv0(h)))
         h = torch.relu(self.dec_bn1(self.dec_conv1(h)))
         h = self.dec_conv2(h)
-        return h[:, 0]
+        return h[:, 0] if squeeze else h.permute(0, 2, 3, 1)
+
+    def reconstruct_spectrogram(self, x: torch.Tensor, gap_mask: torch.Tensor) -> torch.Tensor:
+        """The prediction inside the gap (``gap_mask`` 1), the input outside
+        it, the model in eval mode (``cnn_blstm.py:99-115``).  In phase mode
+        ``x`` is ``(B, F, T, 2)`` real and imaginary channels and the result
+        is the complex ``(B, F, T)`` composite."""
+        was_training = self.training
+        self.eval()
+        try:
+            pred = self(x)
+        finally:
+            self.train(was_training)
+        if self.in_channels == 2:
+            pred_c = torch.complex(pred[..., 0], pred[..., 1])
+            in_c = torch.complex(x[..., 0], x[..., 1])
+            return pred_c * gap_mask + in_c * (1.0 - gap_mask)
+        return pred * gap_mask + x * (1.0 - gap_mask)

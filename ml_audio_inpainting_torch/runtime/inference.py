@@ -1,8 +1,9 @@
 """Batched inpainting: gapped waveform -> restored waveform (port of
 ``ml_audio_inpainting_tpu/runtime/inference.py``: ``make_gan_inpaint_fn``,
-``make_cnn_inpaint_fn``, the mask-driven ``make_gan_inpaint_mask_fn`` and
-``make_cnn_inpaint_mask_fn``, the shift ensemble ``make_tta_shift_fn``, and
-the checkpoint router ``route_checkpoint``).
+``make_cnn_inpaint_fn``, the phase-mode ``make_cnn_phase_inpaint_fn``, the
+mask-driven ``make_gan_inpaint_mask_fn`` and ``make_cnn_inpaint_mask_fn``, the
+shift ensemble ``make_tta_shift_fn``, and the checkpoint router
+``route_checkpoint``).
 
 GAN, per batch: the gap zeroed in time, the STFTs of the clean and the gapped
 clip, ``log1p`` of the gapped magnitude, the frame mask (1 = valid), the PConv
@@ -56,6 +57,7 @@ __all__ = [
     "PHASE_MODES",
     "make_gan_inpaint_fn",
     "make_cnn_inpaint_fn",
+    "make_cnn_phase_inpaint_fn",
     "make_gan_inpaint_mask_fn",
     "make_cnn_inpaint_mask_fn",
     "make_tta_shift_fn",
@@ -310,18 +312,70 @@ def make_cnn_inpaint_fn(cfg: Config, model: torch.nn.Module, phase: str = "oracl
     """
     _check_phase(phase)
     kw = _spec_kw(cfg)
-    hop = kw["hop_length"]
 
     @torch.inference_mode()
     def fn(
         audio: torch.Tensor, gap_start: torch.Tensor, gap_len: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        n_bins, n_frames = _frame_shape(kw, audio.shape[-1])
-        t = torch.arange(n_frames, device=audio.device)
-        hole = (t >= (gap_start // hop)[..., None]) & (t < ((gap_start + gap_len) // hop)[..., None])
-        gmask = hole.to(audio.dtype)[..., None, :].expand(*hole.shape[:-1], n_bins, n_frames)
+        gmask = _cnn_gap_frames(kw, audio, gap_start, gap_len)
         tmask = gap_mask(audio.shape[-1], gap_start, gap_len, dtype=audio.dtype)
         return _cnn_serve(model, audio, tmask, gmask, phase, gl_iters, kw)
+
+    return fn
+
+
+def _cnn_gap_frames(kw: dict, audio: torch.Tensor, gap_start: torch.Tensor,
+                    gap_len: torch.Tensor) -> torch.Tensor:
+    """``(B, F, N)`` frame gap mask (1 = gap) of one interval a clip, the
+    floor rule at both ends: frames ``[start // hop, (start + len) //
+    hop)``."""
+    hop = kw["hop_length"]
+    n_bins, n_frames = _frame_shape(kw, audio.shape[-1])
+    t = torch.arange(n_frames, device=audio.device)
+    hole = (t >= (gap_start // hop)[..., None]) & (t < ((gap_start + gap_len) // hop)[..., None])
+    return hole.to(audio.dtype)[..., None, :].expand(*hole.shape[:-1], n_bins, n_frames)
+
+
+def make_cnn_phase_inpaint_fn(cfg: Config, model: torch.nn.Module,
+                              anchored: bool = False) -> Callable:
+    """``fn(audio, gap_start, gap_len) -> (restored, composited)`` for the
+    phase-mode (complex 2-channel) CNN+BiLSTM (``inference.py:349-413``).
+
+    The model takes the gapped waveform's STFT as real and imaginary
+    channels and predicts the complex spectrogram, magnitude and phase, so
+    no phase regime applies: everything comes from the gapped waveform.  Its
+    prediction is composited into the gap frames (the floor rule at both
+    ends, as the training features), the gapped STFT kept elsewhere, the
+    iSTFT taken, and the input kept outside the gap in time, bit for bit.
+    ``composited`` is the complex ``(B, F, N)`` spectrogram.
+
+    ``anchored`` serves a model trained on the anchor-rotated target
+    (``cnn_phase_features(anchored=True)``): its output is multiplied by
+    ``exp(+i phi)``, ``phi`` the phase-vocoder extrapolation of the gapped
+    STFT's phase over the frames whose window touches the gap, computed as
+    in training.  The model runs in eval mode; the caller's mode is
+    restored after."""
+    kw = _spec_kw(cfg)
+
+    @torch.inference_mode()
+    def fn(
+        audio: torch.Tensor, gap_start: torch.Tensor, gap_len: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        n_samples = audio.shape[-1]
+        tmask = gap_mask(n_samples, gap_start, gap_len, dtype=audio.dtype)
+        spec_gap = stft(audio * tmask, **kw)
+        gmask = _cnn_gap_frames(kw, audio, gap_start, gap_len)
+        with _eval_mode(model):
+            pred = model(torch.stack([spec_gap.real, spec_gap.imag], dim=-1))
+        pred_c = torch.complex(pred[..., 0], pred[..., 1])
+        if anchored:
+            clear = window_clear_frame_mask(tmask, spec_gap.shape[-1], kw["hop_length"],
+                                            kw["n_fft"], win_length=kw["win_length"])
+            phi = extrapolate_phase(torch.angle(spec_gap), clear, kw["hop_length"], kw["n_fft"])
+            pred_c = pred_c * torch.polar(torch.ones_like(phi), phi)
+        composited = pred_c * gmask + spec_gap * (1.0 - gmask)
+        rec = istft(composited, length=n_samples, **kw)
+        return audio * tmask + rec * (1.0 - tmask), composited
 
     return fn
 

@@ -13,7 +13,7 @@ Mixed precision (``compute_dtype=torch.bfloat16``) is the JAX recipe
 (``cnn_trainer.py:128-136``), not ``torch.autocast``: the master weights,
 Adam's state, the EMA, the loss, the features and BatchNorm's running
 statistics stay f32, and the network's forward and backward run on bf16
-casts of the parameters and of ``log_gap``, made inside the graph
+casts of the parameters and of the network input, made inside the graph
 (``torch.func.functional_call``), so every op of the network runs in bf16
 and the f32 masters receive the bf16 gradients upcast by the casts'
 backward.  The loss is taken on the prediction upcast to f32.
@@ -38,8 +38,8 @@ import torch
 
 from ml_audio_inpainting_torch.models.build import build_model
 from ml_audio_inpainting_torch.models.cnn_blstm import StackedBLSTMCNN
-from ml_audio_inpainting_torch.train.features import cnn_features
-from ml_audio_inpainting_torch.train.losses import cnn_gap_l1_loss
+from ml_audio_inpainting_torch.train.features import cnn_features, cnn_phase_features
+from ml_audio_inpainting_torch.train.losses import cnn_gap_l1_loss, cnn_phase_l1_loss
 from ml_audio_inpainting_torch.utils.config import Config
 from ml_audio_inpainting_torch.utils.precision import cast_floating, full_f32_convolutions
 from ml_audio_inpainting_torch.weights import cnn_blstm_state_dict
@@ -101,18 +101,32 @@ def create_cnn_state(
     return CNNTrainState(model, optimizer, scheduler, ema_params)
 
 
-def _check_supported(compute_dtype, phase_mode: bool) -> None:
+def _check_supported(cfg: Config, compute_dtype, phase_mode: bool, phase_anchor: bool) -> None:
     if compute_dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype {compute_dtype}: the CNN+BiLSTM trains in f32 or "
                          "bfloat16")
-    if phase_mode:
-        raise NotImplementedError("phase_mode (the complex 2-channel CNN) waits for a later "
-                                  "slice of the port")
+    if phase_anchor and not phase_mode:
+        raise ValueError("phase_anchor requires phase_mode")
+    if phase_mode and cfg.model.cnn_blstm.in_channels != 2:
+        raise ValueError("phase_mode trains the 2-channel model: set "
+                         "cfg.model.cnn_blstm.in_channels = 2")
+    if phase_mode and cfg.data.train_n_gaps > 1:
+        raise ValueError("phase_mode has no multi-gap features (cnn_phase_features is "
+                         "single-gap)")
 
 
 def _batch(cfg: Config, audio: torch.Tensor, gap_start: torch.Tensor,
-           gap_len: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
-    return cnn_features(
+           gap_len: Optional[torch.Tensor], phase_mode: bool,
+           phase_anchor: bool) -> Dict[str, torch.Tensor]:
+    """The step's features: ``net_in`` (the model's input), ``gap_mask``,
+    and the loss's target, ``target`` (complex) in phase mode, else
+    ``target_mag``."""
+    if phase_mode:
+        batch = cnn_phase_features(audio, gap_start, cfg.data.spectrogram,
+                                   gap_len_s=cfg.data.gap_len_s,
+                                   sample_rate=cfg.data.sample_rate, anchored=phase_anchor)
+        return {**batch, "net_in": batch["spec_gap"]}
+    batch = cnn_features(
         audio,
         gap_start,
         cfg.data.spectrogram,
@@ -121,10 +135,18 @@ def _batch(cfg: Config, audio: torch.Tensor, gap_start: torch.Tensor,
         n_gaps=cfg.data.train_n_gaps,
         gap_len=gap_len,
     )
+    return {**batch, "net_in": batch["log_gap"]}
+
+
+def _loss(pred: torch.Tensor, batch: Dict[str, torch.Tensor], phase_mode: bool) -> torch.Tensor:
+    if phase_mode:
+        return cnn_phase_l1_loss(pred, batch["target"], batch["gap_mask"])
+    return cnn_gap_l1_loss(pred, batch["target_mag"], batch["gap_mask"])
 
 
 def make_cnn_train_step(
-    cfg: Config, ema: float = 0.0, compute_dtype=None, phase_mode: bool = False
+    cfg: Config, ema: float = 0.0, compute_dtype=None, phase_mode: bool = False,
+    phase_anchor: bool = False,
 ) -> Callable[..., Tuple[CNNTrainState, Dict]]:
     """``step(state, audio, gap_start, gap_len=None) -> (state, {"loss":
     loss})``: gaps -> STFTs -> forward (train mode) -> gap L1 -> backward ->
@@ -143,28 +165,33 @@ def make_cnn_train_step(
     ``ema`` > 0 blends ``ema * ema_params + (1 - ema) * params`` after the
     optimizer step.  ``compute_dtype=torch.bfloat16`` runs the network in
     bf16 as the module docstring says (f32 or None: the f32 step).
-    ``phase_mode`` waits for a later slice of the port and raises
-    ``NotImplementedError``.
+
+    ``phase_mode`` trains the complex 2-channel model
+    (``cfg.model.cnn_blstm.in_channels == 2``, one gap a variant,
+    ``cnn_trainer.py:86-116``): the gapped STFT's real and imaginary parts
+    in, the complex L1 on the gap out (:func:`cnn_phase_l1_loss`);
+    ``phase_anchor`` rotates the target by the deployable phase anchor
+    (:func:`~ml_audio_inpainting_torch.train.features.cnn_phase_features`).
     """
-    _check_supported(compute_dtype, phase_mode)
+    _check_supported(cfg, compute_dtype, phase_mode, phase_anchor)
     mixed = compute_dtype == torch.bfloat16
 
-    def forward(model: StackedBLSTMCNN, log_gap: torch.Tensor) -> torch.Tensor:
+    def forward(model: StackedBLSTMCNN, net_in: torch.Tensor) -> torch.Tensor:
         if not mixed:
-            return model(log_gap)
+            return model(net_in)
         params = cast_floating(dict(model.named_parameters()), compute_dtype)
-        return torch.func.functional_call(model, params, (log_gap.to(compute_dtype),))
+        return torch.func.functional_call(model, params, (net_in.to(compute_dtype),))
 
     def step(state: CNNTrainState, audio: torch.Tensor, gap_start: torch.Tensor,
              gap_len: Optional[torch.Tensor] = None):
         model = state.model
         model.train()
         with torch.no_grad():
-            batch = _batch(cfg, audio, gap_start, gap_len)
+            batch = _batch(cfg, audio, gap_start, gap_len, phase_mode, phase_anchor)
         state.optimizer.zero_grad(set_to_none=True)
         with full_f32_convolutions():  # forward and backward, as the f32 reference
-            pred = forward(model, batch["log_gap"])
-            loss = cnn_gap_l1_loss(pred.float(), batch["target_mag"], batch["gap_mask"])
+            pred = forward(model, batch["net_in"])
+            loss = _loss(pred.float(), batch, phase_mode)
             loss.backward()
         state.optimizer.step()
         if state.scheduler is not None:
@@ -181,22 +208,23 @@ def make_cnn_train_step(
 
 
 def make_cnn_eval_step(
-    cfg: Config, phase_mode: bool = False
+    cfg: Config, phase_mode: bool = False, phase_anchor: bool = False
 ) -> Callable[..., Dict]:
     """``step(state, audio, gap_start, gap_len=None) -> {"loss": loss}``:
     the validation loss of the live parameters with BatchNorm's running
     statistics (eval mode), under ``torch.inference_mode``, in f32 as in
-    JAX; the gaps as for :func:`make_cnn_train_step`.  The model is left in
-    eval mode; the train step switches it back."""
-    _check_supported(None, phase_mode)
+    JAX; the gaps, ``phase_mode`` and ``phase_anchor`` as for
+    :func:`make_cnn_train_step`.  The model is left in eval mode; the train
+    step switches it back."""
+    _check_supported(cfg, None, phase_mode, phase_anchor)
 
     @torch.inference_mode()
     def step(state: CNNTrainState, audio: torch.Tensor, gap_start: torch.Tensor,
              gap_len: Optional[torch.Tensor] = None):
         state.model.eval()
-        batch = _batch(cfg, audio, gap_start, gap_len)
+        batch = _batch(cfg, audio, gap_start, gap_len, phase_mode, phase_anchor)
         with full_f32_convolutions():
-            pred = state.model(batch["log_gap"])
-        return {"loss": cnn_gap_l1_loss(pred, batch["target_mag"], batch["gap_mask"])}
+            pred = state.model(batch["net_in"])
+        return {"loss": _loss(pred, batch, phase_mode)}
 
     return step

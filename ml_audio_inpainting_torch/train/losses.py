@@ -1,5 +1,6 @@
 """Training losses of both families (port of
-``ml_audio_inpainting_tpu/train/losses.py``): the CNN+BiLSTM's gap L1, and
+``ml_audio_inpainting_tpu/train/losses.py``): the CNN+BiLSTM's gap L1 and
+its phase-mode complex L1, and
 the GAN's six-term generator objective and BCE discriminator loss
 (``losses.py:66-119``)."""
 
@@ -9,7 +10,8 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-__all__ = ["bce_with_logits", "cnn_gap_l1_loss", "generator_losses", "discriminator_loss"]
+__all__ = ["bce_with_logits", "cnn_gap_l1_loss", "cnn_phase_l1_loss", "generator_losses",
+           "discriminator_loss"]
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -26,6 +28,19 @@ def cnn_gap_l1_loss(
     magnitude, inside the gap only (mask 1 = gap)."""
     pred_lin = torch.pow(10.0, log_pred)
     return torch.sum(torch.abs(pred_lin * gap_mask - target_mag * gap_mask))
+
+
+def cnn_phase_l1_loss(
+    pred_channels: torch.Tensor, target_complex: torch.Tensor, gap_mask: torch.Tensor
+) -> torch.Tensor:
+    """Complex L1 of the phase-mode model (``losses.py:48-59``): the summed
+    modulus of ``(pred - target) * gap_mask``, ``pred_channels`` ``(B, F, T,
+    2)`` real and imaginary parts.  The modulus is the complex ``abs``,
+    whose gradient at an exact zero (every bin outside the gap) is 0, as
+    JAX's is, not the NaN of ``sqrt(re^2 + im^2)``."""
+    pred_c = torch.complex(pred_channels[..., 0], pred_channels[..., 1])
+    err = (pred_c - target_complex) * gap_mask
+    return torch.sum(torch.abs(err))
 
 
 def generator_losses(

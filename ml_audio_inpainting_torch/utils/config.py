@@ -1,20 +1,23 @@
 """Configuration tree of the port: the CNN+BiLSTM and the GAN, serving and
 training.
 
-A copy of the dataclasses of ``ml_audio_inpainting_tpu/utils/config.py``
-that the port's paths read, with the same field names, defaults and YAML
-key layout, so a config file loads the same in both packages.  Sections and
-keys the paths do not read (resuming, paths, logging, mesh) are ignored by
-:meth:`Config.from_dict`.
+A copy of the dataclasses of ``ml_audio_inpainting_tpu/utils/config.py``,
+with the same field names, defaults and YAML key layout, so a config file
+loads the same in both packages: data, model and training (with its resume
+keys), and the run's ``paths``, ``logging`` and ``mesh`` sections that the
+training CLI reads (``cli/train.py``; the mesh is recorded, one device).
 
-``yaml`` is imported only inside :meth:`Config.from_yaml`: code that builds
-its config in Python (``gan_profile_config(None)``, ``Config()``) needs no
-YAML package.
+``yaml`` is imported only inside :meth:`Config.from_yaml`, and only for a
+file that is not JSON: code that builds its config in Python
+(``gan_profile_config(None)``, ``Config()``) or reads a ``.json`` config
+needs no YAML package (JSON is YAML, so the JAX package's ``load_config``
+reads the same file the same way).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple, Union
@@ -27,6 +30,9 @@ __all__ = [
     "CNNBLSTMConfig",
     "ModelConfig",
     "TrainingConfig",
+    "PathsConfig",
+    "LoggingConfig",
+    "MeshConfig",
     "Config",
     "load_config",
     "gan_profile_config",
@@ -194,6 +200,46 @@ class TrainingConfig:
     starter_learning_rate: float = 1e-4
     lr_decay: float = 1.0
     max_n_epochs: int = 50
+    resume_from_chkpt: bool = False
+    resume_run_name: Optional[str] = None
+    resume_epoch: Optional[int] = None
+
+
+@dataclass
+class PathsConfig:
+    """Where a training run writes, under the CLI's ``--base-dir``."""
+
+    tensorboard_dir: str = "./tensorboard"
+    checkpoint_dir: str = "./checkpoints"
+    log_dir: str = "./logs"
+    sample_dir: str = "./samples"
+    resume_mdl_path: Optional[str] = None
+
+
+@dataclass
+class LoggingConfig:
+    """The training CLI's intervals, in steps (``checkpoint_interval`` in
+    epochs) and its default run name."""
+
+    log_interval: int = 100
+    checkpoint_interval: int = 5
+    sample_interval: int = 500
+    metric_interval: int = 25
+    spectrogram_interval: int = 100
+    audio_interval: int = 500
+    num_workers: int = 4
+    run_name: str = "run"
+
+
+@dataclass
+class MeshConfig:
+    """The JAX package's device-mesh layout, kept so a config round-trips;
+    the port trains on one device."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1
+    model_parallel: int = 1
 
 
 @dataclass
@@ -201,6 +247,9 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     training: TrainingConfig = field(default_factory=TrainingConfig)
+    paths: PathsConfig = field(default_factory=PathsConfig)
+    logging: LoggingConfig = field(default_factory=LoggingConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "Config":
@@ -209,24 +258,32 @@ class Config:
             cfg.data = DataConfig.from_dict(d["data"])
         if "model" in d:
             cfg.model = ModelConfig.from_dict(d["model"])
-        if "training" in d:
-            cfg.training = TrainingConfig(**_filtered(TrainingConfig, d["training"]))
+        for name, section in (("training", TrainingConfig), ("paths", PathsConfig),
+                              ("logging", LoggingConfig), ("mesh", MeshConfig)):
+            if name in d:
+                setattr(cfg, name, section(**_filtered(section, d[name])))
         return cfg
 
     @classmethod
     def from_yaml(cls, path: Union[str, Path]) -> "Config":
-        import yaml
+        """The config of a YAML file; a file whose text is JSON is parsed
+        with ``json`` (no YAML package needed)."""
+        text = Path(path).read_text()
+        try:
+            tree = json.loads(text)
+        except ValueError:
+            import yaml
 
-        with open(path, "r") as f:
-            return cls.from_dict(yaml.safe_load(f) or {})
+            tree = yaml.safe_load(text)
+        return cls.from_dict(tree or {})
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 
 
 def load_config(config_path: Union[str, Path]) -> Config:
-    """The config of a YAML file (this repo's ``configs/*.yaml`` and the
-    reference's key layout)."""
+    """The config of a YAML (or JSON) file (this repo's ``configs/*.yaml``
+    and the reference's key layout)."""
     return Config.from_yaml(config_path)
 
 

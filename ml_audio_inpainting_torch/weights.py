@@ -124,7 +124,10 @@ def cnn_blstm_flat_variables(tensors: Mapping[str, torch.Tensor]) -> Dict[str, n
 def cnn_blstm_from_numpy(flat: Mapping[str, np.ndarray], device="cuda") -> StackedBLSTMCNN:
     """:class:`StackedBLSTMCNN` on ``device`` in eval mode, with its widths
     read off the weights' shapes and the weights loaded (strictly: a missing
-    or extra key raises)."""
+    or extra key raises).  The input channels come from the first conv (2:
+    the phase-mode model), the frequency bins from the projection, and
+    ``global_pool`` from the first BiLSTM layer's input width: the encoder's
+    channels alone, not channels x bins (``port_torch.py:164``'s rule)."""
     p = "params/"
     n_enc = 0
     while f"{p}enc_conv{n_enc}/kernel" in flat:
@@ -134,16 +137,17 @@ def cnn_blstm_from_numpy(flat: Mapping[str, np.ndarray], device="cuda") -> Stack
     while f"{p}lstm/l{num_layers}_fwd_w_hh" in flat:
         num_layers += 1
     hidden = np.shape(flat[f"{p}lstm/l0_fwd_w_hh"])[0]
+    dec_filters = (np.shape(flat[f"{p}dec_conv1/kernel"])[3],
+                   np.shape(flat[f"{p}dec_conv0/kernel"])[3])
+    freq_bins = np.shape(flat[f"{p}projection/kernel"])[1] // dec_filters[0]
     model = StackedBLSTMCNN(
         in_channels=np.shape(flat[f"{p}enc_conv0/kernel"])[2],
         num_lstm_layers=num_layers,
         lstm_hidden_dim=hidden,
-        freq_bins=np.shape(flat[f"{p}lstm/l0_fwd_w_ih"])[0] // enc_out[-1],
+        freq_bins=freq_bins,
         enc_filters=tuple(enc_out[:-1]),
-        dec_filters=(
-            np.shape(flat[f"{p}dec_conv1/kernel"])[3],
-            np.shape(flat[f"{p}dec_conv0/kernel"])[3],
-        ),
+        dec_filters=dec_filters,
+        global_pool=np.shape(flat[f"{p}lstm/l0_fwd_w_ih"])[0] != freq_bins * enc_out[-1],
     )
     model.load_state_dict(cnn_blstm_state_dict(flat))
     return model.to(device).eval()

@@ -32,8 +32,9 @@ What is held, and how close:
 * ``--longform`` on a 12 s file: as ``inpaint`` (JAX returns the overlap-add,
   the port composites in time, which differ only by rounding outside the
   gap).
-* Every model and option that the port does not have yet raises
-  ``SystemExit`` naming its ROADMAP item.
+* The phase-mode models, reference ``.pt`` checkpoints and no checkpoint
+  (fresh weights) are served; every model and option that the port does
+  not have yet raises ``SystemExit`` naming its ROADMAP item.
 """
 
 import argparse
@@ -120,6 +121,13 @@ def narrow(tmp_path_factory):
         export_params_npz(d / f"{name}.npz", variables)
         out[name] = {"config": str(path), "checkpoint": str(d / f"{name}.npz"), "net": net,
                      "variables": jax.tree_util.tree_map(jnp.asarray, variables), "jcfg": jcfg}
+    # The phase-mode model of the narrow CNN+BiLSTM config (2 channels in and out).
+    net = JaxCNN(in_channels=2, num_lstm_layers=2, lstm_hidden_dim=16, freq_bins=257,
+                 enc_filters=(4, 8), dec_filters=(4, 8))
+    variables = jax.jit(lambda k, a: net.init(k, a, train=False))(
+        jax.random.PRNGKey(0), jnp.zeros((1, 257, 84, 2)))
+    export_params_npz(d / "cnn_phase.npz", _redrawn(variables, 22, 0.2))
+    out["cnn_phase"] = str(d / "cnn_phase.npz")
     return out
 
 
@@ -383,23 +391,68 @@ def _inpaint_args(narrow, *extra, model="gan"):
 
 
 @pytest.mark.parametrize("model", ["refiner", "cnn_phase", "cnn_phase_anchored"])
-def test_unported_models_raise(narrow, model):
-    with pytest.raises(SystemExit, match="ROADMAP Queue A item"):
-        inpaint.main(["--model", model, "--checkpoint", narrow["gan"]["checkpoint"],
-                      "--input", str(narrow["clips"]), "--output", "unused", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="ROADMAP Queue A item"):
-        evaluate.main(["--models", "gan", model, "--checkpoint", narrow["gan"]["checkpoint"],
-                       "--input", str(narrow["clips"]), "--device", "cpu"])
+def test_unported_models_raise(narrow, tmp_path, model):
+    """The ``refiner`` still raises, naming its ROADMAP item.  The phase-mode
+    models, once refused, are ported: a narrow npz through both packages'
+    ``inpaint`` (within one LSB; inside the anchored gap within 2e-3 of its
+    peak, the anchor's rounding, ``tests/test_torch_phase_cnn.py``) and
+    ``evaluate`` (the JSON within ``2e-3``)."""
+    if model == "refiner":
+        with pytest.raises(SystemExit, match="ROADMAP Queue A item 6"):
+            inpaint.main(["--model", model, "--checkpoint", narrow["gan"]["checkpoint"],
+                          "--input", str(narrow["clips"]), "--output", "unused", "--device",
+                          "cpu"])
+        with pytest.raises(SystemExit, match="ROADMAP Queue A item 6"):
+            evaluate.main(["--models", "gan", model, "--checkpoint", narrow["gan"]["checkpoint"],
+                           "--input", str(narrow["clips"]), "--device", "cpu"])
+        return
+    common = ["--config", narrow["cnn_blstm"]["config"], "--checkpoint", narrow["cnn_phase"],
+              "--input", str(narrow["clips"]), "--gap-start", "0.5"]
+    jax_inpaint.main(["--model", model, *common, "--output", str(tmp_path / "jax")])
+    inpaint.main(["--model", model, *common, "--output", str(tmp_path / "port"), "--device",
+                  "cpu"])
+    _within_one_lsb(tmp_path / "port", tmp_path / "jax", slice(8000, 9280),
+                    2e-3 if model == "cnn_phase_anchored" else 0.0)
+    got, want = _evaluate_both(tmp_path, ["--models", model, *common])
+    assert got["condition"] == want["condition"] and "phase" not in got["condition"]
+    _check_results(got["results"], want["results"])
+    with pytest.raises(SystemExit, match="single-gap"):
+        evaluate.main(["--models", model, *common, "--n-gaps", "2", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("checkpoint", ["orbax_dir", "model.pt", "model.pth", None])
 def test_unported_checkpoints_raise(narrow, tmp_path, checkpoint):
-    args = ["--model", "cnn_blstm", "--input", str(narrow["clips"]), "--output", "unused"]
-    if checkpoint is not None:
-        (tmp_path / "orbax_dir").mkdir()
-        args += ["--checkpoint", str(tmp_path / checkpoint)]
-    with pytest.raises(SystemExit, match="ROADMAP Queue A item 4"):
-        inpaint.main([*args, "--device", "cpu"])
+    """Once refused, these checkpoints are ported, as the JAX CLI serves
+    them: a reference ``.pt``/``.pth`` (a seeded state dict of the narrow
+    widths in the reference's layout) through both packages' ``inpaint``
+    (within one LSB), and no checkpoint: fresh weights from the port's
+    initialiser seeded 0 (JAX draws its own from ``PRNGKey(0)``), the same
+    files twice.  A directory that JAX's orbax wrote raises, naming the way
+    across (``export_params_npz``)."""
+    from test_torch_port_torch import reference_cnn_state_dict
+
+    args = ["--model", "cnn_blstm", "--config", narrow["cnn_blstm"]["config"], "--input",
+            str(narrow["clips"]), "--gap-start", "0.5"]
+    if checkpoint == "orbax_dir":
+        (tmp_path / "orbax_dir" / "3" / "default").mkdir(parents=True)
+        (tmp_path / "orbax_dir" / "3" / "_CHECKPOINT_METADATA").write_text("{}")
+        with pytest.raises(ValueError, match="export_params_npz"):
+            inpaint.main([*args, "--checkpoint", str(tmp_path / checkpoint), "--output",
+                          "unused", "--device", "cpu"])
+        return
+    if checkpoint is None:
+        for out in ("one", "two"):
+            inpaint.main([*args, "--output", str(tmp_path / out), "--device", "cpu"])
+        one, two = _decoded(tmp_path / "one"), _decoded(tmp_path / "two")
+        assert sorted(one) == sorted(two) and len(one) == 4
+        for name in one:
+            np.testing.assert_array_equal(one[name], two[name])
+        return
+    torch.save(reference_cnn_state_dict(5), tmp_path / checkpoint)
+    args += ["--checkpoint", str(tmp_path / checkpoint)]
+    jax_inpaint.main([*args, "--output", str(tmp_path / "jax")])
+    inpaint.main([*args, "--output", str(tmp_path / "port"), "--device", "cpu"])
+    _within_one_lsb(tmp_path / "port", tmp_path / "jax")
 
 
 @pytest.mark.parametrize("extra,match", [

@@ -111,8 +111,17 @@ def test_unexpected_weight_key_raises():
 
 @pytest.mark.parametrize("kw", [dict(in_channels=2), dict(global_pool=True)])
 def test_later_slice_variants_raise(kw):
-    with pytest.raises(NotImplementedError):
-        StackedBLSTMCNN(**kw)
+    """Once refused, both variants are ported now: they build, with the
+    BiLSTM input their layout gives (channels x bins, or channels alone),
+    and map ``(B, F, T, C)`` (phase mode) or ``(B, F, T)`` through.  Their
+    numbers against JAX: ``tests/test_torch_phase_cnn.py``."""
+    model = StackedBLSTMCNN(num_lstm_layers=1, lstm_hidden_dim=8, freq_bins=9,
+                            enc_filters=(2, 3), dec_filters=(2, 3), **kw)
+    phase = kw.get("in_channels") == 2
+    assert model.lstm.l0_fwd_w_ih.shape[0] == (4 * 9 * 2 // 2 if phase else 4)
+    shape = (2, 9, 5, 2) if phase else (2, 9, 5)
+    with torch.no_grad():
+        assert model.eval()(torch.zeros(shape)).shape == shape
 
 
 def test_committed_checkpoint_full_width_matches_flax(speech_like):

@@ -305,13 +305,22 @@ def test_eval_step_matches_jax():
 
 
 def test_later_slice_options_raise():
+    """f16 is refused; ``phase_mode`` (ported: ``tests/test_torch_phase_train.py``)
+    is refused only where it cannot run: on the 1-channel model, with
+    multi-gap features, and ``phase_anchor`` without it."""
     cfg = Config.from_dict(_cfg_dict())
     with pytest.raises(ValueError, match="compute_dtype"):  # f32 and bf16 only
         make_cnn_train_step(cfg, compute_dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="phase_mode"):
+    with pytest.raises(ValueError, match="in_channels"):
         make_cnn_train_step(cfg, phase_mode=True)
-    with pytest.raises(NotImplementedError, match="phase_mode"):
-        make_cnn_eval_step(cfg, phase_mode=True)
+    with pytest.raises(ValueError, match="phase_anchor"):
+        make_cnn_eval_step(cfg, phase_anchor=True)
+    cfg.model.cnn_blstm.in_channels = 2
+    make_cnn_train_step(cfg, phase_mode=True, phase_anchor=True)
+    make_cnn_eval_step(cfg, phase_mode=True)
+    cfg.data.train_n_gaps = 3
+    with pytest.raises(ValueError, match="single-gap"):
+        make_cnn_train_step(cfg, phase_mode=True)
 
 
 def test_fresh_init_follows_the_jax_distributions():

@@ -338,8 +338,8 @@ def test_runner_checks_its_checkpoint_and_config():
     _, cfg = _configs(tiny=True)
     with pytest.raises(RuntimeError, match="size mismatch"):
         make_gan_runner(cfg, CKPT, device="cpu")
-    with pytest.raises(ValueError, match="npz"):
-        make_gan_runner(Config(), "generator.pt", device="cpu")
+    with pytest.raises(ValueError, match="npz"):  # .pt and directories are served now
+        make_gan_runner(Config(), "generator.bin", device="cpu")
 
 
 def test_runner_bf16_keeps_its_generator_f32():

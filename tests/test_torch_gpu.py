@@ -1102,3 +1102,95 @@ def test_classical_cli_on_card_matches_cpu(cuda_device, tmp_path):
         outside[gap] = False
         assert np.abs(got - want)[outside].max() <= 1.0001 / 32768
         assert np.abs(got - want)[gap].max() <= max(3 / 32768, 1e-3 * np.abs(want[gap]).max())
+
+
+# The training CLI's slice: the phase-mode step, the global-pool forward and
+# checkpoints of state on the card.  Bounds as the training step's above
+# (loss 1e-4 relative, gradients 1e-3 of their largest entry); the
+# global-pool forward within 1e-4 of its output's largest entry.
+
+def _phase_cfg() -> Config:
+    return Config.from_dict({
+        "data": {"max_len_s": 1.0, "gap_len_s": 0.1},
+        "model": {"in_channels": 2, "num_lstm_layers": 2, "lstm_hidden_dim": 16,
+                  "enc_filters": [4, 8], "dec_filters": [4, 8]},
+        "training": {"starter_learning_rate": 1e-3},
+    })
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("anchored", [False, True], ids=["plain", "anchored"])
+def test_phase_mode_step_on_card_matches_cpu(cuda_device, anchored):
+    """The anchored target's anchor is ill-conditioned on quiet bins, so the
+    anchored step is held at 5e-2 of each gradient's largest entry
+    (``chip_smoke.py``'s ``CLI_ANCHORED_GRAD_RTOL``)."""
+    cfg = _phase_cfg()
+    init = create_cnn_state(cfg, device="cpu", seed=2)
+    flat = cnn_blstm_flat_variables(init.model.state_dict())
+    audio = speech_like_batch(np.random.default_rng(3), 2, 1.0)
+    starts = torch.tensor([[1000, 9000], [4000, 12000]])
+    out = {}
+    for device in (cuda_device, "cpu"):
+        state = create_cnn_state(cfg, device=device, params=flat)
+        _, m = make_cnn_train_step(cfg, phase_mode=True, phase_anchor=anchored)(
+            state, torch.tensor(audio, device=device), starts.to(device))
+        out[str(device)] = (m["loss"].item(), {n: p.grad.cpu() for n, p in
+                                               state.model.named_parameters()})
+    (loss_d, g_d), (loss_c, g_c) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(loss_d, loss_c, rtol=1e-4)
+    g_max = max(g.abs().max().item() for g in g_c.values())
+    rtol = 5e-2 if anchored else 1e-3
+    for name, want in g_c.items():
+        noise = name.startswith(("enc_conv", "dec_conv0", "dec_conv1")) and name.endswith(".bias")
+        scale = g_max if noise else want.abs().max().item()
+        assert (g_d[name] - want).abs().max().item() <= rtol * scale, name
+
+
+@pytest.mark.gpu
+def test_global_pool_forward_on_card_matches_cpu(cuda_device):
+    from ml_audio_inpainting_torch.models.port_torch import (
+        load_torch_cnn_blstm,
+        seeded_reference_cnn_state_dict,
+    )
+
+    sd = seeded_reference_cnn_state_dict(4, hidden=64, global_pool=True)
+    model_c, _ = load_torch_cnn_blstm(sd)
+    model_d, _ = load_torch_cnn_blstm(sd, device=cuda_device)
+    assert model_d.global_pool and model_d.lstm.hidden_dim == 64
+    x = torch.tensor(np.random.default_rng(5).standard_normal((2, 257, 84)), dtype=torch.float32)
+    before = lstm_cell.bilstm_recurrence.launches
+    with torch.no_grad():
+        want = model_c(x)
+        got = model_d(x.to(cuda_device)).cpu()
+    assert lstm_cell.bilstm_recurrence.launches - before == 3
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_card(cuda_device, tmp_path):
+    from ml_audio_inpainting_torch.train.checkpoints import CheckpointManager, state_tree
+
+    cfg = _phase_cfg()
+    state = create_cnn_state(cfg, device=cuda_device, ema=0.9, seed=1)
+    step = make_cnn_train_step(cfg, ema=0.9, phase_mode=True)
+    audio = torch.tensor(speech_like_batch(np.random.default_rng(6), 2, 1.0), device=cuda_device)
+    starts = torch.tensor([[2000, 7000], [3000, 11000]], device=cuda_device)
+    state, _ = step(state, audio, starts)
+    CheckpointManager(tmp_path).save(1, state)
+    fresh = create_cnn_state(cfg, device=cuda_device, ema=0.9, seed=7)
+    CheckpointManager(tmp_path).restore(fresh)
+    assert all(p.is_cuda for p in fresh.model.parameters())
+    assert all(v.is_cuda for s in fresh.optimizer.state.values() for k, v in s.items()
+               if k != "step")
+    want, got = state_tree(state), state_tree(fresh)
+
+    def equal(a, b):
+        if torch.is_tensor(b):
+            return torch.equal(a, b)
+        if isinstance(b, dict):
+            return a.keys() == b.keys() and all(equal(a[k], b[k]) for k in b)
+        if isinstance(b, (list, tuple)):
+            return len(a) == len(b) and all(equal(x, y) for x, y in zip(a, b))
+        return a == b
+
+    assert equal(got, want)

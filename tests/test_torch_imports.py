@@ -89,7 +89,8 @@ def test_port_package_has_every_slice_module():
         "models.vgg", "train.gan_trainer", "data.pipeline", "ops.linalg", "classical",
         "classical.arinpaint", "classical.presets", "classical.janssen", "classical.ola",
         "classical.support", "classical.spain", "classical.basisopt", "classical._slices",
-        "cli.ar_benchmark",
+        "cli.ar_benchmark", "cli.train", "models.port_torch", "models.legacy_blstm",
+        "utils.run_logging", "utils.visualize",
     ):
         assert f"ml_audio_inpainting_torch.{mod}" in names
 

@@ -213,8 +213,8 @@ def test_runner_rejects_mismatched_config_and_formats():
     cfg.model.cnn_blstm.lstm_hidden_dim = 64
     with pytest.raises(RuntimeError, match="size mismatch"):
         make_cnn_runner(cfg, CKPT, device="cpu")
-    with pytest.raises(ValueError, match="npz"):
-        make_cnn_runner(Config(), "weights.pt", device="cpu")
+    with pytest.raises(ValueError, match="npz"):  # .pt and directories are served now
+        make_cnn_runner(Config(), "weights.bin", device="cpu")
 
 
 @pytest.mark.parametrize("phase", ["extrapolate", "griffinlim"])
