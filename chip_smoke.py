@@ -212,7 +212,33 @@ Phases, each printing one flushed line per step with the seconds since start:
                  ``inpaint`` (arinpaint, tuned) and ``evaluate`` (janssen and
                  arinpaint, tuned) CLIs over the formant FLACs on the card
                  against the same CLIs on the CPU; no hand-written kernel
-                 launched (the family has none).
+                 launched (the family has none);
+11. refiner   -- the gap refiner (``train/refiner_trainer.py``): the committed
+                 ``gan_formant_v2_r2.npz`` under ``extrapolate``, the AR fill
+                 (p=512) and the committed ``refiner_formant_v2_r3.npz`` head
+                 (C=64) on B=32 synthetic 5 s clips, f32, TF32 off: first
+                 request s, warm ms, s-audio/s, peak memory, host syncs in a
+                 request (0, or it fails), and the CUDA-event ms of the GAN,
+                 the AR fill and the head each alone.  Checks: the input
+                 outside the gap bit for bit; clip 0 against the port on the
+                 CPU; a fresh head equal to the AR fill bit for bit.  Gap SDR
+                 of the refined and AR fills with bootstrap intervals over
+                 the synthetic clips and the formant FLACs (a record); the
+                 ``inpaint`` and ``evaluate`` (refiner, arinpaint tuned) CLIs
+                 on the FLACs, card against CPU.  ``cli/train_refiner.py``
+                 for 20 steps at its defaults (B=8, C=64) on a 64-clip
+                 formant_v2 corpus with a 16-clip probe every 10 (0 host
+                 syncs in the steps between them); a bare step through
+                 ``runtime/profiling.py::StepTimer``; step 0 of the head on
+                 the card (f32) against the CPU (f64); the export and its
+                 soup with the committed head (``cli/soup.py``) served by
+                 ``inpaint``.  ``evaluate --models gan --adapt-steps 10
+                 --adapt-probe-every 5`` on the FLACs, the runner's generator
+                 bit for bit as before.  ``ops/refine``'s
+                 ``consistent_reconstruct`` (100 iterations) and
+                 ``magnitude_descent`` (50 steps, an AR term) on the GAN's
+                 magnitude from the AR fill at B=32: times, 0 host syncs, f64
+                 card against CPU.  No hand-written kernel launched.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and the script
@@ -258,7 +284,9 @@ from ml_audio_inpainting_torch.ops.cuda.lstm_cell import (
     load_library,
     lstm_recurrence_backward_reference,
 )
-from ml_audio_inpainting_torch.cli import evaluate, inpaint
+from ml_audio_inpainting_torch.classical.arinpaint import arinpaint
+from ml_audio_inpainting_torch.cli import evaluate, inpaint, train_refiner
+from ml_audio_inpainting_torch.cli import soup as soup_cli
 from ml_audio_inpainting_torch.cli import train as train_cli
 from ml_audio_inpainting_torch.data import audio_io
 from ml_audio_inpainting_torch.data.audio_io import read_audio, save_audio
@@ -267,12 +295,15 @@ from ml_audio_inpainting_torch.data.multigap import multi_gap_mask
 from ml_audio_inpainting_torch.data.pipeline import device_corpus_feed
 from ml_audio_inpainting_torch.models.build import build_model
 from ml_audio_inpainting_torch.models.port_torch import seeded_reference_cnn_state_dict
+from ml_audio_inpainting_torch.models.refiner import WaveRefiner
 from ml_audio_inpainting_torch.models.vgg import vgg19_params
 from ml_audio_inpainting_torch.ops import masking
 from ml_audio_inpainting_torch.ops.gaps import frame_mask_from_interval, gap_mask
+from ml_audio_inpainting_torch.ops.linalg import lpc
 from ml_audio_inpainting_torch.ops.lstm import BiLSTM
 from ml_audio_inpainting_torch.ops.pcm import to_pcm16
 from ml_audio_inpainting_torch.ops.phase import window_clear_frame_mask
+from ml_audio_inpainting_torch.ops.refine import consistent_reconstruct, magnitude_descent
 from ml_audio_inpainting_torch.ops.stft import stft
 from ml_audio_inpainting_torch.runtime.inference import (
     make_cnn_inpaint_fn,
@@ -282,7 +313,8 @@ from ml_audio_inpainting_torch.runtime.inference import (
     make_tta_shift_fn,
 )
 from ml_audio_inpainting_torch.runtime.longform import longform_inpaint, longform_inpaint_centered
-from ml_audio_inpainting_torch.runtime.serve import make_cnn_runner, make_gan_runner
+from ml_audio_inpainting_torch.runtime.profiling import StepTimer
+from ml_audio_inpainting_torch.runtime.serve import load_generator, make_cnn_runner, make_gan_runner
 from ml_audio_inpainting_torch.runtime.transport import (
     DEFAULT_PATCH_WINDOW,
     composite_gap_patch,
@@ -318,10 +350,25 @@ from ml_audio_inpainting_torch.train.recipe import (
     multi_gap_layouts,
     recipe_config,
 )
+from ml_audio_inpainting_torch.train.refiner_trainer import (
+    MAX_GAP,
+    _gap_loss,
+    create_refiner_state,
+    draw_refiner_gaps,
+    load_refiner,
+    make_example_fn,
+    make_refiner_apply_fn,
+    make_refiner_train_step,
+)
 from ml_audio_inpainting_torch.utils.branch_tape import branch_tape
 from ml_audio_inpainting_torch.utils.config import Config, load_config
 from ml_audio_inpainting_torch.utils.precision import cast_floating, full_f32_convolutions
-from ml_audio_inpainting_torch.weights import cnn_blstm_flat_variables, load_params_npz
+from ml_audio_inpainting_torch.utils.stats import bootstrap_ci
+from ml_audio_inpainting_torch.weights import (
+    cnn_blstm_flat_variables,
+    load_params_npz,
+    refiner_state_dict,
+)
 from scripts.torch_classical_precision import CLASSICAL_RUNS, classical_runner
 from scripts.torch_cnn_serving_profile import busy_us
 
@@ -3221,6 +3268,448 @@ def _training_cli(card: str, work: Path) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ refiner
+
+# refiner: the gap refiner (committed GAN + AR fill + committed head) served,
+# trained through cli/train_refiner.py, test-time adaptation through evaluate,
+# and the ops/refine solvers, at B=32 x 5 s, f32, TF32 off.
+REFINER_CHECKPOINT = REPO / "results" / "checkpoints" / "refiner_formant_v2_r3.npz"
+REFINER_WARM = 3
+REFINER_SPLIT_REPS = 3  # CUDA-event reps of each part of a request
+# Clip 0 on the card against the port on the CPU, inside the gap, as a share
+# of the CPU's gap peak: the neural channel is the GAN under extrapolate, so
+# serving_deployable's GAN bound (its phase can wrap a turn elsewhere on the
+# card); the AR channel's f32 Levinson rounds apart well inside it (the
+# classical phase's f32 CLI bound, 1e-3 of the gap's peak).
+REFINER_RTOL = GAN_DEPLOYABLE_RTOL
+# evaluate on the formant FLACs, card against CPU: the refiner's gap SDR
+# within the extrapolate bound of the evaluation phase, arinpaint (tuned) as
+# the classical phase holds it.
+REFINER_EVAL_SDR_DB = EVAL_SDR_DB["extrapolate"]
+# training: 20 steps at the CLI's defaults (B=8, C=64, lr 3e-4) on a 64-clip
+# formant_v2 corpus, a 16-clip probe every 10 steps.  Clean steps: those
+# after which nothing but the step ran (a log follows step 0, a probe steps 9
+# and 19; the window of step i runs from step i-1's callback to its own).
+REFINER_CORPUS = 64
+REFINER_STEPS = 20
+REFINER_PROBE_EVERY = 10
+REFINER_PROBE_CLIPS = 16
+REFINER_CLEAN_STEPS = tuple(i for i in range(2, REFINER_STEPS) if i != REFINER_PROBE_EVERY)
+REFINER_TIMER_STEPS = 6  # bare steps through StepTimer, the first 2 left out
+# step 0 of the head on the card (f32) against the CPU (f64) on the card's
+# own example windows: loss rtol 1e-4, each gradient within 1e-3 of its
+# largest entry (the training phase's bounds: sums in another order).
+REFINER_STEP_LOSS_RTOL = 1e-4
+REFINER_STEP_GRAD_RTOL_OF_MAX = 1e-3
+REFINER_CHECK_CLIPS = 8
+# adaptation: evaluate --models gan --adapt-steps 10 --adapt-probe-every 5.
+ADAPT_STEPS = 10
+ADAPT_PROBE_EVERY = 5
+# ops/refine: 100 projections and 50 Adam steps (AR order 32 on the gap's
+# 4096-sample left context, weight 0.1) at B=32; f64 on the card against f64
+# on the CPU (clip 0) within 1e-6 of the gap's peak (sums in another order,
+# ~1e-16 a step, through 100 iterations; Adam on gap samples whose gradients
+# are far from rounding noise).
+REFINE_ITERS = 100
+REFINE_STEPS = 50
+REFINE_AR_ORDER = 32
+REFINE_AR_WEIGHT = 0.1
+REFINE_F64_RTOL = 1e-6
+
+
+def _refiner_quality(clean: torch.Tensor, restored: torch.Tensor, gap: torch.Tensor) -> dict:
+    """Per-clip gap SDR (dB) and its bootstrap-t 95 % interval over the finite
+    clips (a clip whose f32 AR fit blew up counts as non-finite)."""
+    sdr = metrics.gap_sdr(clean.double(), restored.double(), gap.double()).cpu().numpy()
+    keep = np.isfinite(sdr)
+    mean, lo, hi = bootstrap_ci(sdr[keep]) if keep.sum() else (np.nan,) * 3
+    return {"gap_sdr_db": [float(v) for v in sdr], "mean": float(mean), "ci95": [float(lo),
+            float(hi)], "n": int(keep.sum()), "non_finite_clips": int((~keep).sum())}
+
+
+def _refiner_serving(card: str, work: Path) -> dict:
+    """Serving at B=32 x 5 s: times, the split of a request, checks, quality,
+    then the inpaint and evaluate CLIs on the formant FLACs, card vs CPU."""
+    cfg = gan_config()
+    gen = load_generator(cfg, GAN_CHECKPOINT, DEVICE)
+    head = load_refiner(load_params_npz(REFINER_CHECKPOINT), DEVICE)
+    apply = make_refiner_apply_fn(cfg, gen)
+    audio = torch.tensor(synthetic_dataset_batch(B), device=DEVICE)
+    b, n = audio.shape
+    gs = torch.full((b,), GAP_START, device=DEVICE)
+    gl = torch.full((b,), GAP_LEN, device=DEVICE)
+    valid = gap_mask(n, gs, gl)
+    stats, restored = _timed_requests(lambda: apply(head, audio, gs, gl), "refiner serving",
+                                      b * n / SAMPLE_RATE, phase="refiner", warm=REFINER_WARM)
+    _check_outside("refiner serving", restored, audio, valid)
+
+    # The device time of each part of a request, each timed alone by CUDA events.
+    gan_fn = make_gan_inpaint_fn(cfg, gen, mode="enhanced", phase="extrapolate")
+    examples = make_example_fn(cfg, gen)
+    ex = examples(audio, gs, gl)
+    with full_f32_convolutions(), torch.inference_mode():
+        split = {
+            "gan_extrapolate_ms": cuda_ms(lambda: gan_fn(audio, gs, gl), REFINER_SPLIT_REPS, 1),
+            "ar_fill_ms": cuda_ms(lambda: arinpaint(audio * valid, valid, gs, gl, order=512,
+                                                   context=4096, max_gap=MAX_GAP),
+                                  REFINER_SPLIT_REPS, 1),
+            "head_ms": cuda_ms(lambda: head(ex["impaired"], ex["ar"], ex["neural"], ex["gap_ind"]),
+                               10, 2),
+        }
+    split["whole_request_ms"] = min(stats["warm_request_ms"])
+    split["rest_ms"] = split["whole_request_ms"] - sum(v for k, v in split.items()
+                                                       if k != "whole_request_ms")
+    stats["split"] = split
+    log("refiner", "device time of a request's parts, each alone (CUDA events): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in split.items()) + f" ({card})")
+
+    # A fresh head (zero last projection) is the AR fill inside the gap, bit for bit.
+    fresh = WaveRefiner().init_weights(torch.Generator().manual_seed(0)).to(DEVICE)
+    with torch.no_grad(), full_f32_convolutions():
+        first = fresh(ex["impaired"], ex["ar"], ex["neural"], ex["gap_ind"])
+    if not torch.equal(first, torch.where(ex["gap_ind"] > 0, ex["ar"], ex["impaired"])):
+        raise AssertionError("refiner: a fresh head is not the AR fill bit for bit")
+
+    # Clip 0 against the port on the CPU.
+    t0 = time.perf_counter()
+    cpu_gen = load_generator(cfg, GAN_CHECKPOINT, "cpu")
+    want = make_refiner_apply_fn(cfg, cpu_gen)(load_refiner(load_params_npz(REFINER_CHECKPOINT),
+                                                            "cpu"),
+                                               audio[:1].cpu(), gs[:1].cpu(), gl[:1].cpu())
+    stats["cpu_clip_s"] = time.perf_counter() - t0
+    stats["clip0_vs_cpu"] = _check_against_cpu("refiner clip 0", restored[:1], want, valid[:1],
+                                               REFINER_RTOL, phase="refiner")
+
+    # Quality record (not a gate): the refined and the AR-filled gap.
+    files = sorted(FORMANT_DIR.glob("*.flac"))
+    flacs = torch.tensor(evaluate.load_clean(files, Config()), device=DEVICE)
+    fgs = torch.full((len(files),), GAP_START, device=DEVICE)
+    fgl = torch.full((len(files),), GAP_LEN, device=DEVICE)
+    fvalid = gap_mask(flacs.shape[-1], fgs, fgl)
+    frestored = apply(head, flacs, fgs, fgl)
+    _check_outside("refiner FLACs", frestored, flacs, fvalid)
+    with torch.inference_mode():
+        ar_syn = arinpaint(audio * valid, valid, gs, gl, order=512, context=4096, max_gap=MAX_GAP)
+        ar_fl = arinpaint(flacs * fvalid, fvalid, fgs, fgl, order=512, context=4096,
+                          max_gap=MAX_GAP)
+    stats["quality"] = {
+        "synthetic": {"refined": _refiner_quality(audio, restored, 1 - valid),
+                      "ar": _refiner_quality(audio, ar_syn, 1 - valid)},
+        "flacs": {"refined": _refiner_quality(flacs, frestored, 1 - fvalid),
+                  "ar": _refiner_quality(flacs, ar_fl, 1 - fvalid)}}
+    for where, q in stats["quality"].items():
+        log("refiner", f"quality ({where}, record, not a gate): gap SDR refined "
+                       f"{q['refined']['mean']:.3f} dB (95 % CI {q['refined']['ci95'][0]:.3f} to "
+                       f"{q['refined']['ci95'][1]:.3f}, n={q['refined']['n']}, "
+                       f"{q['refined']['non_finite_clips']} non-finite), AR {q['ar']['mean']:.3f} dB (95 % CI {q['ar']['ci95'][0]:.3f}"
+                       f" to {q['ar']['ci95'][1]:.3f}, n={q['ar']['n']}, {q['ar']['non_finite_clips']} "
+                       f"non-finite)")
+
+    # The CLIs over the formant FLACs, card against CPU.
+    argv = ["--model", "refiner", "--checkpoint", str(REFINER_CHECKPOINT), "--input",
+            str(FORMANT_DIR)]
+    walls = {}
+    for where, device in (("card", DEVICE), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        inpaint.main([*argv, "--output", str(work / "inpaint" / where), "--device", device])
+        walls[f"inpaint_{where}"] = time.perf_counter() - t0
+    gap = slice(GAP_START, GAP_START + GAP_LEN)
+    worst_out, worst_gap = 0.0, 0.0
+    for f in sorted((work / "inpaint" / "cpu").glob("*.flac")):
+        got = read_audio(work / "inpaint" / "card" / f.name)[0][:, 0]
+        want_f = read_audio(f)[0][:, 0]
+        outside = np.ones(len(want_f), bool)
+        outside[gap] = False
+        d_out = np.abs(got - want_f)[outside].max() * 32768
+        d_gap = np.abs(got - want_f)[gap].max()
+        bound = max(1 / 32768, REFINER_RTOL * np.abs(want_f[gap]).max())
+        if not (d_out <= 1.0001 and d_gap <= bound * 1.0001):
+            raise AssertionError(f"refiner inpaint CLI: {f.name} card vs CPU {d_out} LSB outside "
+                                 f"the gap, {d_gap} inside (bound {bound})")
+        worst_out, worst_gap = max(worst_out, float(d_out)), max(worst_gap, float(d_gap) * 32768)
+    results = {}
+    argv = ["--models", "refiner", "arinpaint", "--ar-preset", "tuned", "--checkpoint",
+            str(REFINER_CHECKPOINT), "--input", str(FORMANT_DIR)]
+    for where, device in (("card", DEVICE), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        evaluate.main([*argv, "--output-json", str(work / f"refiner_{where}.json"), "--device",
+                       device])
+        walls[f"evaluate_{where}"] = time.perf_counter() - t0
+        results[where] = json.loads((work / f"refiner_{where}.json").read_text())
+    if results["card"]["condition"] != results["cpu"]["condition"]:
+        raise AssertionError("refiner evaluate CLI: the conditions differ")
+    bounds = {"refiner": REFINER_EVAL_SDR_DB, "arinpaint": CLASSICAL_EVAL_ATOL["arinpaint"]}
+    worst = {}
+    for model, bound in bounds.items():
+        d = np.abs(np.subtract(results["card"]["results"][model]["gap_sdr_db"],
+                               results["cpu"]["results"][model]["gap_sdr_db"])).max()
+        worst[model] = float(d)
+        if not d <= bound + 1e-9:
+            raise AssertionError(f"refiner evaluate CLI: {model} gap SDR card vs CPU {d} > "
+                                 f"{bound}")
+    stats["clis"] = {"wall_s": walls, "inpaint_lsb_outside": worst_out,
+                     "inpaint_lsb_gap": worst_gap, "evaluate_gap_sdr_worst_db": worst,
+                     "evaluate_card": results["card"]["results"]}
+    log("refiner", f"CLIs on the formant FLACs: inpaint card {walls['inpaint_card']:.2f} s, CPU "
+                   f"{walls['inpaint_cpu']:.2f} s, card vs CPU {worst_out:.0f} LSB outside the "
+                   f"gap, {worst_gap:.0f} inside; evaluate (refiner, arinpaint tuned) card "
+                   f"{walls['evaluate_card']:.2f} s, CPU {walls['evaluate_cpu']:.2f} s, gap SDR "
+                   f"card vs CPU worst {json.dumps(worst)} dB ({card})")
+    return stats
+
+
+def _refiner_step0(head_flat: dict, ex: dict, device, dtype) -> tuple:
+    """Loss and gradients of the head's first step on the example windows
+    ``ex`` on ``device`` in ``dtype``."""
+    head = WaveRefiner()
+    head.load_state_dict(refiner_state_dict(head_flat))
+    head = head.to(device, dtype)
+    w = {k: v.to(device, dtype) for k, v in ex.items() if k != "start"}
+    with full_f32_convolutions():
+        out = head(w["impaired"], w["ar"], w["neural"], w["gap_ind"])
+        loss = _gap_loss(out, w["clean"], w["gap_ind"], energy_gate=True)
+        grads = torch.autograd.grad(loss, list(head.parameters()))
+    names = [k for k, _ in head.named_parameters()]
+    return loss.item(), {k: g.double().cpu() for k, g in zip(names, grads)}
+
+
+def _refiner_training(card: str, work: Path) -> dict:
+    """train_refiner on the card, host syncs counted by step; a bare loop
+    through StepTimer; step 0 against f64 on the CPU; the export served,
+    and souped with the committed head and served."""
+    cfg = gan_config()
+    t0 = time.perf_counter()
+    corpus = FormantSpeechDataset(n_items=REFINER_CORPUS + REFINER_PROBE_CLIPS,
+                                  sample_rate=cfg.data.sample_rate, max_len_s=cfg.data.max_len_s,
+                                  variant="v2")
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(corpus.__getitem__, range(len(corpus))))
+    synth_s = time.perf_counter() - t0
+    log("refiner", f"{len(corpus)} formant_v2 clips synthesised into the disk cache in "
+                   f"{synth_s:.1f} s (8 threads), apart from the training time")
+
+    out = work / "head.npz"
+    argv = ["--synthetic", str(REFINER_CORPUS), "--corpus", "formant_v2", "--steps",
+            str(REFINER_STEPS), "--probe-every", str(REFINER_PROBE_EVERY), "--probe-clips",
+            str(REFINER_PROBE_CLIPS), "--gan-checkpoint", str(GAN_CHECKPOINT), "--out", str(out),
+            "--device", DEVICE]
+    marks = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = train_refiner.main(argv, on_step=lambda i, s, m: marks.__setitem__(
+                i, len(caught)))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    wall = time.perf_counter() - t0
+    syncs = {i: [f"{Path(w.filename).name}:{w.lineno}" for w in caught[marks[i - 1]:marks[i]]
+                 if SYNC_WARNING in str(w.message)] for i in REFINER_CLEAN_STEPS}
+    bad = {i: v for i, v in syncs.items() if v}
+    if bad:
+        raise AssertionError(f"refiner training: host syncs in steps (where): {bad}")
+    losses = [loss for _, loss, _ in res.logs]
+    if (res.state.step != REFINER_STEPS or not out.is_file()
+            or not all(math.isfinite(v) for _, a, b in res.probes for v in (a, b))
+            or not all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"refiner training: steps {res.state.step}, export {out.is_file()}, "
+                             f"probes {res.probes}, losses {losses}")
+    stats = {"wall_s": wall, "synth_s": synth_s, "probes": res.probes, "best_step": res.best_step,
+             "logs": res.logs, "host_syncs_clean_steps": 0,
+             "cli_step_s_median": sorted(res.step_s[2:])[len(res.step_s[2:]) // 2]}
+    log("refiner", f"train_refiner B=8 C=64: {REFINER_STEPS} steps in {wall:.1f} s (probes and "
+                   f"the model included); probes (step, refined dB, AR dB) {res.probes}; best "
+                   f"step {res.best_step}; host syncs in steps {list(REFINER_CLEAN_STEPS)}: 0; "
+                   f"host time a step to its return (median) {1e3 * stats['cli_step_s_median']:.1f}"
+                   f" ms ({card})")
+
+    # The warm step through StepTimer, on one device batch.
+    gen = load_generator(cfg, GAN_CHECKPOINT, DEVICE)
+    state = create_refiner_state(torch.Generator().manual_seed(0), device=DEVICE,
+                                 params=load_params_npz(REFINER_CHECKPOINT))
+    step = make_refiner_train_step(cfg, gen)
+    batch = torch.tensor(np.stack([corpus[i] for i in range(8)]), device=DEVICE)
+    draws = torch.Generator(device=DEVICE).manual_seed(1)
+    timer = StepTimer(warmup=2)
+    for _ in range(REFINER_TIMER_STEPS):
+        with timer:
+            state, m = step(state, batch, *draw_refiner_gaps(draws, cfg, 8, cfg.data.max_samples))
+            timer.probe(m["loss"])
+    stats["step_timer"] = timer.summary()
+    log("refiner", f"bare train step B=8 through StepTimer: {json.dumps(stats['step_timer'])} "
+                   f"({card})")
+
+    # Step 0 on the card (f32) against the CPU (f64), the card's own windows.
+    gl, cands = draw_refiner_gaps(torch.Generator(device=DEVICE).manual_seed(2), cfg,
+                                  REFINER_CHECK_CLIPS, cfg.data.max_samples)
+    csum = torch.cumsum(batch[:REFINER_CHECK_CLIPS] ** 2, -1)
+    energy = csum.gather(-1, cands + gl[:, None]) - csum.gather(-1, cands)
+    gs = cands.gather(-1, energy.argmax(-1, keepdim=True))[:, 0]
+    ex = make_example_fn(cfg, gen)(batch[:REFINER_CHECK_CLIPS], gs, gl)
+    flat = load_params_npz(REFINER_CHECKPOINT)
+    card_loss, card_g = _refiner_step0(flat, ex, DEVICE, torch.float32)
+    t0 = time.perf_counter()
+    cpu_loss, cpu_g = _refiner_step0(flat, ex, "cpu", torch.float64)
+    worst = max((card_g[k] - cpu_g[k]).abs().max().item() / cpu_g[k].abs().max().item()
+                for k in cpu_g if cpu_g[k].abs().max() > 0)
+    stats["step0"] = {"card_loss": card_loss, "cpu_f64_loss": cpu_loss, "grad_err_of_max": worst,
+                      "cpu_s": time.perf_counter() - t0}
+    log("refiner", f"step 0 on {REFINER_CHECK_CLIPS} clips, card f32 vs CPU f64: loss {card_loss:.6f}"
+                   f" vs {cpu_loss:.6f}, worst gradient {worst:.2e} of its largest entry (bounds "
+                   f"rtol {REFINER_STEP_LOSS_RTOL}, {REFINER_STEP_GRAD_RTOL_OF_MAX})")
+    if not (abs(card_loss - cpu_loss) <= REFINER_STEP_LOSS_RTOL * abs(cpu_loss)
+            and worst <= REFINER_STEP_GRAD_RTOL_OF_MAX):
+        raise AssertionError(f"refiner step 0: card and CPU f64 disagree: {stats['step0']}")
+
+    # The export served by inpaint; the soup of it and the committed head too.
+    soup_cli.main([str(work / "soup.npz"), str(out), str(REFINER_CHECKPOINT)])
+    served = {}
+    for name in ("head", "soup"):
+        dest = work / f"served_{name}"
+        inpaint.main(["--model", "refiner", "--checkpoint", str(work / f"{name}.npz"), "--input",
+                      str(FORMANT_DIR), "--output", str(dest), "--device", DEVICE])
+        decoded = [read_audio(f) for f in sorted(dest.glob("*.flac"))]
+        if len(decoded) != 3 or not all(ok and np.isfinite(x).all() for x, _, ok in decoded):
+            raise AssertionError(f"refiner: the {name} npz did not serve the 3 FLACs")
+        served[name] = len(decoded)
+    stats["served"] = served
+    log("refiner", f"the export and its soup with the committed head served by inpaint "
+                   f"(3 FLACs each, MD5 verified)")
+    return stats
+
+
+def _refiner_adaptation(card: str, work: Path) -> dict:
+    """evaluate --models gan --adapt-steps on the formant FLACs; the runner's
+    generator bit for bit as it was."""
+    captured = {}
+    build = inpaint._build_runner
+
+    def capturing(args, cfg):
+        runner = build(args, cfg)
+        captured["runner"] = runner
+        captured["before"] = {k: v.clone() for k, v in runner.model.state_dict().items()}
+        return runner
+
+    argv = ["--models", "gan", "--checkpoint", str(GAN_CHECKPOINT), "--mode", "enhanced",
+            "--phase", "extrapolate", "--adapt-steps", str(ADAPT_STEPS), "--adapt-probe-every",
+            str(ADAPT_PROBE_EVERY), "--input", str(FORMANT_DIR), "--output-json",
+            str(work / "adapt.json"), "--device", DEVICE]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(inpaint, "_build_runner", capturing):
+        evaluate.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = captured["runner"].model.state_dict()
+    changed = [k for k, v in captured["before"].items() if not torch.equal(v, after[k])]
+    if changed:
+        raise AssertionError(f"adaptation changed the runner's weights: {changed[:5]}")
+    payload = json.loads((work / "adapt.json").read_text())
+    info = payload["adapt_info"]
+    probed = [0] + [i for i in range(1, ADAPT_STEPS + 1)
+                    if i % ADAPT_PROBE_EVERY == 0 or i == ADAPT_STEPS]
+    if payload["condition"]["adapt"]["steps"] != ADAPT_STEPS or len(info) != 3 or not all(
+            [s for s, _ in v["probe_trajectory"]] == probed for v in info.values()):
+        raise AssertionError(f"adaptation JSON: {payload['condition']}, {info}")
+    stats = {"wall_s": wall, "s_a_clip": wall / len(info), "adapt_info": info,
+             "gap_sdr_db": payload["results"]["gan"]["gap_sdr_db"],
+             "runner_weights_unchanged": len(captured["before"])}
+    log("refiner", f"evaluate --models gan --adapt-steps {ADAPT_STEPS} --adapt-probe-every "
+                   f"{ADAPT_PROBE_EVERY}, 3 FLACs: {wall:.1f} s ({stats['s_a_clip']:.1f} s a clip, "
+                   f"the model and metrics included); best steps "
+                   f"{ {k: v['best_step'] for k, v in info.items()} }; trajectories "
+                   f"{ {k: v['probe_trajectory'] for k, v in info.items()} }; gap SDR "
+                   f"{stats['gap_sdr_db']}; the runner's {len(captured['before'])} tensors bit for "
+                   f"bit as before ({card})")
+    return stats
+
+
+def _refine_ops(card: str) -> dict:
+    """consistent_reconstruct and magnitude_descent at B=32 x 5 s on the GAN's
+    magnitude, warm-started from the AR fill; f64 card vs CPU on clip 0."""
+    cfg = gan_config()
+    kw = dict(n_fft=cfg.data.spectrogram.n_fft, hop_length=cfg.data.spectrogram.hop_length,
+              win_length=cfg.data.spectrogram.win_length)
+    gen = load_generator(cfg, GAN_CHECKPOINT, DEVICE)
+    audio = torch.tensor(synthetic_dataset_batch(B), device=DEVICE)
+    b, n = audio.shape
+    gs = torch.full((b,), GAP_START, device=DEVICE)
+    gl = torch.full((b,), GAP_LEN, device=DEVICE)
+    valid = gap_mask(n, gs, gl)
+    observed = audio * valid
+    with full_f32_convolutions(), torch.no_grad():  # the inputs take autograd in the descent
+        generated = make_gan_inpaint_fn(cfg, gen, mode="enhanced", phase="extrapolate")(
+            audio, gs, gl)[1]
+        spec_gap = stft(observed, **kw)
+        fmask = frame_mask_from_interval(gs, gs + gl, *spec_gap.shape[-2:], kw["hop_length"])
+        mag = masking.log1p_denorm(masking.composite(generated, masking.log1p_norm(spec_gap.abs()),
+                                                     fmask))
+        init = arinpaint(observed, valid, gs, gl, order=512, context=4096, max_gap=MAX_GAP)
+        init = torch.nan_to_num(init).clamp(-4.0, 4.0)
+        ctx = observed[:, GAP_START - 4096:GAP_START]
+        coef = lpc(ctx - ctx.mean(-1, keepdim=True), REFINE_AR_ORDER)
+    frames = (1.0 - fmask[:, 0]).contiguous()
+    calls = {
+        "consistent_reconstruct": lambda m, o, v, x, c, f: consistent_reconstruct(
+            m, o, v, x, n_iter=REFINE_ITERS, mag_frames=f, momentum=0.5, **kw),
+        "magnitude_descent": lambda m, o, v, x, c, f: magnitude_descent(
+            m, o, v, x, ar_coef=c, n_steps=REFINE_STEPS, ar_weight=REFINE_AR_WEIGHT,
+            mag_frames=f, **kw),
+    }
+    stats = {}
+    gap = valid == 0
+    for name, call in calls.items():
+        args = (mag, observed, valid, init, coef, frames)
+        st, out = _timed_requests(lambda: call(*args), f"ops/refine {name}", b * n / SAMPLE_RATE,
+                                  phase="refiner", warm=2)
+        _check_outside(f"ops/refine {name}", out, audio, valid)
+        card64 = call(*(a[:1].double() for a in args)).cpu()
+        t0 = time.perf_counter()
+        cpu64 = call(*(a[:1].double().cpu() for a in args))
+        st["cpu_f64_clip_s"] = time.perf_counter() - t0
+        st["f64_card_vs_cpu"] = _gap_rel_err(card64, cpu64, gap[:1])
+        sdr = metrics.gap_sdr(audio.double(), out.double(), gap.double()).cpu().numpy()
+        st["gap_sdr_db_mean"] = float(np.nanmean(sdr))
+        stats[name] = st
+        log("refiner", f"ops/refine {name}: f64 card vs CPU (clip 0) {st['f64_card_vs_cpu']:.2e} "
+                       f"of the gap's peak (bound {REFINE_F64_RTOL}); mean gap SDR "
+                       f"{st['gap_sdr_db_mean']:.3f} dB ({card})")
+        if not st["f64_card_vs_cpu"] <= REFINE_F64_RTOL:
+            raise AssertionError(f"ops/refine {name}: f64 card and CPU disagree: "
+                                 f"{st['f64_card_vs_cpu']} > {REFINE_F64_RTOL}")
+    return stats
+
+
+def phase_refiner(card: str) -> dict:
+    """The gap refiner served, trained and adapted on the card, the
+    ops/refine solvers; returns the launch counts of the hand-written
+    kernels (all 0: the path has none)."""
+    _reset_counts()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_refiner_"))
+    cache = os.environ.get("MAI_FORMANT_CACHE")
+    os.environ["MAI_FORMANT_CACHE"] = str(work / "formant_cache")
+    summary = {"card": card, "batch": B}
+    try:
+        summary["serving"] = _refiner_serving(card, work)
+        summary["training"] = _refiner_training(card, work)
+        summary["adaptation"] = _refiner_adaptation(card, work)
+        summary["refine_ops"] = _refine_ops(card)
+    finally:
+        if cache is None:
+            os.environ.pop("MAI_FORMANT_CACHE", None)
+        else:
+            os.environ["MAI_FORMANT_CACHE"] = cache
+        shutil.rmtree(work, ignore_errors=True)
+    launches = _counts()
+    if any(launches.values()):
+        raise AssertionError(f"refiner launched a hand-written kernel: {launches}")
+    summary["launches"] = launches
+    log("refiner", f"summary ({card}): {json.dumps(summary, default=str)}")
+    return launches
+
+
 def main() -> int:
     smi = phase_device()
     card = f"{torch.cuda.get_device_name(0)}, power limit {smi.split(',')[-1].strip()}"
@@ -3238,6 +3727,7 @@ def main() -> int:
     paths["gan_training"] = phase_gan_training(card)
     paths["training_cli"] = phase_training_cli(card)
     paths["classical"] = phase_classical(card)
+    paths["refiner"] = phase_refiner(card)
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()
                                  if counts[k["name"]]}

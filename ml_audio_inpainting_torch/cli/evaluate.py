@@ -1,7 +1,6 @@
 """Evaluation CLI: the models' quality on a set of clips (port of
-``ml_audio_inpainting_tpu/cli/evaluate.py``: the ``gan``, ``cnn_blstm`` and
-phase-mode ``cnn_phase``/``cnn_phase_anchored`` models and the classical
-solvers)::
+``ml_audio_inpainting_tpu/cli/evaluate.py``: every model of the JAX CLI and
+per-clip test-time adaptation)::
 
     python -m ml_audio_inpainting_torch.cli.evaluate --models gan cnn_blstm \\
         --checkpoint results/checkpoints/gan_formant_v2_r2.npz \\
@@ -23,9 +22,17 @@ neural models restore every gap of a clip in one mask-driven pass, the
 classical solvers one gap after another, left to right.  The ``phase`` of
 the JSON's condition is written only when a neural model is evaluated (the
 classical solvers have no phase regime).  The phase-mode models take one gap
-a clip only (``--n-gaps > 1`` raises, as in JAX).  Unported models and
-options raise ``SystemExit`` naming their ROADMAP item (``cli/inpaint.py``),
-as do ``--golden`` and ``--adapt-steps``.
+a clip only (``--n-gaps > 1`` raises, as in JAX), and so do the
+``refiner`` (which also refuses gaps over ``MAX_GAP`` samples) and
+``--adapt-steps``.  ``--golden`` raises: the reference's reconstructions
+are not in the repository.
+
+``--adapt-steps N`` fine-tunes a copy of the GAN on each clip before it is
+served (``runtime/adapt.py``), the runner's own weights untouched; its
+gaps are drawn on the device from a ``torch.Generator`` seeded
+``--adapt-seed`` (JAX's from ``jax.random``), so the adapted outputs differ
+from JAX's.  The JSON then carries ``condition["adapt"]`` and each clip's
+``adapt_info``, as JAX's does.
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["build_argparser", "main", "run", "load_clean", "gap_layout", "restore", "score"]
+__all__ = ["build_argparser", "main", "run", "load_clean", "gap_layout", "restore", "adapt",
+           "score"]
 
 MULTI_GAP_SEED = 7
 MIN_DIST_SAMPLES = 5000
@@ -48,9 +56,9 @@ MIN_DIST_SAMPLES = 5000
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Evaluate inpainting models")
     p.add_argument("--models", nargs="+", required=True,
-                   help="gan, cnn_blstm, cnn_phase, cnn_phase_anchored and the classical "
-                        "solvers (janssen, arinpaint, segmentation, aspain, sspain, "
-                        "sspain_omp, aspain_learned, sspain_learned); the refiner raises")
+                   help="gan, cnn_blstm, cnn_phase, cnn_phase_anchored, refiner and the "
+                        "classical solvers (janssen, arinpaint, segmentation, aspain, sspain, "
+                        "sspain_omp, aspain_learned, sspain_learned)")
     p.add_argument("--gan-checkpoint", type=str,
                    default="results/checkpoints/gan_formant_v2_r2.npz",
                    help="GAN weights npz for the refiner model")
@@ -89,7 +97,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--tta-shifts", type=int, default=1,
                    help="test-time sub-hop shift ensemble (1 = off)")
     p.add_argument("--adapt-steps", type=int, default=0,
-                   help="per-clip test-time adaptation steps (not ported: 0 only)")
+                   help="per-clip test-time adaptation: fine-tune the GAN on each clip's own "
+                        "context for N steps, in-clip probe gate (runtime/adapt.py); default "
+                        "off")
     p.add_argument("--adapt-lr", type=float, default=5e-5)
     p.add_argument("--adapt-batch", type=int, default=8)
     p.add_argument("--adapt-probe-every", type=int, default=25)
@@ -187,24 +197,48 @@ def restore(args, runner, clean: torch.Tensor, layout: dict) -> torch.Tensor:
         return mask_fn(clean, layout["valid"])[0]
 
 
+def adapt(args, runner, clean: torch.Tensor, layout: dict, names: List[str]
+          ) -> Tuple[torch.Tensor, dict]:
+    """``--adapt-steps``: each clip served by the GAN adapted to it
+    (``runtime/adapt.py::GanClipAdapter``) through the runner's serving
+    function; returns ``(restored (B, S), {name: adapt info})``."""
+    from ml_audio_inpainting_torch.runtime.adapt import GanClipAdapter
+
+    adapter = GanClipAdapter(runner.cfg, runner.inpaint_factory, steps=args.adapt_steps,
+                             lr=args.adapt_lr, batch=args.adapt_batch,
+                             probe_every=args.adapt_probe_every, n_gaps=args.adapt_n_gaps,
+                             ar_order=args.ar_order, ar_context=args.ar_context)
+    gs, gl = layout["gs"], layout["gl"]
+    outs, infos = [], {}
+    for j, (s, n) in enumerate(zip(gs.tolist(), gl.tolist())):
+        generator, info = adapter.adapt(runner.model, clean[j], s, n, seed=args.adapt_seed)
+        outs.append(runner.inpaint_factory(generator)(clean[j:j + 1], gs[j:j + 1],
+                                                      gl[j:j + 1])[0])
+        infos[names[j]] = info
+        print(f"adapt {names[j]}: best step {info['best_step']} probe {info['best_probe_sdr']} dB")
+    return torch.cat(outs), infos
+
+
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
 
 
-def run(args, timings: Optional[Dict[str, float]] = None
+def run(args, timings: Optional[Dict[str, float]] = None, adapt_info: Optional[dict] = None
         ) -> Tuple[List[Path], Dict[str, Dict[str, np.ndarray]]]:
     """Everything :func:`main` does before it prints: the files and each
-    model's per-clip metrics, unrounded.  With ``timings`` (a dict), the
-    wall seconds of reading the files (``read``), of each model's build and
-    restoration (``model``), its metrics (``metrics``) and the written
-    reconstructions (``write``) are added to it, the device synchronised at
-    each boundary."""
+    model's per-clip metrics, unrounded.  With ``--adapt-steps``, each
+    clip's adaptation info goes into ``adapt_info`` (a dict) under the
+    file's stem.  With ``timings`` (a dict), the wall seconds of reading the
+    files (``read``), of each model's build and restoration (``model``), its
+    metrics (``metrics``) and the written reconstructions (``write``) are
+    added to it, the device synchronised at each boundary."""
     from ml_audio_inpainting_torch.cli.inpaint import (
         PHASE_MODELS,
         _build_runner,
         _collect,
         check_ported,
+        check_refiner_gap,
         route,
     )
     from ml_audio_inpainting_torch.data.audio_io import save_audio
@@ -213,15 +247,20 @@ def run(args, timings: Optional[Dict[str, float]] = None
     if args.golden:
         raise SystemExit("--golden is not ported: it needs the reference's shipped "
                          "reconstructions, which the repository does not hold")
-    if args.adapt_steps > 0:
-        raise SystemExit("--adapt-steps is not ported to ml_audio_inpainting_torch yet: "
-                         "ROADMAP Queue A item 6 (refiner, adaptation and soups)")
     route(args)
     check_ported(args.models, args)
-    if args.n_gaps > 1 and set(PHASE_MODELS) & set(args.models):
-        raise SystemExit("--models cnn_phase[_anchored] supports single-gap eval only")
     cfg = load_config(args.config) if args.config else Config()
     sr = cfg.data.sample_rate
+    if "refiner" in args.models:
+        check_refiner_gap(args, sr, flag="--models")
+        if args.n_gaps > 1:
+            raise SystemExit("--models refiner has no mask-driven multi-gap path; the sequential "
+                             "fallback would feed the frozen GAN the other gaps' zeros as "
+                             "signal. Use gan/cnn_blstm for --n-gaps.")
+    if args.adapt_steps > 0 and args.n_gaps > 1:
+        raise SystemExit("--adapt-steps has no multi-gap eval path yet")
+    if args.n_gaps > 1 and set(PHASE_MODELS) & set(args.models):
+        raise SystemExit("--models cnn_phase[_anchored] supports single-gap eval only")
     clock = {} if timings is None else timings
     mark = [time.perf_counter()]
 
@@ -243,7 +282,12 @@ def run(args, timings: Optional[Dict[str, float]] = None
         m_args = argparse.Namespace(**vars(args))
         m_args.model = model_name
         runner = _build_runner(m_args, cfg)
-        restored = restore(m_args, runner, clean, layout)
+        if args.adapt_steps > 0 and model_name == "gan":
+            restored, infos = adapt(m_args, runner, clean, layout, [f.stem for f in files])
+            if adapt_info is not None:
+                adapt_info.update(infos)
+        else:
+            restored = restore(m_args, runner, clean, layout)
         lap("model")
         results[model_name] = {k: v.cpu().numpy() for k, v in score(clean, restored, gap).items()}
         lap("metrics")
@@ -261,7 +305,8 @@ def main(argv=None) -> None:
     from ml_audio_inpainting_torch.train.peaq import ODG_MAPPING
 
     args = build_argparser().parse_args(argv)
-    files, raw = run(args)
+    adapt_info: dict = {}
+    files, raw = run(args, adapt_info=adapt_info)
     results = {name: {k: [round(float(x), 3) for x in v] for k, v in r.items()}
                for name, r in raw.items()}
 
@@ -289,9 +334,20 @@ def main(argv=None) -> None:
                 "min_dist_samples": MIN_DIST_SAMPLES,
                 "scheme": "IRMAS_gaps.m-style, solved left to right",
             })
+        if args.adapt_steps > 0:
+            condition["adapt"] = {
+                "steps": args.adapt_steps,
+                "lr": args.adapt_lr,
+                "batch": args.adapt_batch,
+                "n_gaps": args.adapt_n_gaps,
+                "probe_every": args.adapt_probe_every,
+                "seed": args.adapt_seed,
+            }
         condition["odg_mapping"] = ODG_MAPPING
-        Path(args.output_json).write_text(json.dumps({"condition": condition, "results": results},
-                                                     indent=2))
+        payload = {"condition": condition, "results": results}
+        if adapt_info:
+            payload["adapt_info"] = adapt_info
+        Path(args.output_json).write_text(json.dumps(payload, indent=2))
         print(f"wrote {args.output_json}")
 
 

@@ -1,13 +1,14 @@
 """Inference CLI: inpaint FLAC/WAV files (port of
-``ml_audio_inpainting_tpu/cli/inpaint.py``: the ``gan``, ``cnn_blstm`` and
-phase-mode ``cnn_phase``/``cnn_phase_anchored`` models and the classical
-solvers)::
+``ml_audio_inpainting_tpu/cli/inpaint.py``: every model of the JAX CLI)::
 
     python -m ml_audio_inpainting_torch.cli.inpaint --model gan \\
         --checkpoint results/checkpoints/gan_formant_v2_r2.npz --mode enhanced \\
         --phase extrapolate --input in.flac --output out.flac [--device cpu]
     python -m ml_audio_inpainting_torch.cli.inpaint --model arinpaint --ar-preset tuned \\
         --input dir/ --output outdir/ [--device cpu]
+    python -m ml_audio_inpainting_torch.cli.inpaint --model refiner \\
+        --checkpoint results/checkpoints/refiner_formant_v2_r3.npz --input dir/ \\
+        --output outdir/ [--device cpu]
 
 It takes the JAX CLI's flags and ``--device`` (``cuda`` unless the caller
 asks for ``cpu``).  ``--checkpoint`` is an exported ``.npz``, a reference
@@ -18,8 +19,11 @@ port's initialiser seeded 0 (``runtime/serve.py``).  The phase-mode models
 predict the complex spectrogram and take no ``--phase``.  The classical
 solvers (``janssen``, ``arinpaint``, ``segmentation``, ``aspain``,
 ``sspain``, ``sspain_omp``, ``aspain_learned``, ``sspain_learned``) need no
-weights.  The ``refiner`` raises ``SystemExit`` naming the ROADMAP item
-that ports it.
+weights.  The ``refiner`` (``runtime/serve.py::make_refiner_runner``) takes
+its head as ``--checkpoint`` (required) and the GAN it rides on as
+``--gan-checkpoint`` (the committed one by default, found from the
+repository when the CLI runs elsewhere) with ``--gan-config``; it refuses
+gaps over ``MAX_GAP`` samples, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -38,13 +42,9 @@ CLASSICAL = (
     "aspain_learned", "sspain_learned",
 )
 PHASE_MODELS = ("cnn_phase", "cnn_phase_anchored")
-# Models of the JAX CLI that wait for a later slice, and the ROADMAP item
-# (Queue A) that ports each.
-UNPORTED_MODELS = {
-    "refiner": "ROADMAP Queue A item 6 (refiner, adaptation and soups)",
-}
+REPO = Path(__file__).resolve().parents[2]
 
-__all__ = ["build_argparser", "main", "check_ported", "route", "apply_preset"]
+__all__ = ["build_argparser", "main", "check_ported", "check_refiner_gap", "route", "apply_preset"]
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -116,16 +116,24 @@ def _collect(inp: Path) -> List[Path]:
 
 
 def check_ported(models, args) -> None:
-    """Raise ``SystemExit`` for a model the port does not have yet, and for
-    a reference ``.pt`` given to the phase-mode model (the reference shipped
-    none; the JAX CLI refuses it too)."""
-    for m in models:
-        if m in UNPORTED_MODELS:
-            raise SystemExit(f"--model {m} is not ported to ml_audio_inpainting_torch yet: "
-                             f"{UNPORTED_MODELS[m]}")
+    """Raise ``SystemExit`` for a reference ``.pt`` given to the phase-mode
+    model (the reference shipped none; the JAX CLI refuses it too)."""
     if any(m in PHASE_MODELS for m in models) and str(args.checkpoint).endswith((".pt", ".pth")):
         raise SystemExit("--model cnn_phase has no torch checkpoint port (the reference shipped "
                          "none); use an npz or a checkpoint directory")
+
+
+def check_refiner_gap(args, sr: int, flag: str = "--model") -> None:
+    """Raise ``SystemExit`` for a refiner gap longer than ``MAX_GAP``: past
+    the head's window it would be zero-filled."""
+    from ml_audio_inpainting_torch.train.refiner_trainer import MAX_GAP
+
+    gap_len = int(args.gap_len * sr)
+    if gap_len > MAX_GAP:
+        raise SystemExit(
+            f"{flag} refiner supports gaps up to {MAX_GAP} samples ({MAX_GAP / sr * 1000:.0f} "
+            f"ms); got {gap_len}. Longer gaps would be silently zero-filled past the head's "
+            "window -- use arinpaint/janssen or the longgap GAN instead.")
 
 
 def route(args) -> None:
@@ -154,6 +162,8 @@ def main(argv=None) -> None:
         cfg = gan_profile_config(args.config)
     else:
         cfg = load_config(args.config) if args.config else Config()
+    if args.model == "refiner":
+        check_refiner_gap(args, cfg.data.sample_rate)
     run_fn = _build_runner(args, cfg)
 
     sr = cfg.data.sample_rate
@@ -203,9 +213,12 @@ def _build_runner(args, cfg):
     restored waveforms on ``args.device``, from numpy arrays or tensors.
     ``runner.inpaint_fn`` (the same with the auxiliary output, on tensors
     on the device), ``runner.model``, ``runner.cfg`` (the profile used) and
-    ``runner.compute_dtype`` expose the pieces.  Raises ``SystemExit`` for
-    what the port does not have yet (:func:`check_ported`)."""
-    from ml_audio_inpainting_torch.runtime.inference import make_tta_shift_fn
+    ``runner.compute_dtype`` expose the pieces, and for the GAN
+    ``runner.inpaint_factory(generator)``, ``inpaint_fn`` of another
+    generator (the refiner's runner has ``head``, ``generator`` and
+    ``cfg``).  Raises ``SystemExit`` where the JAX CLI refuses
+    (:func:`check_ported`)."""
+    from ml_audio_inpainting_torch.runtime.inference import make_gan_inpaint_fn, make_tta_shift_fn
     from ml_audio_inpainting_torch.runtime.serve import (
         make_cnn_phase_runner,
         make_cnn_runner,
@@ -221,6 +234,8 @@ def _build_runner(args, cfg):
         raise SystemExit("--infer-dtype bf16 is supported for --model gan only")
     if args.model in CLASSICAL:
         return _build_classical_runner(args, cfg)
+    if args.model == "refiner":
+        return _build_refiner_runner(args)
     device = args.device
     compute_dtype = torch.bfloat16 if args.infer_dtype == "bf16" else None
     if args.model == "gan":
@@ -241,13 +256,19 @@ def _build_runner(args, cfg):
         base = make_cnn_runner(cfg, args.checkpoint, device=device, phase=args.phase,
                                gl_iters=args.gl_iters)
         model = base.model
-    fn = base.inpaint_fn
-    if args.tta_shifts > 1:
-        fn = make_tta_shift_fn(fn, cfg.data.spectrogram.hop_length, args.tta_shifts)
 
-    def inpaint_fn(audio, gap_start, gap_len):
-        with full_f32_convolutions():  # bf16 convolutions are not affected
-            return fn(audio, gap_start, gap_len)
+    def serving(fn):
+        """``fn`` with the shift ensemble and full-f32 convolutions."""
+        if args.tta_shifts > 1:
+            fn = make_tta_shift_fn(fn, cfg.data.spectrogram.hop_length, args.tta_shifts)
+
+        def inpaint_fn(audio, gap_start, gap_len):
+            with full_f32_convolutions():  # bf16 convolutions are not affected
+                return fn(audio, gap_start, gap_len)
+
+        return inpaint_fn
+
+    inpaint_fn = serving(base.inpaint_fn)
 
     def runner(audio, gap_start, gap_len) -> torch.Tensor:
         audio = torch.as_tensor(audio, dtype=torch.float32, device=device)
@@ -255,11 +276,31 @@ def _build_runner(args, cfg):
         gl = torch.as_tensor(gap_len, dtype=torch.int64, device=device)
         return inpaint_fn(audio, gs, gl)[0]
 
+    if args.model == "gan":
+        # The same serving function of another generator (test-time adaptation).
+        runner.inpaint_factory = lambda gen: serving(make_gan_inpaint_fn(
+            cfg, gen, mode=args.mode, compute_dtype=compute_dtype, phase=args.phase,
+            gl_iters=args.gl_iters))
     runner.inpaint_fn = inpaint_fn
     runner.model = model
     runner.cfg = cfg
     runner.compute_dtype = compute_dtype
     return runner
+
+
+def _build_refiner_runner(args):
+    """The refiner's runner (it has no ``inpaint_fn``: ``--longform``
+    refuses it, as in JAX)."""
+    from ml_audio_inpainting_torch.runtime.serve import make_refiner_runner
+    from ml_audio_inpainting_torch.utils.config import gan_profile_config
+
+    gan_ckpt = Path(args.gan_checkpoint)
+    if not gan_ckpt.exists():
+        gan_ckpt = REPO / args.gan_checkpoint  # the default is relative to the repository
+    if not args.checkpoint:
+        raise SystemExit("--model refiner requires --checkpoint (head npz)")
+    return make_refiner_runner(gan_profile_config(args.gan_config), gan_ckpt, args.checkpoint,
+                               device=args.device)
 
 
 def apply_preset(args) -> None:

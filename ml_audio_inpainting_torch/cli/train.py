@@ -199,35 +199,20 @@ class GapDraws:
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
-    def _starts(self, shape) -> torch.Tensor:
-        d = self.cfg.data
-        n, length = d.max_samples, int(d.gap_len_s * d.sample_rate)
-        if length <= 0 or length >= n:  # no gap, or the whole clip: start 0
-            return torch.zeros(shape, dtype=torch.int64, device=self.device)
-        return torch.randint(0, n - length + 1, shape, generator=self.generator,
-                             device=self.device)
-
-    def _layout(self, shape) -> Tuple[torch.Tensor, torch.Tensor]:
-        from ml_audio_inpainting_torch.data.multigap import multi_gap_layout
+    def _draw(self, shape) -> tuple:
+        from ml_audio_inpainting_torch.data.multigap import draw_gaps
 
         d = self.cfg.data
-        full = (*shape, d.train_n_gaps)
-        u_len = torch.rand(full, generator=self.generator, device=self.device)
-        u_pos = torch.rand(full, generator=self.generator, device=self.device)
-        starts, lengths = multi_gap_layout(u_len, u_pos, d.max_samples,
-                                           max_gap_ms=d.gap_len_s * 1000.0,
-                                           sample_rate=d.sample_rate)
-        return starts.to(torch.int64), lengths.to(torch.int64)
+        return draw_gaps(self.generator, shape, d.max_samples, d.gap_len_s, d.sample_rate,
+                         d.train_n_gaps)
 
     def cnn(self, clips: int) -> tuple:
         """``(gap_start,)`` ``(B, G)``, or ``(gap_start, gap_len)`` ``(B, G, K)``."""
-        shape = (clips, self.cfg.data.gaps_per_audio)
-        return (self._starts(shape),) if self.cfg.data.train_n_gaps == 1 else self._layout(shape)
+        return self._draw((clips, self.cfg.data.gaps_per_audio))
 
     def gan(self, clips: int) -> tuple:
         """``(gap_start,)`` ``(B,)``, or ``(gap_start, gap_len)`` ``(B, K)``."""
-        return (self._starts((clips,)),) if self.cfg.data.train_n_gaps == 1 else self._layout(
-            (clips,))
+        return self._draw((clips,))
 
 
 def feed_choice(model: str, train_dtype: str, sequences: int, corpus_bytes: int,

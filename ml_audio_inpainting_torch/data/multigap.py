@@ -36,6 +36,7 @@ __all__ = [
     "gaps_mask",
     "multi_gap_mask",
     "random_multi_gap_layout",
+    "draw_gaps",
     "cos2_fade",
     "apply_gaps_with_fades",
     "eval_gap_table",
@@ -145,6 +146,30 @@ def random_multi_gap_layout(
     u_pos = torch.rand((*shape, n_gaps), generator=generator, dtype=torch.float32)
     return multi_gap_layout(u_len, u_pos, audio_len, min_gap_ms, max_gap_ms, sample_rate,
                             min_dist_samples)
+
+
+def draw_gaps(generator: torch.Generator, shape: Tuple[int, ...], audio_len: int,
+              gap_len_s: float, sample_rate: int, n_gaps: int) -> Tuple[torch.Tensor, ...]:
+    """Training gaps drawn on ``generator``'s device (no host sync), as the
+    JAX features draw them from a key: with ``n_gaps`` 1, ``(starts,)`` of
+    ``shape``, one gap of ``int(gap_len_s * sample_rate)`` samples uniform
+    over ``[0, audio_len - L]`` (``ops/gaps.py::random_gap_mask``; start 0
+    for no gap or one as long as the clip); else ``(starts, lengths)``,
+    int64 ``(*shape, n_gaps)``, the :func:`multi_gap_layout` of uniforms
+    with gaps of up to ``gap_len_s``."""
+    device = generator.device
+    if n_gaps == 1:
+        length = int(gap_len_s * sample_rate)
+        if length <= 0 or length >= audio_len:
+            return (torch.zeros(shape, dtype=torch.int64, device=device),)
+        return (torch.randint(0, audio_len - length + 1, shape, generator=generator,
+                              device=device),)
+    full = (*shape, n_gaps)
+    u_len = torch.rand(full, generator=generator, device=device)
+    u_pos = torch.rand(full, generator=generator, device=device)
+    starts, lengths = multi_gap_layout(u_len, u_pos, audio_len, max_gap_ms=gap_len_s * 1000.0,
+                                       sample_rate=sample_rate)
+    return starts.to(torch.int64), lengths.to(torch.int64)
 
 
 def cos2_fade(fade_len: int, dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:

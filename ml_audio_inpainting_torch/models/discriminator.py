@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ml_audio_inpainting_torch.models.cnn_blstm import _lecun_normal_
+from ml_audio_inpainting_torch.utils import precision
 
 __all__ = ["Discriminator", "spectral_normalize"]
 
@@ -138,14 +139,14 @@ class Discriminator(nn.Module):
             x = x[:, None]
         new_us, sigmas = [], []
         for i, name in enumerate(self.names):
-            conv = getattr(self, name)
+            layer = getattr(self, name)
             weight = params[f"{name}.weight"]
             if self.use_spectral_norm:
                 weight, u, sigma = spectral_normalize(weight, us[i])
                 new_us.append(u)
                 sigmas.append(sigma)
-            x = F.conv2d(x, weight, params[f"{name}.bias"], stride=conv.stride,
-                         padding=conv.padding)
+            x = precision.conv(x, weight, params[f"{name}.bias"], stride=layer.stride,
+                               padding=layer.padding)
             if name != "final_conv":
                 x = F.leaky_relu(x, LEAKY_SLOPE)
         return x, new_us, sigmas

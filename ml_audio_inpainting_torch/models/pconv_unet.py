@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ml_audio_inpainting_torch.models.cnn_blstm import FlaxBatchNorm2d, _lecun_normal_
+from ml_audio_inpainting_torch.utils import precision
 
 __all__ = ["PartialConv", "EncDecBlock", "PConvUNet", "ones_conv", "reflect_pad", "resize_nearest"]
 
@@ -91,18 +92,9 @@ def ones_conv(mask_sum: torch.Tensor, kernel: int, stride: int, padding: int) ->
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """``conv(x)``.  On the CPU in bf16, a convolution whose output is one
-    column wide is run two columns wide, on ``x`` with ``stride`` more zero
-    columns at its right end, and its first column kept: the same inputs
-    and sums.  oneDNN's bf16 convolution leaves most outputs of a
-    one-column result unwritten (seen with 128 input channels or more, as
-    the generator's last encoder stage has at 1 s or shorter), so the
-    result held whatever its memory held before."""
-    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
-        k, s, p = conv.kernel_size[1], conv.stride[1], conv.padding[1]
-        if (x.shape[-1] + 2 * p - k) // s == 0:
-            return conv(F.pad(x, (0, s)))[..., :1]
-    return conv(x)
+    """``conv(x)`` through :func:`~ml_audio_inpainting_torch.utils.precision.conv`
+    (bf16 on the CPU as an f32 convolution)."""
+    return precision.conv(x, conv.weight, conv.bias, stride=conv.stride, padding=conv.padding)
 
 
 def _upsample2x(x: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ml_audio_inpainting_torch.models.cnn_blstm import _lecun_normal_
+from ml_audio_inpainting_torch.utils import precision
 
 __all__ = [
     "VGG19Features",
@@ -82,7 +83,10 @@ class VGG19Features(nn.Module):
     def forward(self, x: torch.Tensor) -> Dict[int, torch.Tensor]:
         captured = {}
         for idx, layer in enumerate(self.features):
-            x = layer(x)
+            if isinstance(layer, nn.Conv2d):
+                x = precision.conv(x, layer.weight, layer.bias, padding=layer.padding)
+            else:
+                x = layer(x)
             if idx in self.capture_layers:
                 captured[idx] = x
         return captured

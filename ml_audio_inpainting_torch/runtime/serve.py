@@ -1,6 +1,6 @@
-"""Serving runners: the GAN, the CNN+BiLSTM and the phase-mode CNN+BiLSTM
-(port of ``ml_audio_inpainting_tpu/cli/inpaint.py::_build_runner``, with the
-GAN's gap-only PCM16 transport of ``bench.py``'s canonical line).  The
+"""Serving runners: the GAN, the CNN+BiLSTM, the phase-mode CNN+BiLSTM and
+the gap refiner (port of ``ml_audio_inpainting_tpu/cli/inpaint.py::_build_runner``,
+with the GAN's gap-only PCM16 transport of ``bench.py``'s canonical line).  The
 command-line runner over audio files, ``cli/inpaint.py::_build_runner``,
 builds on these.
 
@@ -41,8 +41,8 @@ from ml_audio_inpainting_torch.weights import (
     pconv_unet_state_dict,
 )
 
-__all__ = ["make_gan_runner", "make_cnn_runner", "make_cnn_phase_runner", "load_cnn_model",
-           "load_generator", "checkpoint_kind", "FRESH_SEED"]
+__all__ = ["make_gan_runner", "make_cnn_runner", "make_cnn_phase_runner", "make_refiner_runner",
+           "load_cnn_model", "load_generator", "checkpoint_kind", "FRESH_SEED"]
 
 FRESH_SEED = 0  # the seed of the weights served with no checkpoint
 
@@ -215,4 +215,31 @@ def make_cnn_phase_runner(
     runner.inpaint_fn = fn
     runner.model = model
     runner.cfg = cfg
+    return runner
+
+
+def make_refiner_runner(
+    gan_cfg: Config,
+    gan_checkpoint: Checkpoint,
+    checkpoint: Union[str, Path],
+    device="cuda",
+) -> Callable:
+    """``runner(audio, gap_start, gap_len) -> restored`` of the gap refiner
+    (``train/refiner_trainer.py::make_refiner_apply_fn``): the GAN of
+    ``gan_checkpoint`` (any kind :func:`load_generator` reads, with
+    ``gan_cfg``'s widths) under the extrapolated phase and the AR fill,
+    corrected inside the gap by the head of the npz ``checkpoint`` (its
+    width read off the weights).  Inputs and outputs as for
+    :func:`make_gan_runner`; gaps of at most ``MAX_GAP`` samples.
+    ``runner.head``, ``runner.generator`` and ``runner.cfg`` expose the
+    pieces."""
+    from ml_audio_inpainting_torch.train.refiner_trainer import load_refiner, make_refiner_apply_fn
+
+    generator = load_generator(gan_cfg, gan_checkpoint, device)
+    head = load_refiner(load_params_npz(checkpoint), device)
+    apply = make_refiner_apply_fn(gan_cfg, generator)
+    runner = _runner(lambda audio, gs, gl: apply(head, audio, gs, gl), device, unwrap=False)
+    runner.head = head
+    runner.generator = generator
+    runner.cfg = gan_cfg
     return runner

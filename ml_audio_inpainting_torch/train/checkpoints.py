@@ -32,11 +32,17 @@ import torch
 
 from ml_audio_inpainting_torch.models.cnn_blstm import StackedBLSTMCNN
 from ml_audio_inpainting_torch.models.pconv_unet import PConvUNet
-from ml_audio_inpainting_torch.weights import cnn_blstm_flat_variables, pconv_unet_flat_variables
+from ml_audio_inpainting_torch.models.refiner import WaveRefiner
+from ml_audio_inpainting_torch.weights import (
+    cnn_blstm_flat_variables,
+    pconv_unet_flat_variables,
+    refiner_flat_variables,
+)
 
 __all__ = ["export_params_npz", "CheckpointManager", "state_tree", "load_state_tree"]
 
-_FLATTENERS = ((StackedBLSTMCNN, cnn_blstm_flat_variables), (PConvUNet, pconv_unet_flat_variables))
+_FLATTENERS = ((StackedBLSTMCNN, cnn_blstm_flat_variables), (PConvUNet, pconv_unet_flat_variables),
+               (WaveRefiner, refiner_flat_variables))
 STATE_FILE = "state.pt"
 
 
@@ -46,16 +52,17 @@ def export_params_npz(
     dtype: Optional[str] = "float16",
     params: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> None:
-    """Write a :class:`StackedBLSTMCNN` or a :class:`PConvUNet` generator as
-    a flat ``.npz`` of flax variables; any other module is a ``TypeError``.
+    """Write a :class:`StackedBLSTMCNN`, a :class:`PConvUNet` generator or a
+    :class:`WaveRefiner` head as a flat ``.npz`` of flax variables; any
+    other module is a ``TypeError``.
     ``params`` replaces parameters of ``model`` by name (e.g. the EMA
     parameters, written with the model's running statistics).  f32 arrays
     are stored as ``dtype`` (f16 by default, as the committed checkpoints
     are), or kept with ``dtype=None``."""
     flatten = next((f for cls, f in _FLATTENERS if isinstance(model, cls)), None)
     if flatten is None:
-        raise TypeError(f"export_params_npz writes a StackedBLSTMCNN or a PConvUNet, not a "
-                        f"{type(model).__name__}")
+        raise TypeError(f"export_params_npz writes a StackedBLSTMCNN, a PConvUNet or a "
+                        f"WaveRefiner, not a {type(model).__name__}")
     state = model.state_dict()
     unknown = set(params or {}) - set(state)
     if unknown:

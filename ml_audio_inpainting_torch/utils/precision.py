@@ -13,6 +13,14 @@ Mixed precision is a cast, as in the JAX package
 floating tensors of a parameter tree go to the compute type, and every op
 then runs in it.  It is not ``torch.autocast``, which keeps some ops in f32
 and so computes something else.
+
+On the CPU, a bf16 convolution runs as the f32 convolution of the bf16
+values with its result rounded to bf16 (:func:`conv`): oneDNN's bf16
+convolution, forward and backward, can leave outputs unwritten (a result
+one column wide; ``convolution_backward`` of the PatchGAN's last layer),
+so they held whatever their memory held before.  The f32 path computes
+the same sums in f32 and rounds once, as the bf16 kernels do.  The card
+runs its bf16 convolutions in cuDNN, unchanged.
 """
 
 from __future__ import annotations
@@ -22,8 +30,9 @@ from collections.abc import Iterator, Mapping
 from contextlib import AbstractContextManager
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["cast_floating", "full_f32_convolutions", "full_f32_matmuls"]
+__all__ = ["cast_floating", "conv", "full_f32_convolutions", "full_f32_matmuls"]
 
 
 def cast_floating(tree, dtype: torch.dtype):
@@ -66,3 +75,16 @@ def full_f32_matmuls() -> Iterator[None]:
         yield
     finally:
         matmul.allow_tf32 = before
+
+
+def conv(x: torch.Tensor, weight: torch.Tensor, bias=None, **kw) -> torch.Tensor:
+    """``F.conv1d``/``F.conv2d`` (by ``weight``'s rank) of ``x`` with
+    ``weight`` and ``bias`` and the keywords ``stride``, ``padding``,
+    ``dilation``; on CPU tensors in bf16, the f32 convolution of the same
+    values rounded to bf16 (the module docstring says why), differentiable
+    back to the bf16 tensors."""
+    fn = F.conv1d if weight.ndim == 3 else F.conv2d
+    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+        return fn(x.float(), weight.float(), None if bias is None else bias.float(),
+                  **kw).to(torch.bfloat16)
+    return fn(x, weight, bias, **kw)

@@ -18,8 +18,10 @@ the port load in the JAX package (``train/checkpoints.py`` writes them).
 same for the GAN generator (its ``params/`` and ``batch_stats/``, from an
 npz or from a flax train state flattened the same way),
 :func:`discriminator_state_dict` and :func:`discriminator_flat_variables`
-for the spectral-norm PatchGAN, and :func:`vgg19_state_dict` and
-:func:`vgg19_flat_variables` for the VGG19 of the perceptual losses.
+for the spectral-norm PatchGAN, :func:`vgg19_state_dict` and
+:func:`vgg19_flat_variables` for the VGG19 of the perceptual losses, and
+:func:`refiner_state_dict` and :func:`refiner_flat_variables` for the gap
+refiner (1-D kernels, flax ``(k, in, out)`` against torch ``(out, in, k)``).
 """
 
 from __future__ import annotations
@@ -43,6 +45,9 @@ __all__ = [
     "discriminator_flat_variables",
     "vgg19_state_dict",
     "vgg19_flat_variables",
+    "refiner_state_dict",
+    "refiner_flat_variables",
+    "refiner_channels",
 ]
 
 _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
@@ -287,3 +292,54 @@ def vgg19_flat_variables(tensors: Mapping[str, torch.Tensor]) -> Dict[str, np.nd
             flat[f"params/conv{index}/bias"] = np.ascontiguousarray(
                 value.detach().to("cpu", torch.float32).numpy())
     return flat
+
+
+def _refiner_module(flax_module: str) -> str:
+    """``_DilatedBlock_3`` -> ``blocks.3``; ``Conv_0`` stays."""
+    if flax_module.startswith("_DilatedBlock_"):
+        return f"blocks.{flax_module[len('_DilatedBlock_'):]}"
+    return flax_module
+
+
+def refiner_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """``state_dict`` of :class:`~ml_audio_inpainting_torch.models.refiner.WaveRefiner`
+    from flat flax variables: ``params/Conv_{0,1,2}/{kernel,bias}`` and
+    ``params/_DilatedBlock_{i}/Conv_{0,1}/{kernel,bias}``, kernels
+    ``(k, in, out)`` -> ``(out, in, k)``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, value in flat.items():
+        arr = _widen(value)
+        parts = key.split("/")
+        if not (parts[0] == "params" and len(parts) in (3, 4) and parts[-1] in ("kernel", "bias")
+                and parts[-2].startswith("Conv_")
+                and (len(parts) == 3 or parts[1].startswith("_DilatedBlock_"))):
+            raise ValueError(f"unexpected refiner weight key {key!r}")
+        name = ".".join([_refiner_module(p) for p in parts[1:-1]])
+        if parts[-1] == "kernel":
+            sd[f"{name}.weight"] = torch.tensor(np.ascontiguousarray(arr.transpose(2, 1, 0)))
+        else:
+            sd[f"{name}.bias"] = torch.tensor(arr)
+    return sd
+
+
+def refiner_flat_variables(tensors: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`refiner_state_dict` (f32 numpy), from a
+    ``WaveRefiner`` ``state_dict`` or any subset of it (its gradients)."""
+    flat: Dict[str, np.ndarray] = {}
+    for name, value in tensors.items():
+        *path, leaf = name.split(".")
+        if path[0] == "blocks":
+            path = [f"_DilatedBlock_{path[1]}", *path[2:]]
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            flat["/".join(["params", *path, "kernel"])] = np.ascontiguousarray(arr.transpose(2, 1, 0))
+        elif leaf == "bias":
+            flat["/".join(["params", *path, "bias"])] = np.ascontiguousarray(arr)
+        else:
+            raise ValueError(f"unexpected refiner tensor {name!r}")
+    return flat
+
+
+def refiner_channels(flat: Mapping[str, np.ndarray]) -> int:
+    """The head's width: the output channels of ``params/Conv_0``'s kernel."""
+    return int(np.shape(flat["params/Conv_0/kernel"])[-1])

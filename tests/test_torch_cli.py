@@ -50,6 +50,8 @@ import yaml
 
 from ml_audio_inpainting_tpu.cli import evaluate as jax_evaluate
 from ml_audio_inpainting_tpu.cli import inpaint as jax_inpaint
+from ml_audio_inpainting_tpu.cli import soup as jax_soup
+from ml_audio_inpainting_tpu.cli import train_refiner as jax_train_refiner
 from ml_audio_inpainting_tpu.data import audio_io as jio
 from ml_audio_inpainting_tpu.data.probe import load_real_probe_set as jax_probe_set
 from ml_audio_inpainting_tpu.models.cnn_blstm import StackedBLSTMCNN as JaxCNN
@@ -60,17 +62,22 @@ from ml_audio_inpainting_tpu.train import peaq as jax_peaq
 from ml_audio_inpainting_tpu.train.checkpoints import export_params_npz
 from ml_audio_inpainting_tpu.train.gan_trainer import build_generator as jax_build_generator
 from ml_audio_inpainting_tpu.utils import config as jax_config
-from ml_audio_inpainting_torch.cli import evaluate, inpaint
+from ml_audio_inpainting_torch.cli import evaluate, inpaint, soup, train_refiner
 from ml_audio_inpainting_torch.data import multigap
 from ml_audio_inpainting_torch.data.probe import load_real_probe_set
+from ml_audio_inpainting_torch.models.refiner import WaveRefiner
 from ml_audio_inpainting_torch.runtime import inference
 from ml_audio_inpainting_torch.runtime.synthetic import speech_like_batch
+from ml_audio_inpainting_torch.train.checkpoints import export_params_npz as export_port_npz
 from ml_audio_inpainting_torch.utils import config
 
 REPO = Path(__file__).resolve().parent.parent
 FORMANT = REPO / "results" / "formant_corpus_samples"
 CKPTS = REPO / "results" / "checkpoints"
 METRIC_ATOL = 2e-3
+REFINER_GAP_RTOL = 2e-3
+REFINER_METRIC_ATOL = 1e-2
+ADAPT_PROBE_DB = 2e-2
 LSB = 1.0 / 32768
 GAN_YAML = {
     "data": {"sample_rate": 16000, "max_len_s": 1.0,
@@ -308,12 +315,12 @@ def _evaluate_both(tmp_path, args):
             json.loads((tmp_path / "jax.json").read_text()))
 
 
-def _check_results(got, want):
+def _check_results(got, want, atol=METRIC_ATOL):
     assert got.keys() == want.keys()
     for model in want:
         assert got[model].keys() == want[model].keys()
         for metric, values in want[model].items():
-            np.testing.assert_allclose(got[model][metric], values, rtol=0, atol=METRIC_ATOL,
+            np.testing.assert_allclose(got[model][metric], values, rtol=0, atol=atol,
                                        err_msg=f"{model} {metric}")
 
 
@@ -390,21 +397,34 @@ def _inpaint_args(narrow, *extra, model="gan"):
             "--output", "unused", *extra]
 
 
+@pytest.fixture
+def one_thread():
+    """One torch thread for a test of many small ops (the AR fill's 2048
+    steps): six test workers with a thread a core each spend more time
+    waking threads than computing."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("model", ["refiner", "cnn_phase", "cnn_phase_anchored"])
-def test_unported_models_raise(narrow, tmp_path, model):
-    """The ``refiner`` still raises, naming its ROADMAP item.  The phase-mode
-    models, once refused, are ported: a narrow npz through both packages'
-    ``inpaint`` (within one LSB; inside the anchored gap within 2e-3 of its
-    peak, the anchor's rounding, ``tests/test_torch_phase_cnn.py``) and
-    ``evaluate`` (the JSON within ``2e-3``)."""
+def test_unported_models_raise(narrow, tmp_path, model, one_thread):
+    """Each model, once refused, is ported.  The ``refiner``: a narrow
+    seeded head (C=8) over the narrow GAN through both packages' ``inpaint``
+    (within one LSB; inside the gap within 2e-3 of its peak: the AR fill's
+    f32 rounding, 5e-4 of its peak in ``tests/test_torch_refiner.py``,
+    carried through the random head; measured 5.9e-4) and ``evaluate`` (the
+    JSON within ``1e-2``, the same rounding in the metrics, measured 2e-3 on
+    one SNR; ``--checkpoint`` is the head's, so neither package evaluates
+    the GAN beside it in one call), and both refuse a gap over ``MAX_GAP``,
+    ``--n-gaps 2``, ``--longform`` and no ``--checkpoint``.  The phase-mode
+    models: a narrow npz through both packages' ``inpaint`` (within one LSB;
+    inside the anchored gap within 2e-3 of its peak, the anchor's rounding,
+    ``tests/test_torch_phase_cnn.py``) and ``evaluate`` (the JSON within
+    ``2e-3``)."""
     if model == "refiner":
-        with pytest.raises(SystemExit, match="ROADMAP Queue A item 6"):
-            inpaint.main(["--model", model, "--checkpoint", narrow["gan"]["checkpoint"],
-                          "--input", str(narrow["clips"]), "--output", "unused", "--device",
-                          "cpu"])
-        with pytest.raises(SystemExit, match="ROADMAP Queue A item 6"):
-            evaluate.main(["--models", "gan", model, "--checkpoint", narrow["gan"]["checkpoint"],
-                           "--input", str(narrow["clips"]), "--device", "cpu"])
+        _refiner_parity(narrow, tmp_path)
         return
     common = ["--config", narrow["cnn_blstm"]["config"], "--checkpoint", narrow["cnn_phase"],
               "--input", str(narrow["clips"]), "--gap-start", "0.5"]
@@ -465,20 +485,91 @@ def test_unported_inpaint_options_raise(narrow, extra, match):
 
 @pytest.mark.parametrize("extra,match", [
     (["--golden", "somewhere"], "reference"),
-    (["--adapt-steps", "5"], "ROADMAP Queue A item 6"),
+    (["--adapt-steps", "5", "--n-gaps", "2"], "multi-gap"),
 ])
 def test_unported_evaluate_options_raise(narrow, extra, match):
+    """``--golden`` needs the reference's reconstructions; ``--adapt-steps``
+    is ported (``test_evaluate_adapt_steps_matches_jax``) and refuses
+    several gaps a clip, as JAX's does."""
     with pytest.raises(SystemExit, match=match):
         evaluate.main(["--models", "gan", *_model_args(narrow, "gan"), "--input",
                        str(narrow["clips"]), *extra, "--device", "cpu"])
 
 
+def _refiner_parity(narrow, tmp_path):
+    head = WaveRefiner(channels=8).init_weights(torch.Generator().manual_seed(11))
+    with torch.no_grad():
+        head.Conv_2.weight.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(12))
+    export_port_npz(tmp_path / "head.npz", head)
+    common = ["--config", narrow["gan"]["config"], "--gan-config", narrow["gan"]["config"],
+              "--gan-checkpoint", narrow["gan"]["checkpoint"], "--checkpoint",
+              str(tmp_path / "head.npz"), "--input", str(narrow["clips"]), "--gap-start", "0.5"]
+    jax_inpaint.main(["--model", "refiner", *common, "--output", str(tmp_path / "jax")])
+    inpaint.main(["--model", "refiner", *common, "--output", str(tmp_path / "port"), "--device",
+                  "cpu"])
+    _within_one_lsb(tmp_path / "port", tmp_path / "jax", slice(8000, 9280), REFINER_GAP_RTOL)
+    got, want = _evaluate_both(tmp_path, ["--models", "refiner", *common])
+    assert got["condition"] == want["condition"]
+    _check_results(got["results"], want["results"], REFINER_METRIC_ATOL)
+    for extra, match in ((["--gap-len", "0.2"], "supports gaps up to 2048"),
+                         (["--longform"], "requires a neural model")):
+        with pytest.raises(SystemExit, match=match):
+            inpaint.main(["--model", "refiner", *common, *extra, "--output", "unused",
+                          "--device", "cpu"])
+    no_head = [a for a in common if a != str(tmp_path / "head.npz") and a != "--checkpoint"]
+    with pytest.raises(SystemExit, match="requires --checkpoint"):
+        inpaint.main(["--model", "refiner", *no_head, "--output", "unused", "--device", "cpu"])
+    for extra, match in ((["--gap-len", "0.2"], "supports gaps up to"),
+                         (["--n-gaps", "2"], "multi-gap")):
+        with pytest.raises(SystemExit, match=match):
+            evaluate.main(["--models", "refiner", *common, *extra, "--device", "cpu"])
+
+
+def test_evaluate_adapt_steps_matches_jax(narrow, tmp_path, one_thread):
+    """``evaluate --adapt-steps 2`` in f32 through both packages, on one
+    formant FLAC cut to 2.5 s, with the narrow GAN.  The two draw the steps'
+    gaps from other streams (``torch.Generator`` and ``jax.random``), so
+    the adapted outputs differ; held: the JSON's layout
+    (``condition["adapt"]``, the keys of ``adapt_info`` and of each entry,
+    the results' keys), ``probe_starts``, the probe steps, and the step-0
+    probe score, the unadapted serving path on the AR-filled clip, within
+    ``ADAPT_PROBE_DB`` dB (both round to 3 decimals)."""
+    clips = tmp_path / "clips"
+    clips.mkdir()
+    (clips / "formant_0.flac").write_bytes((FORMANT / "formant_0.flac").read_bytes())
+    cfg = tmp_path / "gan.yaml"
+    cfg.write_text(yaml.safe_dump({**GAN_YAML, "data": {**GAN_YAML["data"], "max_len_s": 2.5}}))
+    args = ["--models", "gan", "--config", str(cfg), "--checkpoint",
+            narrow["gan"]["checkpoint"], "--mode", "enhanced", "--phase", "extrapolate",
+            "--input", str(clips), "--adapt-steps", "2", "--adapt-probe-every", "1",
+            "--adapt-batch", "2", "--adapt-n-gaps", "2", "--adapt-lr", "1e-4"]
+    got, want = _evaluate_both(tmp_path, args)
+    assert got["condition"] == want["condition"]
+    assert got["condition"]["adapt"] == {"steps": 2, "lr": 1e-4, "batch": 2, "n_gaps": 2,
+                                         "probe_every": 1, "seed": 0}
+    assert set(got) == set(want) == {"condition", "results", "adapt_info"}
+    assert got["results"].keys() == want["results"].keys()
+    assert got["results"]["gan"].keys() == want["results"]["gan"].keys()
+    assert got["adapt_info"].keys() == want["adapt_info"].keys() == {"formant_0"}
+    g, w = got["adapt_info"]["formant_0"], want["adapt_info"]["formant_0"]
+    assert g.keys() == w.keys()
+    assert g["probe_starts"] == w["probe_starts"]
+    assert [s for s, _ in g["probe_trajectory"]] == [s for s, _ in w["probe_trajectory"]] == [
+        0, 1, 2]
+    assert abs(g["probe_trajectory"][0][1] - w["probe_trajectory"][0][1]) <= ADAPT_PROBE_DB
+    assert g["best_step"] in (0, 1, 2) and g["best_probe_sdr"] >= g["probe_trajectory"][0][1]
+
+
 def test_cli_flags_are_the_jax_clis_and_device():
-    for port, jax_cli in ((inpaint, jax_inpaint), (evaluate, jax_evaluate)):
+    for port, jax_cli in ((inpaint, jax_inpaint), (evaluate, jax_evaluate),
+                          (train_refiner, jax_train_refiner)):
         ours = {a.dest for a in port.build_argparser()._actions}
         theirs = {a.dest for a in jax_cli.build_argparser()._actions}
         assert ours == theirs | {"device"}
+    ours = {a.dest for a in soup.build_argparser()._actions}
+    assert ours == {a.dest for a in jax_soup.build_argparser()._actions}  # host only
     assert inpaint.build_argparser().parse_args(
         ["--model", "gan", "--input", "x", "--output", "y"]).device == "cuda"
+    assert train_refiner.build_argparser().parse_args(["--out", "x"]).device == "cuda"
     defaults = evaluate.build_argparser().parse_args(["--models", "gan", "--input", "x"])
     assert isinstance(defaults, argparse.Namespace) and defaults.device == "cuda"

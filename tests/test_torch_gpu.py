@@ -1194,3 +1194,41 @@ def test_checkpoint_round_trip_on_card(cuda_device, tmp_path):
         return a == b
 
     assert equal(got, want)
+
+
+# ------------------------------------------------------------ the gap refiner
+#
+# The refiner (committed GAN and head) on the card against the same function
+# on the CPU, f32, TF32 off: outside the gap the input bit for bit, inside it
+# within chip_smoke.py's GAN_DEPLOYABLE_RTOL of the gap's peak (the neural
+# channel is the GAN under extrapolate, whose phase can wrap a turn
+# elsewhere on the card; the AR channel's f32 Levinson rounds apart too).
+# A fresh head returns the AR fill inside the gap, bit for bit.
+
+
+@pytest.mark.gpu
+def test_refiner_on_card_matches_cpu(cuda_device):
+    from ml_audio_inpainting_torch.models.refiner import WaveRefiner
+    from ml_audio_inpainting_torch.runtime.serve import load_generator
+    from ml_audio_inpainting_torch.train import refiner_trainer as rt
+    from ml_audio_inpainting_torch.weights import load_params_npz
+
+    cfg = gan_config()
+    head_npz = os.path.join(REPO, "results", "checkpoints", "refiner_formant_v2_r3.npz")
+    audio = torch.tensor(synthetic_dataset_batch(2))
+    gs, gl = torch.tensor([32000, 20000]), torch.tensor([1280, 2048])
+    inside = torch.zeros(audio.shape, dtype=torch.bool)
+    for i in range(2):
+        inside[i, gs[i]:gs[i] + gl[i]] = True
+    out = {}
+    for dev in ("cpu", cuda_device):
+        fn = rt.make_refiner_apply_fn(cfg, load_generator(cfg, GAN_CKPT, dev))
+        head = rt.load_refiner(load_params_npz(head_npz), dev)
+        out[str(dev)] = fn(head, audio.to(dev), gs.to(dev), gl.to(dev)).cpu()
+        fresh = WaveRefiner().init_weights(torch.Generator().manual_seed(0)).to(dev)
+        ex = rt.make_example_fn(cfg, load_generator(cfg, GAN_CKPT, dev))(
+            audio.to(dev), gs.to(dev), gl.to(dev))
+        with torch.no_grad():
+            first = fresh(ex["impaired"], ex["ar"], ex["neural"], ex["gap_ind"])
+        assert torch.equal(first, torch.where(ex["gap_ind"] > 0, ex["ar"], ex["impaired"]))
+    _check_deployable(out["cuda"], out["cpu"], audio, inside, "extrapolate", GAN_DEPLOYABLE_RTOL)

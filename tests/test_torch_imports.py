@@ -90,7 +90,9 @@ def test_port_package_has_every_slice_module():
         "classical.arinpaint", "classical.presets", "classical.janssen", "classical.ola",
         "classical.support", "classical.spain", "classical.basisopt", "classical._slices",
         "cli.ar_benchmark", "cli.train", "models.port_torch", "models.legacy_blstm",
-        "utils.run_logging", "utils.visualize",
+        "utils.run_logging", "utils.visualize", "models.refiner", "train.refiner_trainer",
+        "cli.train_refiner", "runtime.adapt", "ops.refine", "cli.soup", "utils.stats",
+        "runtime.profiling",
     ):
         assert f"ml_audio_inpainting_torch.{mod}" in names
 

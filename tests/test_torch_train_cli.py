@@ -15,11 +15,11 @@ bound for the CNN+BiLSTM, restored clips of peak ~1) and ``1e-4`` for the
 GAN (its generator's ``1e-5`` on the Tanh output of
 ``tests/test_torch_pconv_unet.py``, through ``expm1`` of a log1p
 magnitude and the iSTFT).  Tiny configs as JSON (``--config``): 0.5 s clips,
-BiLSTM hidden 8, a 3-stage generator, no VGG.  The GAN trains in f32 here:
-on the CPU, oneDNN's bf16 convolution backward can leave its outputs
-unwritten, so a bf16 step reads whatever memory held (NaN, under the
-allocation pattern of a sample dump; ROADMAP Queue C 9); the CLI's bf16 GAN
-runs on the card (``chip_smoke.py`` phase ``training_cli``).
+BiLSTM hidden 8, a 3-stage generator, no VGG.  The GAN trains in bf16, the
+CLI's recipe: the port's bf16 convolutions on the CPU run as f32
+convolutions of the bf16 values (``utils/precision.py::conv``), since
+oneDNN's bf16 convolution backward could leave outputs unwritten
+(``tests/test_torch_conv_bf16.py``).
 """
 
 import json
@@ -132,8 +132,10 @@ def test_gan_cli_trains_dumps_samples_saves_and_exports(tmp_path):
     cfg_path = _config(tmp_path, GAN_CFG)
     res = train.main(["--model", "gan", "--config", cfg_path, *COMMON, "--steps", "4",
                       "--probe-every", "2", "--probe-clips", "2", "--ema", "0.9",
-                      "--feed", "stream", "--base-dir", str(tmp_path / "a")])
+                      "--train-dtype", "bf16", "--feed", "stream",
+                      "--base-dir", str(tmp_path / "a")])
     assert set(res.state) == {"g", "d"} and res.feed == "stream"
+    assert res.losses and all(np.isfinite(v) for _, m in res.losses for v in m.values())
     mgr = CheckpointManager(res.checkpoint_dir)
     assert mgr.all_steps() == [2, 4]
     _assert_trees_equal(mgr.load_tree(4), state_tree(res.state))
