@@ -239,6 +239,26 @@ Phases, each printing one flushed line per step with the seconds since start:
                  ``magnitude_descent`` (50 steps, an AR term) on the GAN's
                  magnitude from the AR fill at B=32: times, 0 host syncs, f64
                  card against CPU.  No hand-written kernel launched.
+12. corpus_tools -- the corpus and tuning CLIs in-process, each on the card
+                 and on the CPU (``--device cpu``): ``preprocess`` over a
+                 nested tree of 64 seeded speech-like 5 s clips (one random
+                 100 ms gap a file; files/s; every output its input with one
+                 run of 1600 zeros, the card's files the CPU's bit for bit);
+                 ``build_gaps_table --mode multi --write-audio`` over the same
+                 tree (10 gaps of 10-80 ms a file, 4096 samples apart and
+                 from the edges; the tables equal, the faded audio within one
+                 LSB); ``ar_tune`` on the formant FLACs for arinpaint (4 grid
+                 points) and Janssen (2), each row's probe score card against
+                 CPU, the time of each grid point, and one traced probe
+                 request of the winner (device operations, wall time an
+                 operation, idle share); ``evaluate --golden`` with the
+                 committed GAN and CNN+BiLSTM checkpoints over the formant
+                 FLACs (``formant_1`` as the anchor clip ``81-121543-0008``)
+                 and a golden directory of the port's tuned arinpaint output,
+                 card against CPU; ``lstm_fwd`` launched by the CNN+BiLSTM,
+                 nothing else.  ``ar_plots`` and ``utils/tb_analysis.py`` do
+                 not run here: they need matplotlib and tensorboard, which
+                 the card's machine lacks.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and the script
@@ -285,7 +305,14 @@ from ml_audio_inpainting_torch.ops.cuda.lstm_cell import (
     lstm_recurrence_backward_reference,
 )
 from ml_audio_inpainting_torch.classical.arinpaint import arinpaint
-from ml_audio_inpainting_torch.cli import evaluate, inpaint, train_refiner
+from ml_audio_inpainting_torch.cli import (
+    ar_tune,
+    build_gaps_table,
+    evaluate,
+    inpaint,
+    preprocess,
+    train_refiner,
+)
 from ml_audio_inpainting_torch.cli import soup as soup_cli
 from ml_audio_inpainting_torch.cli import train as train_cli
 from ml_audio_inpainting_torch.data import audio_io
@@ -293,6 +320,7 @@ from ml_audio_inpainting_torch.data.audio_io import read_audio, save_audio
 from ml_audio_inpainting_torch.data.dataset import FormantSpeechDataset
 from ml_audio_inpainting_torch.data.multigap import multi_gap_mask
 from ml_audio_inpainting_torch.data.pipeline import device_corpus_feed
+from ml_audio_inpainting_torch.data.probe import load_real_probe_set
 from ml_audio_inpainting_torch.models.build import build_model
 from ml_audio_inpainting_torch.models.port_torch import seeded_reference_cnn_state_dict
 from ml_audio_inpainting_torch.models.refiner import WaveRefiner
@@ -3710,6 +3738,264 @@ def phase_refiner(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ corpus_tools
+
+# corpus_tools: the corpus and tuning CLIs in-process on the card, each
+# against the same CLI on the CPU.  preprocess and build_gaps_table draw
+# their gaps on the host from a generator seeded --seed, so the card's files
+# and tables are the CPU's: preprocess's bit for bit (a product by 0 or 1),
+# build_gaps_table's fades within one 16-bit LSB (cos on the card and on the
+# CPU round apart by an ulp).  ar_tune: each grid row's probe mean gap SDR
+# within evaluate's classical bounds (CLASSICAL_EVAL_ATOL: 2e-3 dB arinpaint,
+# 0.3 dB janssen).  evaluate --golden: the reference outputs and the anchor
+# check equal (host numpy on the same files), each model's gap SDR and delta
+# within the evaluation phase's oracle bound (EVAL_SDR_DB), and its spectral
+# L2 within 1e-3 (ten steps of its 4-decimal rounding).
+CORPUS_FILES = 64
+CORPUS_GAP_S = 0.1  # preprocess's default
+CORPUS_TABLE_GAPS = 10  # build_gaps_table's defaults: 10 gaps of 10-80 ms, 4096 samples apart
+CORPUS_TABLE_MS = (10.0, 80.0)
+CORPUS_TABLE_MIN_DIST = 4096
+# ar_tune over the formant FLACs: order 128 (at 512, f32 arinpaint blows up on
+# formant_2.flac, Queue C 6), two probe positions a clip.
+TUNE_GAP_S, TUNE_POSITIONS = 0.08, (1.0, 2.5)
+TUNE_COMMON = ["--gap-len", str(TUNE_GAP_S), "--probe-dir", str(FORMANT_DIR), "--probe-positions",
+               *map(str, TUNE_POSITIONS), "--orders", "128"]
+TUNE_RUNS = (
+    ("arinpaint", ["--contexts", "4096", "8192", "--blends", "cos2", "sigmoid:2"]),
+    ("janssen", ["--contexts", "4096", "--maxits", "2", "5"]),
+)
+GOLDEN_SPEC_L2 = 1e-3
+
+
+def _one_zero_run(out, inp, gap_len):
+    """A start ``s`` such that ``out`` is ``inp`` with ``[s, s + gap_len)``
+    zeroed (inside one run of zeros of ``out``), or None."""
+    changed = np.flatnonzero(out != inp)
+    edges = np.flatnonzero(np.diff(np.concatenate([[0], out == 0, [0]]).astype(np.int8)))
+    for a, b in zip(edges[::2], edges[1::2]):  # the runs of zeros, [a, b)
+        lo, hi = a, b - gap_len
+        if len(changed):
+            lo, hi = max(lo, changed[-1] - gap_len + 1), min(hi, changed[0])
+        if lo <= hi:
+            return int(lo)
+    return None
+
+
+def _card_and_cpu(fn) -> tuple:
+    """``fn(where, device)`` on the card (``where`` "card") and on the CPU
+    ("cpu"): ``({where: result}, {where: wall s})``."""
+    out, walls = {}, {}
+    for where, device in (("card", DEVICE), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        out[where] = fn(where, device)
+        if where == "card":
+            torch.cuda.synchronize()
+        walls[where] = time.perf_counter() - t0
+    return out, walls
+
+
+def _corpus_preprocess(tree: Path, work: Path) -> dict:
+    gap_len = int(CORPUS_GAP_S * SAMPLE_RATE)
+    written, walls = _card_and_cpu(lambda where, device: preprocess.main(
+        ["--input", str(tree), "--output", str(work / f"pre_{where}"), "--gap-len",
+         str(CORPUS_GAP_S), "--seed", "0", "--device", device]))
+    starts = []
+    for src, card_file, cpu_file in zip(sorted(tree.rglob("*.flac")), written["card"],
+                                        written["cpu"], strict=True):
+        got, want = read_audio(card_file)[0][:, 0], read_audio(cpu_file)[0][:, 0]
+        if not np.array_equal(got, want):
+            raise AssertionError(f"preprocess: {card_file.name} card and CPU differ in "
+                                 f"{int((got != want).sum())} samples")
+        s = _one_zero_run(got, read_audio(src)[0][:, 0], gap_len)
+        if s is None:
+            raise AssertionError(f"preprocess: {card_file} is not its input with one run of "
+                                 f"{gap_len} zeros")
+        starts.append(s)
+    rate = len(starts) / walls["card"]
+    log("corpus_tools", f"preprocess: {len(starts)} files of 5 s, one {gap_len}-sample gap each "
+                        f"(starts {min(starts)}..{max(starts)}); card {walls['card']:.2f} s "
+                        f"({rate:.1f} files/s), CPU {walls['cpu']:.2f} s; card = CPU bit for bit")
+    return {"files": len(starts), "wall_s": walls, "files_per_s": rate,
+            "distinct_starts": len(set(starts))}
+
+
+def _corpus_gaps_table(tree: Path, work: Path) -> dict:
+    tables, walls = _card_and_cpu(lambda where, device: build_gaps_table.main(
+        ["--input", str(tree), "--output", str(work / f"table_{where}.json"), "--mode", "multi",
+         "--write-audio", str(work / f"gapped_{where}"), "--seed", "0", "--device", device]))
+    if tables["card"] != tables["cpu"]:
+        raise AssertionError("build_gaps_table: the card's table differs from the CPU's")
+    lo, hi = (int(ms * SAMPLE_RATE / 1000) for ms in CORPUS_TABLE_MS)
+    worst_lsb = 0.0
+    for entry in tables["card"]["entries"]:
+        gaps = entry["gaps"]
+        edges = [0] + [e for s, l in gaps for e in (s, s + l)] + [tables["card"]["n_samples"]]
+        if not (len(gaps) == CORPUS_TABLE_GAPS and all(lo <= l <= hi for _, l in gaps)
+                and all(b - a >= CORPUS_TABLE_MIN_DIST for a, b in zip(edges[::2], edges[1::2]))):
+            raise AssertionError(f"build_gaps_table: {entry['file']} breaks the layout: {gaps}")
+        name = f"{Path(entry['file']).stem}_gapped.flac"
+        got = read_audio(work / "gapped_card" / name)[0][:, 0]
+        want = read_audio(work / "gapped_cpu" / name)[0][:, 0]
+        lsb = float(np.abs(got - want).max() * 32768)
+        worst_lsb = max(worst_lsb, lsb)
+        if lsb > 1.0001 or any(np.any(got[s:s + l] != 0) for s, l in gaps):
+            raise AssertionError(f"build_gaps_table: {name} card vs CPU {lsb} LSB, or a gap not "
+                                 f"zero")
+    n = len(tables["card"]["entries"])
+    log("corpus_tools", f"build_gaps_table --mode multi --write-audio: {n} files x "
+                        f"{CORPUS_TABLE_GAPS} gaps; card {walls['card']:.2f} s, CPU "
+                        f"{walls['cpu']:.2f} s; tables equal, audio card vs CPU {worst_lsb:.0f} "
+                        f"LSB at most")
+    return {"files": n, "wall_s": walls, "lsb": worst_lsb}
+
+
+def _corpus_ar_tune(card: str, work: Path) -> dict:
+    out = {}
+    for model, flags in TUNE_RUNS:
+        runs, walls = _card_and_cpu(lambda where, device: ar_tune.main(
+            ["--model", model, *TUNE_COMMON, *flags, "--output-json",
+             str(work / f"tune_{model}_{where}.json"), "--device", device]))
+        got, want = runs["card"], runs["cpu"]
+        bound = CLASSICAL_EVAL_ATOL[model]
+        rows = []
+        for g, w in zip(got["grid"], want["grid"], strict=True):
+            setting = {k: v for k, v in g.items() if k not in ("probe_mean_db", "elapsed_s")}
+            if setting != {k: v for k, v in w.items() if k not in ("probe_mean_db", "elapsed_s")}:
+                raise AssertionError(f"ar_tune {model}: grid rows differ: {g} vs {w}")
+            d = abs(g["probe_mean_db"] - w["probe_mean_db"])
+            if not (np.isfinite(g["probe_mean_db"]) and d <= bound + 1e-9):
+                raise AssertionError(f"ar_tune {model}: {setting} card {g['probe_mean_db']} vs "
+                                     f"CPU {w['probe_mean_db']} dB (bound {bound})")
+            rows.append({**setting, "card_db": g["probe_mean_db"], "cpu_db": w["probe_mean_db"],
+                         "card_s": g["elapsed_s"], "cpu_s": w["elapsed_s"]})
+            log("corpus_tools", f"ar_tune {model} {json.dumps(setting)}: probe {g['probe_mean_db']}"
+                                f" dB (CPU {w['probe_mean_db']}), card {g['elapsed_s']} s, CPU "
+                                f"{w['elapsed_s']} s")
+        best = got["probe_best"]
+        cpu_of_best = next(w["probe_mean_db"] for g, w in zip(got["grid"], want["grid"])
+                           if all(g[k] == best[k] for k in best if k != "probe_mean_db"))
+        if not cpu_of_best >= want["probe_best"]["probe_mean_db"] - bound - 1e-9:
+            raise AssertionError(f"ar_tune {model}: the card's winner {best} scores "
+                                 f"{cpu_of_best} dB on the CPU, the CPU's winner "
+                                 f"{want['probe_best']}")
+        # Each grid point's probe request on the card, warm (the rows keep 0.1 s), and the
+        # winner's traced: device operations and wall time an operation.
+        args = ar_tune.build_argparser().parse_args(
+            ["--model", model, *TUNE_COMMON, *flags, "--device", DEVICE])
+        clips, starts, _ = load_real_probe_set(FORMANT_DIR, TUNE_POSITIONS, SAMPLE_RATE, 5.0,
+                                               TUNE_GAP_S)
+        audio = torch.tensor(clips, device=DEVICE)
+        gs = torch.tensor(starts, dtype=torch.int64, device=DEVICE)
+        gl = torch.full_like(gs, int(TUNE_GAP_S * SAMPLE_RATE))
+        for row, conf in zip(rows, ar_tune.grid(args), strict=True):
+            runner = ar_tune.solver(args, conf, Config())
+            runner(audio, gs, gl)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner(audio, gs, gl)
+            torch.cuda.synchronize()
+            row["card_warm_ms"] = 1e3 * (time.perf_counter() - t0)
+            log("corpus_tools", f"ar_tune {model} {json.dumps(conf)}: a warm probe request of "
+                                f"{len(clips)} clips {row['card_warm_ms']:.1f} ms ({card})")
+        runner = ar_tune.solver(args, {k: v for k, v in best.items() if k != "probe_mean_db"},
+                                Config())
+        ops, busy, wall_ms = _trace_request(lambda: runner(audio, gs, gl))
+        us_per_op = 1e3 * wall_ms / ops
+        log("corpus_tools", f"ar_tune {model} winner {json.dumps(best)}: a traced probe request "
+                            f"{wall_ms:.1f} ms, {ops} device operations, {us_per_op:.2f} us of "
+                            f"wall time an operation, idle {100 * (1 - busy):.1f} % ({card}); "
+                            f"whole grid through the CLI: card {walls['card']:.2f} s, CPU "
+                            f"{walls['cpu']:.2f} s")
+        out[model] = {"rows": rows, "best": best, "wall_s": walls, "traced_ms": wall_ms,
+                      "device_ops": ops, "us_per_op": us_per_op, "idle_share": 1.0 - busy}
+    return out
+
+
+def _corpus_golden(work: Path) -> dict:
+    """evaluate --golden over the formant FLACs (formant_1 as the anchor
+    clip) and a golden directory of the port's tuned arinpaint output."""
+    clips = work / "golden_clips"
+    clips.mkdir()
+    for f in sorted(FORMANT_DIR.glob("*.flac")):
+        name = "81-121543-0008.flac" if f.name == "formant_1.flac" else f.name
+        shutil.copy(f, clips / name)
+    inpaint.main(["--model", "arinpaint", "--ar-preset", "tuned", "--input", str(clips),
+                  "--output", str(work / "arinpaint"), "--device", DEVICE])
+    golden = work / "golden"
+    golden.mkdir()
+    for f in sorted((work / "arinpaint").glob("*_arinpaint_inpainted.flac")):
+        stem = f.name[: -len("_arinpaint_inpainted.flac")]
+        for tag in ("gan", "cnnlstm"):
+            shutil.copy(f, golden / f"{stem}_{tag}_inpainted.flac")
+    out = {}
+    for model in ("gan", "cnn_blstm"):
+        def golden_json(where: str, device: str) -> dict:
+            path = work / f"golden_{model}_{where}.json"
+            evaluate.main(["--models", model, "--checkpoint", str(EVAL_CHECKPOINTS[model]),
+                           "--input", str(clips), "--golden", str(golden), "--output-json",
+                           str(path), "--device", device])
+            return json.loads(path.read_text())
+
+        runs, walls = _card_and_cpu(golden_json)
+        got, want = runs["card"], runs["cpu"]
+        for key in ("condition", "recorded_model_comparison", "reference_outputs", "anchor_check"):
+            if got[key] != want[key]:
+                raise AssertionError(f"evaluate --golden {model}: {key} differs, card vs CPU")
+        if set(got["anchor_check"]) != {"gan", "cnnlstm"}:
+            raise AssertionError(f"evaluate --golden: no anchor check: {got['anchor_check']}")
+        worst = {}
+        for key, value in want["ours"][model].items():
+            bound = GOLDEN_SPEC_L2 if key.startswith("spec_l2") else EVAL_SDR_DB["oracle"]
+            mine = got["ours"][model][key]
+            pairs = ([(mine[k], v) for k, v in value.items()] if isinstance(value, dict)
+                     else [(mine, value)])
+            d = max(abs(a - b) for a, b in pairs)
+            worst[key] = d
+            if not (all(np.isfinite(a) for a, _ in pairs) and d <= bound + 1e-9):
+                raise AssertionError(f"evaluate --golden {model}: {key} card vs CPU {d} > {bound}")
+        entry = got["ours"][model]
+        log("corpus_tools", f"evaluate --golden --models {model}: mean gap SDR "
+                            f"{entry['mean_gap_sdr_db']} dB, vs the golden files "
+                            f"{entry['mean_delta_vs_gan_db']:+} dB; card {walls['card']:.2f} s, "
+                            f"CPU {walls['cpu']:.2f} s; card vs CPU worst {json.dumps(worst)}")
+        out[model] = {"wall_s": walls, "worst": worst, "ours": entry}
+    out["anchor_check"] = got["anchor_check"]
+    return out
+
+
+def phase_corpus_tools(card: str) -> dict:
+    """The corpus and tuning CLIs on the card against the CPU; returns the
+    launch counts of the hand-written kernels (``lstm_fwd`` from
+    ``evaluate --golden --models cnn_blstm``)."""
+    _reset_counts()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_corpus_"))
+    summary = {"card": card}
+    try:
+        tree = work / "corpus"
+        t0 = time.perf_counter()
+        for i, clip in enumerate(speech_like_batch(np.random.default_rng(23), CORPUS_FILES)):
+            save_audio(clip * 0.8, tree / f"spk{i % 4}" / f"ch{i % 3}" / f"utt{i:02d}.flac",
+                       SAMPLE_RATE, normalize=False)
+        log("corpus_tools", f"{CORPUS_FILES} synthetic 5 s clips written in a nested tree in "
+                            f"{time.perf_counter() - t0:.2f} s ({card})")
+        summary["preprocess"] = _corpus_preprocess(tree, work)
+        summary["build_gaps_table"] = _corpus_gaps_table(tree, work)
+        summary["ar_tune"] = _corpus_ar_tune(card, work)
+        summary["golden"] = _corpus_golden(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("corpus_tools", "ar_plots and utils/tb_analysis.py are host tools (matplotlib, "
+                        "tensorboard) and do not run on the card's machine, which has neither")
+    launches = _counts()
+    if not launches["lstm_fwd"] or any(v for k, v in launches.items() if k != "lstm_fwd"):
+        raise AssertionError(f"corpus_tools: lstm_fwd alone must launch (evaluate --golden "
+                             f"--models cnn_blstm): {launches}")
+    summary["launches"] = launches
+    log("corpus_tools", f"summary ({card}): {json.dumps(summary, default=str)}")
+    return launches
+
+
 def main() -> int:
     smi = phase_device()
     card = f"{torch.cuda.get_device_name(0)}, power limit {smi.split(',')[-1].strip()}"
@@ -3728,6 +4014,7 @@ def main() -> int:
     paths["training_cli"] = phase_training_cli(card)
     paths["classical"] = phase_classical(card)
     paths["refiner"] = phase_refiner(card)
+    paths["corpus_tools"] = phase_corpus_tools(card)
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()
                                  if counts[k["name"]]}

@@ -24,8 +24,17 @@ the JSON's condition is written only when a neural model is evaluated (the
 classical solvers have no phase regime).  The phase-mode models take one gap
 a clip only (``--n-gaps > 1`` raises, as in JAX), and so do the
 ``refiner`` (which also refuses gaps over ``MAX_GAP`` samples) and
-``--adapt-steps``.  ``--golden`` raises: the reference's reconstructions
-are not in the repository.
+``--adapt-steps``.
+
+``--golden DIR`` scores reconstructions of the reference held in ``DIR``
+as ``{stem}_gan_inpainted.flac`` and ``{stem}_cnnlstm_inpainted.flac``
+(files that are missing are skipped) and each of ``--models`` against
+them, on the evaluation gap as ``model_eval.m`` cuts it
+(:func:`matlab_gap_slice`): gap SDR per clip on the host, its difference
+from each reconstruction's, and the RMS distance of the log1p-magnitude
+spectrograms at 512/128/512 (:func:`spec_l2`, on the device).  A clip
+named :data:`GOLDEN_ANCHOR` fills ``anchor_check`` against the recorded
+scalars :data:`RECORDED_GAP_SDR`.  The payload has the JAX CLI's layout.
 
 ``--adapt-steps N`` fine-tunes a copy of the GAN on each clip before it is
 served (``runtime/adapt.py``), the runner's own weights untouched; its
@@ -47,10 +56,18 @@ import numpy as np
 import torch
 
 __all__ = ["build_argparser", "main", "run", "load_clean", "gap_layout", "restore", "adapt",
-           "score"]
+           "score", "golden", "run_golden", "matlab_gap_slice", "golden_gap_sdr", "spec_l2"]
 
 MULTI_GAP_SEED = 7
 MIN_DIST_SAMPLES = 5000
+
+#: model_comparison.mat's scalars, written by ``model_eval.m:60,84`` for the
+#: anchor clip 81-121543-0008.flac.
+RECORDED_GAP_SDR = {"cnnlstm": -2.12, "gan": -1.39}
+GOLDEN_ANCHOR = "81-121543-0008"
+GOLDEN_TAGS = ("gan", "cnnlstm")
+#: the models' names -> the reference's reconstruction file tag
+GOLDEN_TAG_OF_MODEL = {"gan": "gan", "cnn_blstm": "cnnlstm"}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -110,7 +127,10 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="N gaps of 10 ms to --gap-len a clip, at least 5000 samples apart, "
                         "all restored in one mask-driven pass")
     p.add_argument("--golden", type=str, default=None,
-                   help="the reference's shipped reconstructions (not ported)")
+                   help="directory of the reference's reconstructions ({stem}_gan_inpainted.flac, "
+                        "{stem}_cnnlstm_inpainted.flac): score them, check the recorded "
+                        "model_comparison.mat scalars, and compare --models against them "
+                        "(gap-SDR deltas and spectrogram L2)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default: cuda)")
     return p
@@ -224,6 +244,24 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _checked_config(args):
+    """The config of ``args``, once the checkpoint is routed and the
+    refusals the JAX CLI makes before ``--golden`` are made."""
+    from ml_audio_inpainting_torch.cli.inpaint import check_ported, check_refiner_gap, route
+    from ml_audio_inpainting_torch.utils.config import Config, load_config
+
+    route(args)
+    check_ported(args.models, args)
+    cfg = load_config(args.config) if args.config else Config()
+    if "refiner" in args.models:
+        check_refiner_gap(args, cfg.data.sample_rate, flag="--models")
+        if args.n_gaps > 1:
+            raise SystemExit("--models refiner has no mask-driven multi-gap path; the sequential "
+                             "fallback would feed the frozen GAN the other gaps' zeros as "
+                             "signal. Use gan/cnn_blstm for --n-gaps.")
+    return cfg
+
+
 def run(args, timings: Optional[Dict[str, float]] = None, adapt_info: Optional[dict] = None
         ) -> Tuple[List[Path], Dict[str, Dict[str, np.ndarray]]]:
     """Everything :func:`main` does before it prints: the files and each
@@ -233,30 +271,11 @@ def run(args, timings: Optional[Dict[str, float]] = None, adapt_info: Optional[d
     files (``read``), of each model's build and restoration (``model``), its
     metrics (``metrics``) and the written reconstructions (``write``) are
     added to it, the device synchronised at each boundary."""
-    from ml_audio_inpainting_torch.cli.inpaint import (
-        PHASE_MODELS,
-        _build_runner,
-        _collect,
-        check_ported,
-        check_refiner_gap,
-        route,
-    )
+    from ml_audio_inpainting_torch.cli.inpaint import PHASE_MODELS, _build_runner, _collect
     from ml_audio_inpainting_torch.data.audio_io import save_audio
-    from ml_audio_inpainting_torch.utils.config import Config, load_config
 
-    if args.golden:
-        raise SystemExit("--golden is not ported: it needs the reference's shipped "
-                         "reconstructions, which the repository does not hold")
-    route(args)
-    check_ported(args.models, args)
-    cfg = load_config(args.config) if args.config else Config()
+    cfg = _checked_config(args)
     sr = cfg.data.sample_rate
-    if "refiner" in args.models:
-        check_refiner_gap(args, sr, flag="--models")
-        if args.n_gaps > 1:
-            raise SystemExit("--models refiner has no mask-driven multi-gap path; the sequential "
-                             "fallback would feed the frozen GAN the other gaps' zeros as "
-                             "signal. Use gan/cnn_blstm for --n-gaps.")
     if args.adapt_steps > 0 and args.n_gaps > 1:
         raise SystemExit("--adapt-steps has no multi-gap eval path yet")
     if args.n_gaps > 1 and set(PHASE_MODELS) & set(args.models):
@@ -301,10 +320,150 @@ def run(args, timings: Optional[Dict[str, float]] = None, adapt_info: Optional[d
     return files, results
 
 
+def matlab_gap_slice(sr: int, gap_start_s: float, gap_len_s: float) -> slice:
+    """The evaluation gap's samples as ``model_eval.m:33-36`` cuts them:
+    MATLAB's 1-based inclusive ``temp(fs*2.0 : fs*2.08) = 0``."""
+    start = int(sr * gap_start_s) - 1  # 1-based -> 0-based
+    end = int(sr * (gap_start_s + gap_len_s))  # inclusive endpoint
+    return slice(start, end + 1)
+
+
+def golden_gap_sdr(clean: np.ndarray, restored: np.ndarray, gap: slice) -> float:
+    """``snr(signal(gap), signal(gap) - solution(gap))`` (``model_eval.m:60``),
+    on the host."""
+    err = clean[..., gap] - restored[..., gap]
+    num = float(np.sum(clean[..., gap] ** 2))
+    return 10.0 * float(np.log10(num / (np.sum(err**2) + 1e-12)))
+
+
+def spec_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    """RMS distance between the log1p-magnitude spectrograms of two
+    waveforms, always at the GAN's STFT (512/128/512), so that the number
+    compares across model configs; reduced to one scalar on the inputs'
+    device."""
+    from ml_audio_inpainting_torch.ops.stft import stft
+
+    mags = torch.log1p(stft(torch.stack([a, b]), n_fft=512, hop_length=128, win_length=512).abs())
+    return float(torch.sqrt(torch.mean((mags[0] - mags[1]) ** 2)))
+
+
+def _golden_entry(per_file: dict) -> dict:
+    return {"gap_sdr_db": per_file,
+            "mean_gap_sdr_db": round(float(np.mean(list(per_file.values()))), 3)}
+
+
+def run_golden(args, cfg, files: List[Path], clean: np.ndarray) -> dict:
+    """Score the reconstructions under ``args.golden`` and each of
+    ``args.models`` against them; returns the JSON payload.  ``clean`` is
+    the ``(n_files, S)`` clips on the host; the models run on
+    ``args.device``."""
+    from ml_audio_inpainting_torch.cli.inpaint import _build_runner
+    from ml_audio_inpainting_torch.data.audio_io import load_audio
+
+    sr = cfg.data.sample_rate
+    golden_dir = Path(args.golden)
+    gap = matlab_gap_slice(sr, args.gap_start, args.gap_len)
+
+    reference_outputs: dict = {}
+    ref_audio: dict = {}
+    for tag in GOLDEN_TAGS:
+        per_file = {}
+        ref_audio[tag] = {}
+        for j, f in enumerate(files):
+            path = golden_dir / f"{f.stem}_{tag}_inpainted.flac"
+            if not path.exists():
+                continue
+            rec = load_audio(path, sample_rate=sr, max_len=cfg.data.max_len_s)[0]
+            ref_audio[tag][f.stem] = rec
+            per_file[f.stem] = round(golden_gap_sdr(clean[j], rec, gap), 3)
+        if per_file:
+            reference_outputs[tag] = _golden_entry(per_file)
+
+    anchor_check = {
+        tag: {"recomputed_gap_sdr_db": reference_outputs[tag]["gap_sdr_db"].get(GOLDEN_ANCHOR),
+              "recorded_gap_sdr_db": RECORDED_GAP_SDR[tag]}
+        for tag in GOLDEN_TAGS
+        if tag in reference_outputs and GOLDEN_ANCHOR in reference_outputs[tag]["gap_sdr_db"]
+    }
+
+    ours: dict = {}
+    n_clips = len(files)
+    clean_d = torch.from_numpy(clean).to(args.device)
+    gs = torch.full((n_clips,), int(args.gap_start * sr), dtype=torch.int64, device=args.device)
+    gl = torch.full((n_clips,), int(args.gap_len * sr), dtype=torch.int64, device=args.device)
+    for model_name in args.models:
+        m_args = argparse.Namespace(**vars(args))
+        m_args.model = model_name
+        restored_d = _build_runner(m_args, cfg)(clean_d, gs, gl)
+        restored = restored_d.cpu().numpy()
+        entry = _golden_entry({f.stem: round(golden_gap_sdr(clean[j], restored[j], gap), 3)
+                               for j, f in enumerate(files)})
+        per_file = entry["gap_sdr_db"]
+        for tag, ref in reference_outputs.items():
+            deltas = {stem: round(per_file[stem] - ref["gap_sdr_db"][stem], 3)
+                      for stem in per_file if stem in ref["gap_sdr_db"]}
+            l2 = {f.stem: round(spec_l2(restored_d[j], torch.from_numpy(
+                      ref_audio[tag][f.stem]).to(args.device)), 4)
+                  for j, f in enumerate(files) if f.stem in ref_audio[tag]}
+            entry[f"delta_gap_sdr_vs_{tag}_db"] = deltas
+            entry[f"mean_delta_vs_{tag}_db"] = round(float(np.mean(list(deltas.values()))), 3)
+            entry[f"spec_l2_vs_{tag}"] = l2
+        ours[model_name] = entry
+
+    return {
+        "condition": {
+            "gap_start_s": args.gap_start,
+            "gap_len_s": args.gap_len,
+            "gap_slice": [gap.start, gap.stop],
+            "gap_convention": "model_eval.m:33-36 (MATLAB 1-based inclusive)",
+            "files": [f.name for f in files],
+            "golden_dir": str(golden_dir),
+        },
+        "recorded_model_comparison": {
+            "anchor": GOLDEN_ANCHOR,
+            "gap_sdr_db": RECORDED_GAP_SDR,
+            "source": "model_comparison.mat via model_eval.m:60 (SURVEY.md §6)",
+        },
+        "anchor_check": anchor_check,
+        "reference_outputs": reference_outputs,
+        "ours": ours,
+    }
+
+
+def golden(args) -> dict:
+    """``--golden``: the checks :func:`run` makes first, the clips of
+    ``--input``, and :func:`run_golden` over them."""
+    from ml_audio_inpainting_torch.cli.inpaint import _collect
+
+    cfg = _checked_config(args)
+    files = _collect(Path(args.input))
+    return run_golden(args, cfg, files, load_clean(files, cfg))
+
+
+def _print_golden(payload: dict) -> None:
+    for tag, chk in payload["anchor_check"].items():
+        print(f"golden anchor {tag}: recomputed {chk['recomputed_gap_sdr_db']} dB vs recorded "
+              f"{chk['recorded_gap_sdr_db']} dB")
+    for name, entry in payload["ours"].items():
+        line = f"{name}: mean gap-SDR {entry['mean_gap_sdr_db']} dB"
+        for tag in GOLDEN_TAGS:
+            k = f"mean_delta_vs_{tag}_db"
+            if k in entry:
+                line += f", vs {tag} {entry[k]:+} dB"
+        print(line)
+
+
 def main(argv=None) -> None:
     from ml_audio_inpainting_torch.train.peaq import ODG_MAPPING
 
     args = build_argparser().parse_args(argv)
+    if args.golden:
+        payload = golden(args)
+        _print_golden(payload)
+        if args.output_json:
+            Path(args.output_json).write_text(json.dumps(payload, indent=2))
+            print(f"wrote {args.output_json}")
+        return
     adapt_info: dict = {}
     files, raw = run(args, adapt_info=adapt_info)
     results = {name: {k: [round(float(x), 3) for x in v] for k, v in r.items()}

@@ -47,27 +47,34 @@ def random_gap_mask(
     sample_rate: int = 16000,
     gap_start_s: Optional[float] = None,
     dtype: torch.dtype = torch.float32,
+    shape: Tuple[int, ...] = (),
+    device=None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """One single-gap mask ``(audio_len,)`` and its ``(start, end)`` in samples
-    (port of ``random_gap_mask``, ``ops/gaps.py:49-79``).
+    """Single-gap masks ``(*shape, audio_len)`` and their ``(start, end)``
+    in samples, each ``shape`` (port of ``random_gap_mask``,
+    ``ops/gaps.py:49-79``, which draws one; ``shape=(B,)`` draws a batch in
+    one call, where JAX vmaps it over B keys).
 
-    The gap is ``int(gap_len_s * sample_rate)`` samples long and starts
+    A gap is ``int(gap_len_s * sample_rate)`` samples long and starts
     uniformly over ``[0, audio_len - gap_len]`` inclusive (drawn from
-    ``generator`` on the CPU), or at ``gap_start_s`` when given.  A gap of
-    length <= 0 gives an all-ones mask and ``(0, 0)``; one at least as long
-    as the audio gives all zeros and ``(0, audio_len)``.
+    ``generator`` on the CPU, then moved to ``device``), or at
+    ``gap_start_s`` when given.  A gap of length <= 0 gives an all-ones mask
+    and ``(0, 0)``; one at least as long as the audio gives all zeros and
+    ``(0, audio_len)``.  The masks lie on ``device`` (the CPU by default).
     """
     gap_len = int(gap_len_s * sample_rate)
-    zero = torch.zeros((), dtype=torch.int64)
+    zero = torch.zeros(shape, dtype=torch.int64, device=device)
     if gap_len <= 0:
-        return torch.ones(audio_len, dtype=dtype), (zero, zero)
+        return torch.ones((*shape, audio_len), dtype=dtype, device=device), (zero, zero)
     if gap_len >= audio_len:
-        return torch.zeros(audio_len, dtype=dtype), (zero, torch.full((), audio_len))
+        return (torch.zeros((*shape, audio_len), dtype=dtype, device=device),
+                (zero, torch.full(shape, audio_len, device=device)))
     if gap_start_s is None:
-        start = torch.randint(0, audio_len - gap_len + 1, (), generator=generator)
+        start = torch.randint(0, audio_len - gap_len + 1, shape, generator=generator).to(device)
     else:
-        start = torch.full((), int(gap_start_s * sample_rate))
-    return gap_mask(audio_len, start, torch.full((), gap_len), dtype=dtype), (start, start + gap_len)
+        start = torch.full(shape, int(gap_start_s * sample_rate), device=device)
+    length = torch.full(shape, gap_len, device=device)
+    return gap_mask(audio_len, start, length, dtype=dtype), (start, start + gap_len)
 
 
 def apply_gap(audio: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -27,7 +27,8 @@ import torch
 
 from test_adapt import _clip, tiny_gan_config
 from test_torch_gan_features import gaps_of_key
-from test_torch_refiner import flatten, nest, one_thread  # noqa: F401  (a module fixture)
+from test_torch_refiner import flatten, nest
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 from ml_audio_inpainting_tpu.runtime import adapt as jax_adapt
 from ml_audio_inpainting_tpu.train.gan_trainer import build_generator as jax_build_generator

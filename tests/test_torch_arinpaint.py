@@ -24,6 +24,7 @@ from ml_audio_inpainting_tpu.classical.arinpaint import ar_extrapolate as jax_ar
 from ml_audio_inpainting_tpu.classical.arinpaint import arinpaint as jax_arinpaint
 from ml_audio_inpainting_torch.ops.linalg import lpc
 from ml_audio_inpainting_torch.runtime.synthetic import speech_like_batch
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 # The package exports a function under the module's name.
 port = importlib.import_module("ml_audio_inpainting_torch.classical.arinpaint")

@@ -26,6 +26,7 @@ import torch
 
 from ml_audio_inpainting_tpu.data import audio_io as jio
 from ml_audio_inpainting_torch.data import audio_io as tio
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 FLACS = sorted((REPO / "results" / "formant_corpus_samples").glob("*.flac"))

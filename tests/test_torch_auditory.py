@@ -17,6 +17,7 @@ import torch
 from ml_audio_inpainting_tpu.train import auditory as ja
 from ml_audio_inpainting_torch.runtime.synthetic import speech_like_batch
 from ml_audio_inpainting_torch.train import auditory as ta
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 PSM_ATOL = 1e-5
 REP_RTOL = 1e-4

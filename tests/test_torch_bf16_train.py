@@ -67,6 +67,7 @@ from ml_audio_inpainting_torch.train.cnn_trainer import create_cnn_state, make_c
 from ml_audio_inpainting_torch.utils.config import Config
 from ml_audio_inpainting_torch.utils.precision import cast_floating
 from ml_audio_inpainting_torch.weights import cnn_blstm_flat_variables
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 SR = 16000
 CLIP_S, GAP_S = 1.2, 0.05

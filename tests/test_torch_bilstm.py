@@ -15,6 +15,7 @@ import torch
 
 from ml_audio_inpainting_tpu.ops.lstm import BiLSTM as JaxBiLSTM
 from ml_audio_inpainting_torch.ops.lstm import BiLSTM
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 
 def _randomised(params, rng, scale):

@@ -10,6 +10,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ml_audio_inpainting_torch.utils.branch_tape import branch_tape
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 
 def _net(x: torch.Tensor) -> torch.Tensor:

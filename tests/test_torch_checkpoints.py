@@ -33,6 +33,7 @@ from ml_audio_inpainting_torch.utils.run_logging import RunContext, config_text
 from ml_audio_inpainting_torch.utils.visualize import visualize_spectrogram
 from test_gan import tiny_gan_config
 from test_torch_cnn_train import _audio, _cfg_dict
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 REPO_CONFIGS = ["cnn_blstm.yaml", "cnn_blstm_b128.yaml", "gan.yaml"]
 

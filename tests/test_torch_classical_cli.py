@@ -31,6 +31,7 @@ from ml_audio_inpainting_tpu.cli import inpaint as jax_inpaint
 from ml_audio_inpainting_tpu.data import audio_io as jio
 from ml_audio_inpainting_torch.cli import inpaint
 from ml_audio_inpainting_torch.utils.config import Config
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 FORMANT = REPO / "results" / "formant_corpus_samples"

@@ -36,6 +36,7 @@ from ml_audio_inpainting_tpu.utils.config import load_config as jax_load_config
 from ml_audio_inpainting_torch.cli import ar_benchmark, evaluate
 from ml_audio_inpainting_torch.data.multigap import random_multi_gap_layout
 from ml_audio_inpainting_torch.utils.config import load_config
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 FORMANT = REPO / "results" / "formant_corpus_samples"

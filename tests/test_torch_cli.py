@@ -70,6 +70,7 @@ from ml_audio_inpainting_torch.runtime import inference
 from ml_audio_inpainting_torch.runtime.synthetic import speech_like_batch
 from ml_audio_inpainting_torch.train.checkpoints import export_params_npz as export_port_npz
 from ml_audio_inpainting_torch.utils import config
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 FORMANT = REPO / "results" / "formant_corpus_samples"
@@ -397,19 +398,8 @@ def _inpaint_args(narrow, *extra, model="gan"):
             "--output", "unused", *extra]
 
 
-@pytest.fixture
-def one_thread():
-    """One torch thread for a test of many small ops (the AR fill's 2048
-    steps): six test workers with a thread a core each spend more time
-    waking threads than computing."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
-
-
 @pytest.mark.parametrize("model", ["refiner", "cnn_phase", "cnn_phase_anchored"])
-def test_unported_models_raise(narrow, tmp_path, model, one_thread):
+def test_unported_models_raise(narrow, tmp_path, model):
     """Each model, once refused, is ported.  The ``refiner``: a narrow
     seeded head (C=8) over the narrow GAN through both packages' ``inpaint``
     (within one LSB; inside the gap within 2e-3 of its peak: the AR fill's
@@ -484,13 +474,13 @@ def test_unported_inpaint_options_raise(narrow, extra, match):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--golden", "somewhere"], "reference"),
     (["--adapt-steps", "5", "--n-gaps", "2"], "multi-gap"),
 ])
 def test_unported_evaluate_options_raise(narrow, extra, match):
-    """``--golden`` needs the reference's reconstructions; ``--adapt-steps``
-    is ported (``test_evaluate_adapt_steps_matches_jax``) and refuses
-    several gaps a clip, as JAX's does."""
+    """Once refused, these options are ported: ``--golden``
+    (``tests/test_torch_golden.py``) and ``--adapt-steps``
+    (``test_evaluate_adapt_steps_matches_jax``), which refuses several gaps
+    a clip, as JAX's does."""
     with pytest.raises(SystemExit, match=match):
         evaluate.main(["--models", "gan", *_model_args(narrow, "gan"), "--input",
                        str(narrow["clips"]), *extra, "--device", "cpu"])
@@ -525,7 +515,7 @@ def _refiner_parity(narrow, tmp_path):
             evaluate.main(["--models", "refiner", *common, *extra, "--device", "cpu"])
 
 
-def test_evaluate_adapt_steps_matches_jax(narrow, tmp_path, one_thread):
+def test_evaluate_adapt_steps_matches_jax(narrow, tmp_path):
     """``evaluate --adapt-steps 2`` in f32 through both packages, on one
     formant FLAC cut to 2.5 s, with the narrow GAN.  The two draw the steps'
     gaps from other streams (``torch.Generator`` and ``jax.random``), so

@@ -32,6 +32,7 @@ from ml_audio_inpainting_torch.weights import (
     cnn_blstm_state_dict,
     load_params_npz,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(REPO, "results", "checkpoints", "cnn_blstm_formant_v2_r2.npz")
@@ -124,15 +125,17 @@ def test_later_slice_variants_raise(kw):
         assert model.eval()(torch.zeros(shape)).shape == shape
 
 
-def test_committed_checkpoint_full_width_matches_flax(speech_like):
-    """cnn_blstm_formant_v2_r2.npz at full width (16448 -> 3x2x128 BiLSTM ->
+@pytest.mark.parametrize("name", ["cnn_blstm_formant_v2_r2.npz", "cnn_blstm_formant_r2.npz"])
+def test_committed_checkpoint_full_width_matches_flax(speech_like, name):
+    """A committed checkpoint at full width (16448 -> 3x2x128 BiLSTM ->
     4112) on the log10 spectrogram of a 1 s clip."""
+    ckpt = os.path.join(os.path.dirname(CKPT), name)
     clip = speech_like[:16000]
     spec = jax_stft(jnp.asarray(clip), n_fft=512, hop_length=192, win_length=384)
     x = np.asarray(jnp.log10(jnp.abs(spec) + 1e-9))[None]  # (1, 257, 84)
-    want = np.asarray(JaxCNN(freq_bins=257).apply(jax_load_npz(CKPT), jnp.asarray(x), train=False))
+    want = np.asarray(JaxCNN(freq_bins=257).apply(jax_load_npz(ckpt), jnp.asarray(x), train=False))
 
-    flat = load_params_npz(CKPT)
+    flat = load_params_npz(ckpt)
     from_flat = cnn_blstm_from_numpy(flat, device="cpu")
     from_cfg = build_model(Config(), device="cpu")
     from_cfg.load_state_dict(cnn_blstm_state_dict(flat))

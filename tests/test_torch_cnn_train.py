@@ -69,6 +69,7 @@ from ml_audio_inpainting_torch.weights import (
     cnn_blstm_state_dict,
     load_params_npz,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(REPO, "results", "checkpoints", "cnn_blstm_formant_v2_r2.npz")

@@ -25,7 +25,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from test_gan import tiny_gan_config
 
-from test_torch_refiner import one_thread  # noqa: F401  (a module fixture)
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 from ml_audio_inpainting_torch.train.gan_trainer import create_gan_states, make_gan_train_step
 from ml_audio_inpainting_torch.train.recipe import gan_gap_layouts

@@ -29,6 +29,7 @@ from ml_audio_inpainting_torch.weights import (
     discriminator_flat_variables,
     discriminator_state_dict,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 LAYERS = ((8, 2), (16, 2))
 SHAPE = (2, 40, 52)  # (B, F, T)

@@ -20,6 +20,7 @@ from ml_audio_inpainting_tpu.ops import gaps as jgaps
 from ml_audio_inpainting_tpu.ops import masking as jmasking
 from ml_audio_inpainting_torch.ops import gaps, masking
 from ml_audio_inpainting_torch.ops import stft as tstft
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 # The JAX ``ops`` package re-exports a function named ``stft`` over the module.
 jstft = sys.modules["ml_audio_inpainting_tpu.ops.stft"]

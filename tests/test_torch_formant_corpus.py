@@ -11,6 +11,7 @@ import pytest
 
 from ml_audio_inpainting_tpu.data import dataset as jax_dataset
 from ml_audio_inpainting_torch.data import dataset
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 
 @pytest.mark.parametrize("variant", ["v1", "v2", "v3"])

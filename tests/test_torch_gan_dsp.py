@@ -24,6 +24,7 @@ from ml_audio_inpainting_torch.data.dataset import SyntheticSpeechDataset
 from ml_audio_inpainting_torch.models.pconv_unet import reflect_pad
 from ml_audio_inpainting_torch.ops import gaps, masking
 from ml_audio_inpainting_torch.ops.pcm import from_pcm16, to_pcm16
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 HOP = 128
 N_FREQ, N_TIME, N_SAMPLES = 5, 126, 16000

@@ -28,6 +28,7 @@ from ml_audio_inpainting_tpu.utils.config import SpectrogramConfig as JaxSpec
 from ml_audio_inpainting_torch.train.features import gan_features
 from ml_audio_inpainting_torch.train.recipe import gan_gap_layouts, gan_recipe_config
 from ml_audio_inpainting_torch.utils.config import SpectrogramConfig
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 SR, N, B = 16000, 16000, 3
 GAP_S = 0.1

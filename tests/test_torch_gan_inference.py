@@ -61,6 +61,7 @@ from ml_audio_inpainting_torch.runtime.inference import make_gan_inpaint_fn
 from ml_audio_inpainting_torch.runtime.serve import make_gan_runner
 from ml_audio_inpainting_torch.utils.config import Config, SpectrogramConfig
 from ml_audio_inpainting_torch.weights import pconv_unet_state_dict
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(REPO, "results", "checkpoints", "gan_formant_v2_r2.npz")

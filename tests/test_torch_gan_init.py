@@ -23,6 +23,7 @@ import torch
 from ml_audio_inpainting_tpu.models.pconv_unet import PConvUNet as JaxPConvUNet
 from ml_audio_inpainting_torch.models.pconv_unet import PConvUNet
 from ml_audio_inpainting_torch.weights import pconv_unet_flat_variables
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 ENC = ((32, 7, 2), (64, 5, 2), (64, 3, 2))
 DEC = ((64, 3, 1), (32, 3, 1))

@@ -17,6 +17,7 @@ from ml_audio_inpainting_torch.train.losses import (
     discriminator_loss,
     generator_losses,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 LAMBDAS = {"lambda_adv": 0.01, "lambda_l1_valid": 1.0, "lambda_l1_hole": 2.0,
            "lambda_mag_weighted": 0.2, "lambda_vgg_perceptual": 4.0, "lambda_vgg_style": 500.0}

@@ -78,6 +78,7 @@ from ml_audio_inpainting_torch.weights import (
     pconv_unet_flat_variables,
     vgg19_state_dict,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 SR, N = 16000, 16000
 LR = 2e-4

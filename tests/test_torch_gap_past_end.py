@@ -40,6 +40,7 @@ from ml_audio_inpainting_torch.runtime import inference
 from ml_audio_inpainting_torch.runtime.synthetic import speech_like_batch
 from ml_audio_inpainting_torch.utils.config import Config, SpectrogramConfig
 from ml_audio_inpainting_torch.weights import cnn_blstm_from_numpy, pconv_unet_state_dict
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 SR = 16000
 PAST_END = (np.array([15500, 15900, 15000, 15990]), np.array([1000, 300, 1200, 500]))

@@ -1232,3 +1232,34 @@ def test_refiner_on_card_matches_cpu(cuda_device):
             first = fresh(ex["impaired"], ex["ar"], ex["neural"], ex["gap_ind"])
         assert torch.equal(first, torch.where(ex["gap_ind"] > 0, ex["ar"], ex["impaired"]))
     _check_deployable(out["cuda"], out["cpu"], audio, inside, "extrapolate", GAN_DEPLOYABLE_RTOL)
+
+
+# The corpus CLIs on the card: their gaps are drawn on the host, so the
+# card's files are the CPU's (preprocess: a product by 0 or 1, bit for bit;
+# build_gaps_table's cos^2 fades within one 16-bit LSB) and the tables equal.
+
+
+@pytest.mark.gpu
+def test_corpus_clis_on_card_match_cpu(cuda_device, tmp_path):
+    from ml_audio_inpainting_torch.cli import build_gaps_table, preprocess
+    from ml_audio_inpainting_torch.data.audio_io import read_audio, save_audio
+
+    for i, clip in enumerate(speech_like_batch(np.random.default_rng(4), 6, 2.0)):
+        save_audio(clip * 0.8, tmp_path / "tree" / f"d{i % 2}" / f"c{i}.flac", normalize=False)
+    tables = {}
+    for where, device in (("card", "cuda"), ("cpu", "cpu")):
+        preprocess.main(["--input", str(tmp_path / "tree"), "--output", str(tmp_path / where),
+                         "--max-len", "2.0", "--batch-size", "4", "--device", device])
+        tables[where] = build_gaps_table.main([
+            "--input", str(tmp_path / "tree"), "--output", str(tmp_path / f"{where}.json"),
+            "--mode", "multi", "--n-gaps", "3", "--max-len", "2.0", "--write-audio",
+            str(tmp_path / f"{where}_gapped"), "--device", device])
+    assert tables["card"] == tables["cpu"]
+    cpu_files = sorted((tmp_path / "cpu").rglob("*.flac"))
+    assert len(cpu_files) == 6
+    for f in cpu_files:
+        card = read_audio(tmp_path / "card" / f.relative_to(tmp_path / "cpu"))[0]
+        np.testing.assert_array_equal(card, read_audio(f)[0])
+    for f in sorted((tmp_path / "cpu_gapped").glob("*.flac")):
+        card = read_audio(tmp_path / "card_gapped" / f.name)[0]
+        assert np.abs(card - read_audio(f)[0]).max() <= 1.0001 / 32768

@@ -39,6 +39,7 @@ from ml_audio_inpainting_torch.ops.griffinlim import griffinlim
 from ml_audio_inpainting_torch.ops.reconstruct import spectrogram_to_audio
 from ml_audio_inpainting_torch.ops.stft import istft, stft
 from ml_audio_inpainting_torch.runtime.synthetic import speech_like_batch
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 SR = 16000
 SIZES = {"gan": (512, 128, 512), "cnn": (512, 192, 384)}

@@ -17,6 +17,7 @@ import sys
 import textwrap
 
 import pytest
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "ml_audio_inpainting_torch")
@@ -92,7 +93,8 @@ def test_port_package_has_every_slice_module():
         "cli.ar_benchmark", "cli.train", "models.port_torch", "models.legacy_blstm",
         "utils.run_logging", "utils.visualize", "models.refiner", "train.refiner_trainer",
         "cli.train_refiner", "runtime.adapt", "ops.refine", "cli.soup", "utils.stats",
-        "runtime.profiling",
+        "runtime.profiling", "cli.preprocess", "cli.build_gaps_table", "cli.ar_tune",
+        "cli.ar_plots", "utils.tb_analysis",
     ):
         assert f"ml_audio_inpainting_torch.{mod}" in names
 

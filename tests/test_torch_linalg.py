@@ -23,6 +23,7 @@ import torch
 from ml_audio_inpainting_tpu.ops import linalg as jl
 from ml_audio_inpainting_torch.ops import linalg
 from ml_audio_inpainting_torch.runtime.synthetic import speech_like_batch
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 F64_RTOL = 1e-9
 DTYPES = {"f64": (np.float64, torch.float64), "f32": (np.float32, torch.float32)}

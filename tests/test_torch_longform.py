@@ -47,6 +47,7 @@ from ml_audio_inpainting_torch.runtime.synthetic import speech_like_batch
 from ml_audio_inpainting_torch.runtime.transport import composite_gap_patches_1d
 from ml_audio_inpainting_torch.utils.config import Config, SpectrogramConfig
 from ml_audio_inpainting_torch.weights import cnn_blstm_from_numpy, pconv_unet_state_dict
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 SR = 16000
 WINDOW, HOP = SR, SR // 2

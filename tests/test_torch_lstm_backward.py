@@ -29,6 +29,7 @@ from ml_audio_inpainting_tpu.ops.lstm import lstm_scan
 from ml_audio_inpainting_tpu.ops.pallas import lstm_cell as pallas_cell
 from ml_audio_inpainting_torch.ops.cuda import lstm_cell
 from ml_audio_inpainting_torch.ops.lstm import BiLSTM
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 B, T, H = 3, 29, 16
 ATOL = 1e-5

@@ -21,6 +21,7 @@ import torch
 from ml_audio_inpainting_tpu.ops.lstm import lstm_scan
 from ml_audio_inpainting_tpu.ops.pallas.lstm_cell import lstm_recurrence_pallas
 from ml_audio_inpainting_torch.ops.cuda import lstm_cell
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -42,6 +42,7 @@ from ml_audio_inpainting_torch.ops.cuda.lstm_cell import (
 )
 from scripts import torch_lstm_fwd_phases
 from scripts.torch_lstm_bwd_phases import VARIANTS, variant_sources
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 HIDDEN = list(range(4, lstm_cell.MAX_HIDDEN + 1, 4))
 BATCHES = [1, 5, 25, 32, 128]

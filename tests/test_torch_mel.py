@@ -30,6 +30,7 @@ from ml_audio_inpainting_tpu.ops import masking as jax_masking
 from ml_audio_inpainting_tpu.ops import mel as jax_mel
 from ml_audio_inpainting_torch.ops import masking, mel
 from ml_audio_inpainting_torch.runtime.synthetic import speech_like_batch
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 SR = 16000
 

@@ -21,6 +21,7 @@ from ml_audio_inpainting_tpu.train import metrics as jm
 from ml_audio_inpainting_torch.ops import stft as port_stft
 from ml_audio_inpainting_torch.runtime.synthetic import speech_like_batch
 from ml_audio_inpainting_torch.train import metrics as tm
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 # The JAX package's ``ops`` exports a function ``stft`` under the module's name.
 jax_stft = importlib.import_module("ml_audio_inpainting_tpu.ops.stft")

@@ -41,6 +41,7 @@ from ml_audio_inpainting_torch.train.features import cnn_features
 from ml_audio_inpainting_torch.train.recipe import b128_recipe_config, multi_gap_layouts
 from ml_audio_inpainting_torch.utils.config import Config
 from ml_audio_inpainting_torch.utils.precision import cast_floating
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SR = 16000

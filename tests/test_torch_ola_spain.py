@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from ml_audio_inpainting_torch.runtime.synthetic import speech_like_batch
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 # The packages export functions under the modules' names.
 jo = importlib.import_module("ml_audio_inpainting_tpu.classical.ola")

@@ -45,6 +45,7 @@ from ml_audio_inpainting_torch.weights import (
     pconv_unet_flat_variables,
     pconv_unet_state_dict,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(REPO, "results", "checkpoints", "gan_formant_v2_r2.npz")

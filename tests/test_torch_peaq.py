@@ -18,6 +18,7 @@ import torch
 from ml_audio_inpainting_tpu.train import peaq as jp
 from ml_audio_inpainting_torch.runtime.synthetic import speech_like_batch
 from ml_audio_inpainting_torch.train import peaq as tp
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 EP_RTOL, NMR_ATOL, ODG_ATOL = 1e-4, 1e-3, 1e-4
 

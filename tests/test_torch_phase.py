@@ -31,6 +31,7 @@ from ml_audio_inpainting_tpu.ops import phase as jax_phase
 from ml_audio_inpainting_tpu.ops.stft import stft as jax_stft
 from ml_audio_inpainting_torch.ops import phase
 from ml_audio_inpainting_torch.runtime.synthetic import speech_like_batch
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 SR = 16000
 SIZES = {"gan": (512, 128, 512), "cnn": (512, 192, 384)}

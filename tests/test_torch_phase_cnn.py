@@ -57,6 +57,7 @@ from test_torch_cnn_train import (
     _starts_of_key,
     flatten,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 N_FRAMES = 1 + N_SAMPLES // 192
 

@@ -59,6 +59,7 @@ from test_torch_cnn_train import (
     flatten,
 )
 from test_torch_phase_cnn import N_FRAMES, _phase_cfg_dict
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 
 @functools.lru_cache(maxsize=None)

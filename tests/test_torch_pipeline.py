@@ -15,6 +15,7 @@ from ml_audio_inpainting_torch.data.pipeline import (
     device_corpus_feed,
     prefetch_to_device,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 
 class Items:

@@ -35,6 +35,7 @@ from ml_audio_inpainting_torch.models.port_torch import (
     seeded_reference_cnn_state_dict,
 )
 from test_torch_cnn_train import _assert_grads_close, flatten
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 FREQ = 257
 ENC_CFG = ((8, 7, 2), (16, 5, 2), (16, 3, 2))

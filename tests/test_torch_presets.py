@@ -9,6 +9,7 @@ import pytest
 from ml_audio_inpainting_tpu.classical import presets as jax_presets
 from ml_audio_inpainting_tpu.classical import support as jax_support
 from ml_audio_inpainting_torch.classical import presets, support
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 EDGES = (0.075, 0.09, 0.18, 0.30, 0.41)
 GRID = sorted({0.0, 0.01, 0.04, 0.06, 0.08, 0.1, 0.16, 0.2, 0.24, 0.32, 0.5, 1.0,

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_refiner import one_thread  # noqa: F401  (a module fixture)
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 from ml_audio_inpainting_tpu.ops import refine as jax_refine
 from ml_audio_inpainting_torch.ops import refine

@@ -56,6 +56,7 @@ from ml_audio_inpainting_torch.weights import (
     refiner_flat_variables,
     refiner_state_dict,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 HEAD = REPO / "results" / "checkpoints" / "refiner_formant_v2_r3.npz"
@@ -68,17 +69,6 @@ AR_RTOL = 5e-4
 LOSS_ATOL = 1e-3
 LR = 3e-4
 PARAM_LR_SHARE = 0.05
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread for the module: its ops are small (the AR fill's
-    2048 steps, a 4096-sample head), and six test workers with a thread a
-    core each spend more time waking threads than computing."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def jax_state(params, lr=LR):

@@ -37,9 +37,9 @@ from test_torch_refiner import (
     flatten,
     jax_state,
     speech,
-    one_thread,  # noqa: F401  (module fixtures)
-    tiny,  # noqa: F401
+    tiny,  # noqa: F401  (a module fixture)
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 from ml_audio_inpainting_tpu.train import refiner_trainer as jrt
 from ml_audio_inpainting_tpu.train.checkpoints import load_params_npz as jax_load_npz

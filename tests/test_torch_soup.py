@@ -15,6 +15,7 @@ from ml_audio_inpainting_torch.utils import stats
 from ml_audio_inpainting_torch.weights import load_params_npz
 
 from test_torch_refiner import HEAD, flatten
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 
 def _perturbed(tmp_path, seed=0, scale=0.01):

@@ -48,6 +48,7 @@ from ml_audio_inpainting_torch.train.checkpoints import CheckpointManager, state
 from ml_audio_inpainting_torch.utils.config import Config, load_config
 from ml_audio_inpainting_torch.weights import load_params_npz
 from test_torch_checkpoints import _assert_trees_equal
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 LOGGING = {"metric_interval": 1, "checkpoint_interval": 1, "log_interval": 1,
            "sample_interval": 2}

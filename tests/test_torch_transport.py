@@ -44,6 +44,7 @@ from test_torch_gan_inference import (
     _impaired_rebuild,
     _tiny,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 WINDOW = 2048
 

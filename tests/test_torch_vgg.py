@@ -35,6 +35,7 @@ from ml_audio_inpainting_torch.models.vgg import (
     vgg_perceptual_style_losses,
 )
 from ml_audio_inpainting_torch.weights import vgg19_flat_variables, vgg19_state_dict
+from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 FULL = (1, 257, 626)  # (B, F, T) of a 5 s clip on the GAN's STFT profile
 
