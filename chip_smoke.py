@@ -259,6 +259,33 @@ Phases, each printing one flushed line per step with the seconds since start:
                  nothing else.  ``ar_plots`` and ``utils/tb_analysis.py`` do
                  not run here: they need matplotlib and tensorboard, which
                  the card's machine lacks.
+13. multi_device -- multi-device training and serving on
+                 ``torch.distributed`` (``ml_audio_inpainting_torch/parallel/``).
+                 The machine has one card, so it measures overhead, never
+                 scaling.  One rank in this process on an NCCL group
+                 (``FileStore``, mesh 1 x 1): ``make_sharded_serving_fn``
+                 over ``gan_serving``'s request and the production CNN step
+                 (bf16, 128 x 3 gaps, ``cnn_blstm_formant_v2_b128_r4.npz``
+                 with its BiLSTM redrawn) through ``make_sharded_step``, each
+                 equal to the bare form bit for bit.  NCCL's refusal of two
+                 ranks on one card, quoted.  Two ranks sharing the card
+                 (gloo, ``parallel/launch.py::spawn``): data 1 x model 2,
+                 the production step in bf16 and ``configs/cnn_blstm.yaml``'s
+                 in f32 (1 x 25, TF32 off), both from a redrawn BiLSTM, with
+                 layer 0's ``w_ih`` and the ``projection`` split, against
+                 the one-rank step (loss, every parameter, the running
+                 statistics) and the two ranks' states equal, each rank
+                 launching all six kernel forms 3 times; data 2 x model 1,
+                 the GAN recipe step (bf16, 16 clips a rank, VGG19, EMA)
+                 and sharded serving of the GAN main path, against one
+                 rank; then ``cli/train.py --model-parallel 2`` (the
+                 production recipe, 2 steps): its save equal to the gathered
+                 state, restored on 1 x 2 bit for bit and into one rank,
+                 and ``--resume-from`` it one step on.  Last,
+                 ``scaling_bench --devices 1 2 --steps 5``: steps/s and the
+                 loss drift.  Bounds named ``MD_*`` (``tests/test_parallel.py``'s);
+                 each run's seconds, peak memory a rank and backend; the
+                 ranks' kernel launches count under ``multi_device``.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and the script
@@ -284,6 +311,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils._pytree import tree_map
 
 from ml_audio_inpainting_torch.ops.cuda import lstm_cell
@@ -313,6 +341,7 @@ from ml_audio_inpainting_torch.cli import (
     preprocess,
     train_refiner,
 )
+from ml_audio_inpainting_torch.cli import scaling_bench
 from ml_audio_inpainting_torch.cli import soup as soup_cli
 from ml_audio_inpainting_torch.cli import train as train_cli
 from ml_audio_inpainting_torch.data import audio_io
@@ -333,11 +362,15 @@ from ml_audio_inpainting_torch.ops.pcm import to_pcm16
 from ml_audio_inpainting_torch.ops.phase import window_clear_frame_mask
 from ml_audio_inpainting_torch.ops.refine import consistent_reconstruct, magnitude_descent
 from ml_audio_inpainting_torch.ops.stft import stft
+from ml_audio_inpainting_torch.parallel.launch import spawn
+from ml_audio_inpainting_torch.parallel.mesh import initialize_distributed, make_mesh, shard_batch
+from ml_audio_inpainting_torch.parallel.sharding import gather_state, make_sharded_step, place_state
 from ml_audio_inpainting_torch.runtime.inference import (
     make_cnn_inpaint_fn,
     make_cnn_inpaint_mask_fn,
     make_gan_inpaint_fn,
     make_gan_inpaint_mask_fn,
+    make_sharded_serving_fn,
     make_tta_shift_fn,
 )
 from ml_audio_inpainting_torch.runtime.longform import longform_inpaint, longform_inpaint_centered
@@ -361,6 +394,7 @@ from ml_audio_inpainting_torch.train import auditory, gan_trainer, metrics, peaq
 from ml_audio_inpainting_torch.train.checkpoints import (
     CheckpointManager,
     export_params_npz,
+    load_state_tree,
     state_tree,
 )
 from ml_audio_inpainting_torch.train.cnn_trainer import create_cnn_state, make_cnn_train_step
@@ -1202,23 +1236,9 @@ def phase_kernel_bf16(card: str, ptxas: dict) -> list:
     ]
 
 
-WRAPPERS = {"lstm_fwd": bilstm_recurrence, "lstm_bwd": bilstm_recurrence_backward,
-            "lstm_dwhh": bilstm_dwhh}
-
-
-def _counts() -> dict:
-    """Launches of each kernel form since the last reset: the f32 form
-    under the kernel's name, the bf16 form under ``<name>_bf16``."""
-    out = {}
-    for name, wrapper in WRAPPERS.items():
-        out[name] = wrapper.launches - wrapper.bf16_launches
-        out[f"{name}_bf16"] = wrapper.bf16_launches
-    return out
-
-
-def _reset_counts() -> None:
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = wrapper.bf16_launches = 0
+WRAPPERS = lstm_cell.WRAPPERS
+_counts = lstm_cell.kernel_launches
+_reset_counts = lstm_cell.reset_kernel_launches
 
 
 def phase_serving(card: str) -> dict:
@@ -3124,14 +3144,9 @@ def _training_cli(card: str, work: Path) -> dict:
                          device=DEVICE)
     gaps = train_cli.GapDraws(cfg, DEVICE, seed=43).cnn(cfg.training.batch_size)
     step = make_cnn_train_step(cfg, ema=GAN_EMA, compute_dtype=torch.bfloat16)
-    cudnn = torch.backends.cudnn
-    flags = (cudnn.deterministic, cudnn.benchmark)
-    cudnn.deterministic, cudnn.benchmark = True, False  # deterministic convolution algorithms
-    try:
+    with _deterministic_cudnn():
         for s in (template, res.state):
             step(s, batch, *gaps)
-    finally:
-        cudnn.deterministic, cudnn.benchmark = flags
     _tree_equal("training_cli one step from the restored state", state_tree(template),
                 state_tree(res.state))
     del template
@@ -3996,6 +4011,373 @@ def phase_corpus_tools(card: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------- multi_device
+
+MD_LOSS_RTOL = {"f32": 1e-5, "bf16": 5e-3}  # tests/test_parallel.py: loss
+MD_ADAM_STEP_LR = 2.1  # parameters within one Adam step, 2.1 lr (2.1e-4 CNN, 4.1e-4 GAN there)
+MD_BN_TOL = {"f32": (1e-4, 1e-5), "bf16": (2e-2, 1e-3)}  # tests/test_parallel.py: (rtol, atol)
+MD_SN_ATOL = 2e-2  # D's u and sigma in bf16 (tests/test_torch_gan_train.py's bf16 bound)
+MD_SERVE_ATOL = 2e-6  # tests/test_parallel.py: sharded serving
+MD_CLI_STEPS = 2
+MD_SCALING_STEPS = 5
+MD_GAN_CLIPS = 32
+MD_CASE_STEPS = 2  # a 2-rank training case: the checked step, then one timed warm
+MD_SIX_FORMS = {**{k: 3 * MD_CASE_STEPS for k in WRAPPERS},
+                **{f"{k}_bf16": 3 * MD_CASE_STEPS for k in WRAPPERS}}
+MD_RECIPES = {"b128_recipe_config": b128_recipe_config, "recipe_config": recipe_config}
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic convolution algorithms inside, the flags restored after."""
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+
+
+def _md_cnn(device, mesh, recipe: str, flat: dict, batch: tuple, dtype: str) -> dict:
+    """One CNN+BiLSTM train step over ``mesh``: the loss and the gathered
+    model state, on the CPU; then a second step on the same rows, timed
+    warm."""
+    cfg = MD_RECIPES[recipe]()
+    state = create_cnn_state(cfg, device=device, params=flat)
+    step = make_sharded_step(make_cnn_train_step(
+        cfg, compute_dtype=torch.bfloat16 if dtype == "bf16" else None), state, mesh)
+    place_state(state, mesh)
+    batch = shard_batch(batch, mesh)
+    state, m = step(state, *batch)
+    out = {"loss": m["loss"].item(), "model": gather_state(state, mesh)["model"],
+           "sharded": sorted(state.shardings)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, *batch)[1]["loss"].item()
+    return {**out, "step_s": time.perf_counter() - t0}
+
+
+def _md_gan(device, mesh, batch: tuple) -> dict:
+    """One step of the GAN recipe (bf16, VGG19, EMA) over ``mesh``; then a
+    second on the same rows, timed warm."""
+    cfg = gan_recipe_config()
+    g, d = _gan_states(cfg, device, g_ema=GAN_EMA)
+    step = make_sharded_step(make_gan_train_step(cfg, vgg=vgg19_params(device=device),
+                                                 compute_dtype=torch.bfloat16, g_ema=GAN_EMA),
+                             (g, d), mesh)
+    batch = shard_batch(batch, mesh)
+    g, d, m = step(g, d, *batch)
+    out = {"metrics": {k: v.item() for k, v in m.items()},
+           "g": {k: v.cpu() for k, v in g.model.state_dict().items()},
+           "d": {k: v.cpu() for k, v in d.model.state_dict().items()}}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(g, d, *batch)[2]["g_total"].item()
+    return {**out, "step_s": time.perf_counter() - t0}
+
+
+def _md_serve(device, mesh, batch: tuple) -> dict:
+    """The GAN main path (``enhanced``, ``oracle``, f32) served over ``mesh``."""
+    runner = make_gan_runner(gan_config(), GAN_CHECKPOINT, device=device, mode="enhanced",
+                             phase="oracle")
+    with full_f32_convolutions():
+        restored, _ = make_sharded_serving_fn(runner.inpaint_fn, mesh)(
+            *(torch.as_tensor(x) for x in batch))
+    return {"restored": restored.cpu()}
+
+
+def _md_cli_run(argv: list) -> dict:
+    """``cli/train.py`` on this rank: the step, the losses, the run
+    directory, and the tree of the state it ends with, gathered."""
+    res = train_cli.main(argv)
+    return {"step": res.step, "losses": res.losses, "mesh": dict(res.mesh.shape),
+            "run_dir": str(res.checkpoint_dir), "tree": gather_state(res.state, res.mesh),
+            "sharded": sorted(res.state.shardings)}
+
+
+def md_rank(device, cases: list, cli: dict) -> dict:
+    """One rank of the two that share the card: each case (``(label, mesh
+    shape, kind, kwargs)``) with its seconds, peak memory, backend and
+    kernel launches; then the training CLI with ``--model-parallel 2``,
+    the save restored into a fresh state placed on a ``1 x 2`` mesh, and
+    ``--resume-from`` it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meshes, out = {}, {}
+    for label, shape, kind, kwargs in cases:
+        if shape not in meshes:
+            meshes[shape] = make_mesh(*shape, device=device)
+        before = _counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out[label] = globals()[f"_md_{kind}"](device, meshes[shape], **kwargs)
+        torch.cuda.synchronize()
+        out[label].update(seconds=time.perf_counter() - t0, backend=dist.get_backend(),
+                          peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                          launched={k: v - before[k] for k, v in _counts().items()})
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    first = _md_cli_run(cli["first"])
+    saved_dir = Path(cli["first"][cli["first"].index("--base-dir") + 1]) / "checkpoints"
+    (run_dir,) = saved_dir.iterdir()
+    saved = CheckpointManager(run_dir).load_tree()
+    n_saved = _tree_equal("multi_device save vs the gathered state", first.pop("tree"), saved)
+    mesh = make_mesh(1, 2, device=device)
+    state = create_cnn_state(load_config(cli["config"]), device=device, ema=GAN_EMA)
+    CheckpointManager(run_dir).restore(state)
+    place_state(state, mesh)
+    n_restored = _tree_equal("multi_device restore on 1 x 2", gather_state(state, mesh), saved)
+    del state, saved
+    resumed = _md_cli_run([*cli["resume"], "--resume-from", str(run_dir)])
+    resumed.pop("tree")
+    out["cli"] = {"first": first, "resumed": resumed, "tensors_saved": n_saved,
+                  "tensors_restored": n_restored, "seconds": time.perf_counter() - t0,
+                  "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+    return out
+
+
+def md_nccl_pair(device) -> None:
+    """An NCCL collective between two ranks on one card (NCCL refuses it)."""
+    t = torch.ones(1, device=device)
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+
+
+def _md_compare(label: str, got: dict, want: dict, dtype: str, lr: float) -> dict:
+    """Parameters within one Adam step, running statistics within the BN
+    bounds, D's spectral-norm state within ``MD_SN_ATOL``: the largest
+    error of each kind."""
+    rtol, atol = MD_BN_TOL[dtype]
+    worst = {"param": 0.0, "bn": 0.0, "sn": 0.0}
+    for k, w in want.items():
+        if not w.is_floating_point():
+            continue
+        err = (got[k].double() - w.double()).abs()
+        if k.endswith(("running_mean", "running_var")):
+            bound = atol + rtol * w.double().abs()
+            kind = "bn"
+        elif k.endswith((".u", ".sigma")):
+            bound, kind = torch.full_like(err, MD_SN_ATOL), "sn"
+        else:
+            bound, kind = torch.full_like(err, MD_ADAM_STEP_LR * lr), "param"
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"multi_device {label} {k}: max error {err.max().item():.3e} "
+                                 f"out of bounds ({kind})")
+        worst[kind] = max(worst[kind], err.max().item())
+    return worst
+
+
+def phase_multi_device(card: str) -> dict:
+    """Multi-device training and serving on ``torch.distributed``: one
+    NCCL rank in this process, two ranks sharing the card (gloo), the
+    training CLI over a ``1 x 2`` mesh and ``scaling_bench`` on 1 and 2
+    ranks.  Returns the launches of the parent and of every rank."""
+    _reset_counts()
+    b128 = b128_recipe_config()
+    live128 = live_bilstm(load_params_npz(B128_CHECKPOINT), seed=6)
+    clips = b128.training.batch_size
+    b128_batch = (speech_like_batch(np.random.default_rng(500), clips),
+                  *(t.numpy() for t in multi_gap_layouts(torch.Generator().manual_seed(501), b128,
+                                                        clips, b128.data.gaps_per_audio)))
+    yaml_cfg = recipe_config()
+    live_yaml = live_bilstm(load_params_npz(CHECKPOINT), seed=6)
+    yaml_batch = (speech_like_batch(np.random.default_rng(502), 1),
+                  gap_starts(torch.Generator().manual_seed(503), yaml_cfg, 1,
+                             yaml_cfg.data.gaps_per_audio).numpy())
+    gcfg = gan_recipe_config()
+    gan_batch = (speech_like_batch(np.random.default_rng(504), MD_GAN_CLIPS),
+                 *(t.numpy() for t in gan_gap_layouts(torch.Generator().manual_seed(505), gcfg,
+                                                      MD_GAN_CLIPS)))
+    serve_batch = (synthetic_dataset_batch(BATCH, gan_config().data.max_len_s),
+                   np.full(BATCH, GAP_START), np.full(BATCH, GAP_LEN))
+    log("multi_device", f"the card's machine has one card ({card}): two ranks share it and measure "
+                        "the collectives' and the host's overhead, not scaling")
+
+    # 1. One rank, NCCL, in this process: the sharded forms equal the bare ones bit for bit.
+    work = Path(tempfile.mkdtemp(prefix="multi_device_"))
+    t0 = time.perf_counter()
+    device = initialize_distributed("cuda", store=dist.FileStore(str(work / "store"), 1),
+                                    rank=0, world_size=1)
+    backend = dist.get_backend()
+    one = torch.ones(4, device=device)
+    dist.all_reduce(one)
+    if backend != "nccl" or not bool((one == 1).all()):
+        raise AssertionError(f"multi_device: one rank's backend {backend}, all_reduce {one}")
+    mesh = make_mesh(device=device)
+    torch.cuda.reset_peak_memory_stats()
+    runner = make_gan_runner(gan_config(), GAN_CHECKPOINT, device=device, mode="enhanced",
+                             phase="oracle")
+    audio_d, gs_d, gl_d = (torch.as_tensor(x, device=device) for x in serve_batch)
+    with _deterministic_cudnn(), full_f32_convolutions():
+        plain, _ = runner.inpaint_fn(audio_d, gs_d, gl_d)
+        sharded, _ = make_sharded_serving_fn(runner.inpaint_fn, mesh)(audio_d, gs_d, gl_d)
+    if not torch.equal(plain, sharded):
+        raise AssertionError("multi_device: 1-rank sharded serving differs from the runner")
+    serve_ref = plain.cpu()
+    del runner, plain, sharded, audio_d
+    refs, batch_d = {}, tuple(torch.as_tensor(x, device=device) for x in b128_batch)
+    with _deterministic_cudnn():
+        for how in ("bare", "sharded"):
+            state = create_cnn_state(b128, device=device, params=live128)
+            step = make_cnn_train_step(b128, compute_dtype=torch.bfloat16)
+            if how == "sharded":
+                step = make_sharded_step(step, state, mesh)
+                place_state(state, mesh)
+            state, m = step(state, *batch_d)
+            refs[how] = (m["loss"].item(), {k: v.cpu() for k, v in state.model.state_dict().items()})
+            del state
+    _tree_equal("multi_device 1-rank CNN step vs the bare step", refs["sharded"][1],
+                refs["bare"][1])
+    if refs["sharded"][0] != refs["bare"][0]:
+        raise AssertionError(f"multi_device 1-rank loss {refs['sharded'][0]} != {refs['bare'][0]}")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    dist.destroy_process_group()
+    log("multi_device", f"1 rank, {backend}: sharded serving of B={BATCH} x 5 s and the b128 bf16 "
+                        f"step through make_sharded_step equal the bare forms bit for bit "
+                        f"({len(refs['bare'][1])} tensors); {time.perf_counter() - t0:.1f} s, "
+                        f"peak {peak:.0f} MiB ({card})")
+
+    # The one-rank references of the two-rank runs, here on the card.
+    t0 = time.perf_counter()
+    with full_f32_convolutions():
+        state = create_cnn_state(yaml_cfg, device=device, params=live_yaml)
+        state, m = make_cnn_train_step(yaml_cfg)(
+            state, *(torch.as_tensor(x, device=device) for x in yaml_batch))
+    yaml_ref = (m["loss"].item(), {k: v.cpu() for k, v in state.model.state_dict().items()})
+    g, d = _gan_states(gcfg, device, g_ema=GAN_EMA)
+    g, d, gm = make_gan_train_step(gcfg, vgg=vgg19_params(device=device),
+                                   compute_dtype=torch.bfloat16, g_ema=GAN_EMA)(
+        g, d, *(torch.as_tensor(x, device=device) for x in gan_batch))
+    gan_ref = ({k: v.item() for k, v in gm.items()},
+               {k: v.cpu() for k, v in g.model.state_dict().items()},
+               {k: v.cpu() for k, v in d.model.state_dict().items()})
+    del state, g, d, batch_d
+    torch.cuda.empty_cache()
+    log("multi_device", f"one-rank references (f32 cnn_blstm.yaml step, bf16 GAN step): "
+                        f"{time.perf_counter() - t0:.1f} s")
+
+    # 2. Two ranks on the one card: NCCL's refusal, then gloo.
+    try:
+        spawn(md_nccl_pair, 2, "cuda", backend="nccl", timeout_s=120)
+        raise AssertionError("two NCCL ranks on one card ran an all_reduce")
+    except RuntimeError as e:
+        refusal = next((line.strip() for line in str(e).splitlines() if "Duplicate GPU" in line),
+                       None)
+        if refusal is None:
+            raise
+        log("multi_device", f"NCCL refuses two ranks on one card: {refusal[:300]}")
+    cli_cfg = _cli_config(work, "b128", b128, {"metric_interval": 1, "checkpoint_interval": 100})
+    cli_common = ["--model", "cnn_blstm", "--config", cli_cfg, "--train-dtype", "bf16", "--ema",
+                  str(GAN_EMA), "--feed", "device", "--synthetic", str(clips), "--corpus",
+                  "harmonic", "--model-parallel", "2", "--workers", "4"]
+    # The CLI starts from the redrawn BiLSTM too: a step-0 checkpoint of it to resume from.
+    init = create_cnn_state(b128, device=device, params=live128, ema=GAN_EMA)
+    CheckpointManager(work / "init").save(0, init)
+    del init
+    cli = {"config": cli_cfg,
+           "first": [*cli_common, "--steps", str(MD_CLI_STEPS), "--base-dir", str(work / "a"),
+                     "--resume-from", str(work / "init")],
+           "resume": [*cli_common, "--steps", str(MD_CLI_STEPS + 1), "--base-dir",
+                      str(work / "b")]}
+    cases = [
+        ("cnn b128 bf16 1x2", (1, 2), "cnn", {"recipe": "b128_recipe_config", "flat": live128,
+                                              "batch": b128_batch, "dtype": "bf16"}),
+        ("cnn yaml f32 1x2", (1, 2), "cnn", {"recipe": "recipe_config", "flat": live_yaml,
+                                             "batch": yaml_batch, "dtype": "f32"}),
+        ("gan bf16 2x1", (2, 1), "gan", {"batch": gan_batch}),
+        ("serve 2x1", (2, 1), "serve", {"batch": serve_batch}),
+    ]
+    t0 = time.perf_counter()
+    ranks = spawn(md_rank, 2, "cuda", cases, cli, timeout_s=900)
+    log("multi_device", f"2 ranks: {time.perf_counter() - t0:.1f} s with their start")
+    launches = [r.launches for r in ranks]
+    wants = {"cnn b128 bf16 1x2": (refs["bare"], "bf16", b128.training.starter_learning_rate),
+             "cnn yaml f32 1x2": (yaml_ref, "f32", yaml_cfg.training.starter_learning_rate)}
+    summary = {}
+    for label, (want, dtype, lr) in wants.items():
+        got = [r.value[label] for r in ranks]
+        if got[0]["sharded"] != ["lstm.l0_bwd_w_ih", "lstm.l0_fwd_w_ih", "projection.weight"]:
+            raise AssertionError(f"multi_device {label}: split {got[0]['sharded']}")
+        if got[0]["loss"] != got[1]["loss"]:
+            raise AssertionError(f"multi_device {label}: the ranks' losses differ")
+        rel = abs(got[0]["loss"] - want[0]) / abs(want[0])
+        if not rel <= MD_LOSS_RTOL[dtype]:
+            raise AssertionError(f"multi_device {label}: loss {got[0]['loss']} vs one rank "
+                                 f"{want[0]}")
+        worst = _md_compare(label, got[0]["model"], want[1], dtype, lr)
+        _tree_equal(f"multi_device {label} rank 1 vs rank 0", got[1]["model"], got[0]["model"])
+        summary[label] = {"loss_rel_err": rel, **worst}
+    forms = [{k: v for k, v in r.value["cnn b128 bf16 1x2"]["launched"].items() if v}
+             | {k: v for k, v in r.value["cnn yaml f32 1x2"]["launched"].items() if v}
+             for r in ranks]
+    if any(f != MD_SIX_FORMS for f in forms):
+        raise AssertionError(f"multi_device: launches on each rank of the 1 x 2 steps {forms}, "
+                             f"expected {MD_SIX_FORMS}")
+    gan = [r.value["gan bf16 2x1"] for r in ranks]
+    for k in ("g_total", "d_total"):
+        rel = abs(gan[0]["metrics"][k] - gan_ref[0][k]) / abs(gan_ref[0][k])
+        if gan[0]["metrics"][k] != gan[1]["metrics"][k] or not rel <= MD_LOSS_RTOL["bf16"]:
+            raise AssertionError(f"multi_device gan {k}: {[r['metrics'][k] for r in gan]} vs "
+                                 f"one rank {gan_ref[0][k]}")
+        summary.setdefault("gan bf16 2x1", {})[f"{k}_rel_err"] = rel
+    for net, want in (("g", gan_ref[1]), ("d", gan_ref[2])):
+        summary["gan bf16 2x1"][net] = _md_compare(f"gan {net}", gan[0][net], want, "bf16",
+                                                   gcfg.training.g_lr)
+    serve_err = max((r.value["serve 2x1"]["restored"] - serve_ref).abs().max().item()
+                    for r in ranks)
+    if not serve_err <= MD_SERVE_ATOL:
+        raise AssertionError(f"multi_device: 2-rank serving off one rank by {serve_err}")
+    summary["serve 2x1"] = {"max_abs_err": serve_err}
+    for label in ("cnn b128 bf16 1x2", "cnn yaml f32 1x2", "gan bf16 2x1", "serve 2x1"):
+        runs = [r.value[label] for r in ranks]
+        step_s = [round(r["step_s"], 3) for r in runs] if "step_s" in runs[0] else "-"
+        log("multi_device", f"{label}: warm step {step_s} s; the case "
+                            f"{[round(r['seconds'], 2) for r in runs]} s, peak "
+                            f"{[round(r['peak_mib']) for r in runs]} MiB a rank, backend "
+                            f"{runs[0]['backend']}; {json.dumps(summary[label])} ({card})")
+    cli_out = [r.value["cli"] for r in ranks]
+    first, resumed = cli_out[0]["first"], cli_out[0]["resumed"]
+    if (first["mesh"] != {"data": 1, "model": 2} or first["step"] != MD_CLI_STEPS
+            or resumed["step"] != MD_CLI_STEPS + 1):
+        raise AssertionError(f"multi_device cli: {first['mesh']}, steps {first['step']}, "
+                             f"{resumed['step']}")
+    one = create_cnn_state(b128, device=device, ema=GAN_EMA)
+    saved = CheckpointManager(first["run_dir"]).load_tree()
+    load_state_tree(one, saved)
+    n_one = _tree_equal("multi_device cli save restored into one rank", state_tree(one), saved)
+    del one, saved
+    log("multi_device", f"cli/train.py --model-parallel 2, b128 bf16: {MD_CLI_STEPS} steps, "
+                        f"losses {[x['loss'] for _, x in first['losses']]}; the save is the "
+                        f"gathered state ({cli_out[0]['tensors_saved']} tensors) and restores on "
+                        f"1 x 2 bit for bit ({cli_out[0]['tensors_restored']}) and into one rank "
+                        f"({n_one}); --resume-from to step {resumed['step']}, loss "
+                        f"{resumed['losses'][-1][1]['loss']:.4f}; {cli_out[0]['seconds']:.1f} s, "
+                        f"peak {[round(c['peak_mib']) for c in cli_out]} MiB a rank ({card})")
+
+    # 4. scaling_bench on 1 and 2 ranks.
+    t0 = time.perf_counter()
+    payload = scaling_bench.main(["--devices", "1", "2", "--steps", str(MD_SCALING_STEPS),
+                                  "--device", "cuda", "--output-json",
+                                  str(work / "scaling.json")])
+    for n, per_rank in payload["kernel_launches"].items():
+        launches += per_rank
+    for model, rows in payload["models"].items():
+        log("multi_device", f"scaling_bench {model}: steps/s "
+                            f"{ {n: round(r['steps_per_sec'], 3) for n, r in rows.items()} }, "
+                            f"relative loss drift 2 vs 1 rank "
+                            f"{rows['2']['max_rel_loss_drift_vs_1dev']:.3e}, peak "
+                            f"{ {n: r['peak_memory_bytes_per_rank'] for n, r in rows.items()} } "
+                            f"bytes a rank, backend { {n: r['backend'] for n, r in rows.items()} }; "
+                            f"two ranks on one card measure overhead, not scaling "
+                            f"({card})")
+    log("multi_device", f"scaling_bench: {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
+    counts = _counts()
+    return {k: counts[k] + sum(c[k] for c in launches) for k in counts}
+
+
 def main() -> int:
     smi = phase_device()
     card = f"{torch.cuda.get_device_name(0)}, power limit {smi.split(',')[-1].strip()}"
@@ -4015,6 +4397,7 @@ def main() -> int:
     paths["classical"] = phase_classical(card)
     paths["refiner"] = phase_refiner(card)
     paths["corpus_tools"] = phase_corpus_tools(card)
+    paths["multi_device"] = phase_multi_device(card)
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()
                                  if counts[k["name"]]}

@@ -32,8 +32,17 @@ The port's steps take gap positions, not a key: they are drawn on the
 device from a ``torch.Generator`` seeded ``--seed`` (``jax.random`` draws
 others from the same seed).  ``--feed auto`` sizes the device feed from
 the card's free memory (``torch.cuda.mem_get_info``) and the port's own
-measured step peaks (:data:`STEP_PEAK_BYTES`).  ``--model-parallel > 1``
-raises ``SystemExit`` naming its ROADMAP item.
+measured step peaks (:data:`STEP_PEAK_BYTES`).
+
+Several ranks: ``torchrun --nproc-per-node N -m
+ml_audio_inpainting_torch.cli.train ... [--model-parallel M]`` (or
+``parallel/launch.py::spawn`` calling :func:`main` on each rank).  The
+mesh is JAX's: ``data = gcd(batch_size, world // M)`` by ``M``; ranks past
+``data x M`` log that they are idle and leave, as JAX leaves those devices
+unused.  Every rank draws the global batch and its gaps and steps on its
+rows (``parallel/``); the first rank alone logs, probes, saves (the
+gathered state, in the one-device format) and exports.  In a lone process
+``--model-parallel 2`` fails as JAX's does ("does not divide").
 
 :func:`main` returns what it did (:class:`TrainResult`) for callers that
 drive it in-process; ``on_step(step)``, if given, is called after each
@@ -54,6 +63,7 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 __all__ = ["build_argparser", "main", "make_dataset", "GapDraws", "TrainResult",
            "STEP_PEAK_BYTES", "feed_choice"]
@@ -72,7 +82,6 @@ STEP_PEAK_BYTES = {
 }
 DEVICE_FEED_MAX_BYTES = 2 * 1024**3  # the JAX CLI's cap on a device-resident corpus
 FEED_MARGIN_BYTES = 2 * 1024**3  # kept free beside the step's estimate
-ROADMAP_MODEL_PARALLEL = "ROADMAP Queue A item 8 (multi-device training)"
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -91,7 +100,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--run-name", type=str, default=None)
     p.add_argument("--base-dir", type=str, default=".")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="devices a model is split over (1 only: " + ROADMAP_MODEL_PARALLEL + ")")
+                   help="ranks a model is split over (the mesh's model axis)")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--resume-from", type=str, default=None,
                    help="checkpoint directory of a prior run to restore the latest step from; "
@@ -244,7 +253,9 @@ class TrainResult:
     (``(step, {name: value})`` at each loss log), intervals (``(from_step,
     to_step, seconds)`` between loss logs, the device synchronised at both
     ends), saves (``(step, seconds, bytes)``), probes (``(step, gap SDR dB,
-    PSM, seconds)``) and sample files."""
+    PSM, seconds)``) and sample files, and the mesh the run trained on (the
+    state is this rank's part of it: ``parallel/sharding.py::gather_state``
+    gives the whole).  On a rank the mesh leaves idle, ``state`` is None."""
 
     model: str
     state: Any
@@ -261,6 +272,7 @@ class TrainResult:
     saves: List[Tuple[int, float, int]] = field(default_factory=list)
     probes: List[Tuple[int, float, float, float]] = field(default_factory=list)
     samples: List[Path] = field(default_factory=list)
+    mesh: Any = None
 
 
 def _sync(device) -> None:
@@ -275,15 +287,14 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None) -> TrainRes
         prefetch_to_device,
     )
     from ml_audio_inpainting_torch.ops.gaps import gap_mask
+    from ml_audio_inpainting_torch.parallel.mesh import initialize_distributed, make_mesh, shard_batch
+    from ml_audio_inpainting_torch.parallel.sharding import gather_state, make_sharded_step, place_state
     from ml_audio_inpainting_torch.train.checkpoints import CheckpointManager, export_params_npz
     from ml_audio_inpainting_torch.utils.config import Config, load_config
     from ml_audio_inpainting_torch.utils.precision import full_f32_convolutions
     from ml_audio_inpainting_torch.utils.run_logging import RunContext
 
     args = build_argparser().parse_args(argv)
-    if args.model_parallel != 1:
-        raise SystemExit(f"--model-parallel {args.model_parallel}: the port trains on one "
-                         f"device; multi-device training is {ROADMAP_MODEL_PARALLEL}")
     if args.model != "gan" and args.remat:
         raise SystemExit("--remat is supported for --model gan only")
     if args.phase_mode and args.model != "cnn_blstm":
@@ -309,13 +320,29 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None) -> TrainRes
         raise SystemExit("--phase-mode has no multi-gap training features "
                          "(cnn_phase_features is single-gap)")
 
-    device = torch.device(args.device)
     B = cfg.training.batch_size
     sr = cfg.data.sample_rate
-    run = RunContext(cfg, run_name=args.run_name, base_dir=args.base_dir)
+    device = initialize_distributed(args.device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    # The data width must divide the batch: the largest divisor of the batch
+    # size that fits the ranks left by the model axis (JAX's rule).
+    dp = math.gcd(B, world // args.model_parallel)
+    try:
+        mesh = make_mesh(dp, args.model_parallel, ranks=range(min(world, dp * args.model_parallel)),
+                         device=device)
+    except ValueError as e:
+        raise SystemExit(f"--model-parallel {args.model_parallel}: {e}") from None
+    if not mesh.is_member:
+        print(f"rank {mesh.rank} of {world}: idle, the mesh {mesh.shape} uses ranks "
+              f"{list(mesh.ranks)}", file=sys.stderr, flush=True)
+        return TrainResult(args.model, None, 0, "", Path(), Path(), mesh=mesh)
+    run = RunContext(cfg, run_name=args.run_name, base_dir=args.base_dir,
+                     primary=mesh.is_primary)
     run.logger.info("argv: %s", " ".join(argv if argv is not None else sys.argv[1:]))
     run.logger.info("device: %s", torch.cuda.get_device_name(device) if device.type == "cuda"
                     else device)
+    run.logger.info("mesh: %s over %d ranks (backend %s)", mesh.shape, world,
+                    dist.get_backend() if dist.is_initialized() else "none")
 
     dataset = make_dataset(cfg, args)
     run.logger.info("dataset: %d items", len(dataset))
@@ -355,9 +382,11 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None) -> TrainRes
             run.logger.warning("--probe-every set but no probe source; disabled")
 
     best_ckpt = None
-    result = TrainResult(args.model, None, 0, run.run_name, run.checkpoint_dir, run.sample_dir)
+    probing = probe_clips is not None
+    result = TrainResult(args.model, None, 0, run.run_name, run.checkpoint_dir, run.sample_dir,
+                         mesh=mesh)
     probe_stale = [0]
-    if probe_clips is not None:
+    if probe_clips is not None and mesh.is_primary:
         from ml_audio_inpainting_torch.train.auditory import psm_score
         from ml_audio_inpainting_torch.train.metrics import gap_sdr
 
@@ -380,8 +409,9 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None) -> TrainRes
         probe_gl = torch.full((k,), gl, dtype=torch.int64, device=device)
         probe_gap = 1.0 - gap_mask(n, probe_gs, probe_gl)
 
-        def run_probe(step: int, inpaint_fn, payload) -> bool:
-            """Score the probe; keep a new best.  True when patience is spent."""
+        def run_probe(step: int, inpaint_fn, tree) -> bool:
+            """Score the probe; keep a new best (``tree``, a gathered state).
+            True when patience is spent."""
             t0 = time.perf_counter()
             with full_f32_convolutions():
                 restored, _ = inpaint_fn(probe_clips, probe_gs, probe_gl)
@@ -393,7 +423,7 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None) -> TrainRes
             if sdr > result.best_sdr + 1e-6:
                 result.best_sdr, result.best_step = sdr, step
                 probe_stale[0] = 0
-                best_ckpt.save(step, payload, force=True)
+                best_ckpt.save_tree(step, tree, force=True)
                 run.logger.info("probe @ step %d: gap-SDR %.2f dB, PSM %.3f (new best)",
                                 step, sdr, psm)
                 return False
@@ -419,7 +449,8 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None) -> TrainRes
             batch_iterator(dataset, B, shuffle=True, seed=args.seed, epochs=epochs,
                            workers=args.workers), size=2, device=device)
 
-    ckpt = CheckpointManager(run.checkpoint_dir, save_interval_steps=1, max_to_keep=5)
+    ckpt = (CheckpointManager(run.checkpoint_dir, save_interval_steps=1, max_to_keep=5)
+            if mesh.is_primary else None)
     resume_src = ckpt if args.resume else None
     if args.resume_from:
         resume_src = CheckpointManager(args.resume_from, max_to_keep=None)
@@ -431,8 +462,10 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None) -> TrainRes
     compute_dtype = torch.bfloat16 if args.train_dtype == "bf16" else None
 
     def save(manager, step: int, state, force: bool = False) -> None:
+        """Gather ``state`` (every rank) and save it (the first rank)."""
         t0 = time.perf_counter()
-        if manager.save(step, state, force=force):
+        tree = gather_state(state, mesh)
+        if manager is not None and manager.save_tree(step, tree, force=force):
             path = manager.directory / str(step) / "state.pt"
             result.saves.append((step, time.perf_counter() - t0, path.stat().st_size))
             run.logger.info("checkpoint step %d: %.1f MB in %.2f s", step,
@@ -445,7 +478,8 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None) -> TrainRes
         for vb in batch_iterator(valid_dataset, B, shuffle=False, epochs=1):
             vb = torch.from_numpy(vb).to(device)
             # The same gap draws for every batch (JAX reuses PRNGKey(123)).
-            out = eval_fn(*states, vb, *gap_draws(GapDraws(cfg, device, 123), vb.shape[0]))
+            gaps = gap_draws(GapDraws(cfg, device, 123), vb.shape[0])
+            out = eval_fn(*states, *shard_batch((vb, *gaps), mesh))
             vals.append({k: float(v) for k, v in out.items()})
         if vals:
             means = {k: float(np.mean([v[k] for v in vals])) for k in vals[0]}
@@ -455,6 +489,15 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None) -> TrainRes
                             {k: round(v, 4) for k, v in means.items()})
 
     last = [0, 0.0]
+
+    def probe_says_stop(stop: bool) -> bool:
+        """The first rank's probe verdict, on every rank of the mesh."""
+        group = mesh.group("mesh")
+        if group is None:
+            return stop
+        flag = torch.tensor([int(stop)], device=device)
+        dist.broadcast(flag, src=mesh.ranks[0], group=group)
+        return bool(flag.item())
 
     def interval(step: int) -> float:
         """Steps/s since the last log (the caller has just synchronised)."""
@@ -480,27 +523,34 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None) -> TrainRes
         if resume_src is not None and resume_src.latest_step() is not None:
             resume_src.restore(state)
             run.logger.info("resumed from step %s", resume_src.latest_step())
-        step_fn = make_cnn_train_step(cfg, ema=args.ema, compute_dtype=compute_dtype,
-                                      phase_mode=args.phase_mode, phase_anchor=args.phase_anchor)
-        eval_fn = (make_cnn_eval_step(cfg, phase_mode=args.phase_mode,
-                                      phase_anchor=args.phase_anchor)
+        step_fn = make_sharded_step(
+            make_cnn_train_step(cfg, ema=args.ema, compute_dtype=compute_dtype,
+                                phase_mode=args.phase_mode, phase_anchor=args.phase_anchor),
+            state, mesh)
+        eval_fn = (make_sharded_step(make_cnn_eval_step(cfg, phase_mode=args.phase_mode,
+                                                        phase_anchor=args.phase_anchor),
+                                     state, mesh)
                    if args.valid_every else None)
+        place_state(state, mesh)
         serve_model = probe_fn = None
-        if probe_clips is not None:
+        if probing and mesh.is_primary:
             serve_model = build_model(cfg, device)
             probe_fn = (make_cnn_phase_inpaint_fn(cfg, serve_model, anchored=args.phase_anchor)
                         if args.phase_mode else make_cnn_inpaint_fn(cfg, serve_model))
 
         def cnn_probe(step: int) -> bool:
+            tree = gather_state(state, mesh)
+            if not mesh.is_primary:
+                return probe_says_stop(False)
             # Serve the EMA weights when on (what deployment would use).
-            serve_model.load_state_dict({**state.model.state_dict(), **(state.ema_params or {})})
-            return run_probe(step, probe_fn, state)
+            serve_model.load_state_dict({**tree["model"], **(tree["ema_params"] or {})})
+            return probe_says_stop(run_probe(step, probe_fn, tree))
 
         step = state.step
         _sync(device)
         last[:] = [step, time.perf_counter()]
         for audio in feed:
-            state, metrics = step_fn(state, audio, *draws.cnn(audio.shape[0]))
+            state, metrics = step_fn(state, *shard_batch((audio, *draws.cnn(audio.shape[0])), mesh))
             step += 1
             if on_step is not None:
                 on_step(step)
@@ -512,7 +562,7 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None) -> TrainRes
                 run.logger.info("step %d loss %.4f (%.2f steps/s)", step, loss, rate)
             if args.valid_every and step % args.valid_every == 0:
                 validate(eval_fn, (state,), step, lambda g, b: g.cnn(b))
-            if probe_fn is not None and step % args.probe_every == 0 and cnn_probe(step):
+            if probing and step % args.probe_every == 0 and cnn_probe(step):
                 run.logger.info("early stop at step %d (probe patience)", step)
                 break
             if step % ckpt_every == 0:
@@ -539,11 +589,13 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None) -> TrainRes
             g_ema=args.ema)
         use_vgg = cfg.training.lambda_vgg_perceptual > 0 or cfg.training.lambda_vgg_style > 0
         vgg = vgg19_params(device=device) if use_vgg else None
-        step_fn = make_gan_train_step(cfg, vgg=vgg, compute_dtype=compute_dtype,
-                                      remat=args.remat, g_ema=args.ema)
         if resume_src is not None and resume_src.latest_step() is not None:
             resume_src.restore({"g": g_state, "d": d_state})
             run.logger.info("resumed from step %s", resume_src.latest_step())
+        step_fn = make_sharded_step(make_gan_train_step(cfg, vgg=vgg, compute_dtype=compute_dtype,
+                                                        remat=args.remat, g_ema=args.ema),
+                                    (g_state, d_state), mesh)
+        place_state((g_state, d_state), mesh)
 
         # Sample dumps: the live generator's reconstruction of the first clip.
         sample_fn = make_gan_inpaint_fn(cfg, g_state.model, mode="parity")
@@ -570,24 +622,27 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None) -> TrainRes
 
                 plt.close(fig)
 
-        gan_eval_fn = make_gan_eval_step(cfg, vgg=vgg) if args.valid_every else None
+        gan_eval_fn = (make_sharded_step(make_gan_eval_step(cfg, vgg=vgg), (g_state, d_state),
+                                         mesh) if args.valid_every else None)
         serve_gen = gan_probe_fn = None
-        if probe_clips is not None:
+        if probing and mesh.is_primary:
             # The production serving mode (the evaluation condition), not the sampler's.
             serve_gen = build_generator(cfg, device)
             gan_probe_fn = make_gan_inpaint_fn(cfg, serve_gen, mode="enhanced")
 
         def gan_probe(step: int) -> bool:
-            serve_gen.load_state_dict({**g_state.model.state_dict(),
-                                       **(g_state.ema_params or {})})
-            return run_probe(step, gan_probe_fn, {"g": g_state, "d": d_state})
+            tree = gather_state({"g": g_state, "d": d_state}, mesh)
+            if not mesh.is_primary:
+                return probe_says_stop(False)
+            serve_gen.load_state_dict({**tree["g"]["model"], **(tree["g"]["ema_params"] or {})})
+            return probe_says_stop(run_probe(step, gan_probe_fn, tree))
 
         step = g_state.step
         _sync(device)
         last[:] = [step, time.perf_counter()]
         for audio in feed:
-            g_state, d_state, metrics = step_fn(g_state, d_state, audio,
-                                                *draws.gan(audio.shape[0]))
+            g_state, d_state, metrics = step_fn(
+                g_state, d_state, *shard_batch((audio, *draws.gan(audio.shape[0])), mesh))
             step += 1
             if on_step is not None:
                 on_step(step)
@@ -610,11 +665,11 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None) -> TrainRes
                     run.scalar(tag, values[k], step)
                 run.logger.info("step %d g_total %.4f d_total %.4f (%.2f steps/s)", step,
                                 values["g_total"], values["d_total"], rate)
-            if step % cfg.logging.sample_interval == 0:
+            if mesh.is_primary and step % cfg.logging.sample_interval == 0:
                 dump_samples(step)
             if args.valid_every and step % args.valid_every == 0:
                 validate(gan_eval_fn, (g_state, d_state), step, lambda g, b: g.gan(b))
-            if gan_probe_fn is not None and step % args.probe_every == 0 and gan_probe(step):
+            if probing and step % args.probe_every == 0 and gan_probe(step):
                 run.logger.info("early stop at step %d (probe patience)", step)
                 break
             if step % ckpt_every == 0:
@@ -625,8 +680,11 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None) -> TrainRes
         result.state = {"g": g_state, "d": d_state}
 
     result.step = step
-    ckpt.wait()
-    ckpt.close()
+    if ckpt is not None:
+        ckpt.wait()
+        ckpt.close()
+    if mesh.group("mesh") is not None:  # every rank returns once the checkpoint is written
+        dist.barrier(group=mesh.group("mesh"))
     if best_ckpt is not None:
         best_ckpt.wait()
         if result.best_step >= 0:

@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from ml_audio_inpainting_torch.ops.lstm import BiLSTM
+from ml_audio_inpainting_torch.parallel.collectives import batch_moments, column_parallel_linear
 
 __all__ = ["FlaxBatchNorm2d", "StackedBLSTMCNN", "running_stats_frozen"]
 
@@ -74,8 +75,8 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         dims = (0, 2, 3)
         acc = torch.promote_types(x.dtype, torch.float32)  # f32 for bf16, else x's own
         xf = x.to(acc)
-        mean = xf.mean(dim=dims)
-        var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
+        mean, mean_sq = batch_moments(xf, dims)  # over a mesh's global batch
+        var = torch.clamp_min(mean_sq - mean * mean, 0.0)
         if self.update_running:
             with torch.no_grad():
                 self.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
@@ -183,7 +184,8 @@ class StackedBLSTMCNN(nn.Module):
         else:
             seq = h.permute(0, 3, 1, 2).reshape(B, T, -1)  # (B, T, C*F), JAX's order
         seq = self.lstm(seq)
-        seq = self.projection(seq)  # (B, T, dec0*F)
+        # (B, T, dec0*F); column-parallel where a mesh splits the weight's rows
+        seq = column_parallel_linear(seq, self.projection.weight, self.projection.bias)
         h = seq.reshape(B, T, self.dec_filters[0], F).permute(0, 2, 3, 1)  # (B, dec0, F, T)
 
         h = torch.relu(self.dec_bn0(self.dec_conv0(h)))

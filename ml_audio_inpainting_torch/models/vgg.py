@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ml_audio_inpainting_torch.models.cnn_blstm import _lecun_normal_
+from ml_audio_inpainting_torch.parallel.collectives import global_max, global_mean
 from ml_audio_inpainting_torch.utils import precision
 
 __all__ = [
@@ -165,7 +166,7 @@ def preprocess_for_vgg(
         x = (x + 1.0) / 2.0
     else:
         x = torch.clamp_min(x, 0.0)
-        max_val = x.max() + 1e-6
+        max_val = global_max(x) + 1e-6  # over a mesh's global batch
         x = torch.where(max_val > 1e-5, x / max_val, x)
     # The three channels are one repeated, so resize one and normalise it thrice.
     x = _center_crop(_resize_shorter_side(torch.clamp(x, 0.0, 1.0), resize), crop)
@@ -202,8 +203,8 @@ def vgg_perceptual_style_losses(
     gen = model(preprocess_for_vgg(generated, is_generated=True))
     tgt = model(preprocess_for_vgg(target, is_generated=False))
     perceptual = torch.stack(
-        [(gen[i].float() - tgt[i].float()).abs().mean() for i in perceptual_layers]).mean()
+        [global_mean((gen[i].float() - tgt[i].float()).abs()) for i in perceptual_layers]).mean()
     style = torch.stack(
-        [(_gram(gen[i].float()) - _gram(tgt[i].float())).abs().mean() for i in style_layers]
+        [global_mean((_gram(gen[i].float()) - _gram(tgt[i].float())).abs()) for i in style_layers]
     ).mean()
     return perceptual, style

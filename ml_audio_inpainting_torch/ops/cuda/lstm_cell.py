@@ -75,6 +75,8 @@ __all__ = [
     "SOURCES",
     "KernelLibrary",
     "load_library",
+    "kernel_launches",
+    "reset_kernel_launches",
     "lstm_recurrence_reference",
     "lstm_recurrence_backward_reference",
     "dwhh_reference",
@@ -746,3 +748,20 @@ def _count(wrapper, dtype: torch.dtype) -> None:
 bilstm_recurrence.launches = bilstm_recurrence.bf16_launches = 0
 bilstm_recurrence_backward.launches = bilstm_recurrence_backward.bf16_launches = 0
 bilstm_dwhh.launches = bilstm_dwhh.bf16_launches = 0
+WRAPPERS = {"lstm_fwd": bilstm_recurrence, "lstm_bwd": bilstm_recurrence_backward,
+            "lstm_dwhh": bilstm_dwhh}
+
+
+def kernel_launches() -> dict:
+    """Launches of each kernel form since the last reset: the f32 form
+    under the kernel's name, the bf16 form under ``<name>_bf16``."""
+    out = {}
+    for name, wrapper in WRAPPERS.items():
+        out[name] = wrapper.launches - wrapper.bf16_launches
+        out[f"{name}_bf16"] = wrapper.bf16_launches
+    return out
+
+
+def reset_kernel_launches() -> None:
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = wrapper.bf16_launches = 0

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ml_audio_inpainting_torch.ops.cuda.lstm_cell import bilstm_recurrence
+from ml_audio_inpainting_torch.parallel.collectives import row_parallel_matmul
 
 __all__ = ["BiLSTM"]
 
@@ -63,7 +64,9 @@ class BiLSTM(nn.Module):
             args = []
             for direction in ("fwd", "bwd"):
                 name = f"l{layer}_{direction}"
-                xw = x @ getattr(self, f"{name}_w_ih") + getattr(self, f"{name}_b")
+                # x @ w_ih, or its row-parallel form for a w_ih split over a mesh
+                xw = row_parallel_matmul(x, getattr(self, f"{name}_w_ih")) + getattr(
+                    self, f"{name}_b")
                 args += [xw, getattr(self, f"{name}_w_hh")]
             x = bilstm_recurrence(*args)  # (B, T, 2H): forward, then backward
         return x

@@ -61,6 +61,7 @@ __all__ = [
     "make_gan_inpaint_mask_fn",
     "make_cnn_inpaint_mask_fn",
     "make_tta_shift_fn",
+    "make_sharded_serving_fn",
     "LONGGAP_THRESHOLD_S",
     "route_checkpoint",
 ]
@@ -432,5 +433,33 @@ def make_tta_shift_fn(inpaint_fn: Callable, hop_length: int, n_shifts: int) -> C
         avg = acc / float(len(shifts))
         tmask = gap_mask(audio.shape[-1], gap_start, gap_len, dtype=audio.dtype)
         return audio * tmask + avg * (1.0 - tmask), aux0
+
+    return fn
+
+
+def make_sharded_serving_fn(inpaint_fn: Callable, mesh) -> Callable:
+    """Data-parallel serving of any inpaint function over a mesh
+    (``parallel/mesh.py``): ``fn(audio, gap_start, gap_len)`` on the global
+    batch, as ``inpaint_fn``'s own signature (the port's inpaint functions
+    hold their model; JAX's take its variables as a first argument).
+
+    Each rank runs its rows of the batch (``shard_batch``: on its device,
+    the weights replicated, as every rank holds the whole model) and the
+    outputs' rows are gathered over the ``data`` group, so every rank
+    returns the global result, in the batch's order.  The forward math has
+    no collective (inpainting couples no two examples).  A batch that does
+    not divide by the ``data`` axis raises ``ValueError``; on a data axis of
+    size 1 this is ``inpaint_fn`` on the rank's device."""
+    from ml_audio_inpainting_torch.parallel.collectives import all_gather_rows
+    from ml_audio_inpainting_torch.parallel.mesh import shard_batch
+
+    def fn(audio, gap_start, gap_len):
+        n_data = mesh.shape["data"]
+        if audio.shape[0] % n_data != 0:
+            raise ValueError(f"batch {audio.shape[0]} not divisible by data axis {n_data}")
+        out = inpaint_fn(*shard_batch((audio, gap_start, gap_len), mesh))
+        if isinstance(out, tuple):
+            return tuple(all_gather_rows(t, mesh) for t in out)
+        return all_gather_rows(out, mesh)
 
     return fn

@@ -151,7 +151,9 @@ class CheckpointManager:
     :func:`state_tree`) when ``step`` is past the latest saved step and is a
     multiple of ``save_interval_steps`` or nothing is saved yet, or when
     ``force``; a step already saved is skipped (idempotent), as orbax's
-    manager does.  Then only the ``max_to_keep`` newest steps are kept (all
+    manager does.  ``save_tree`` writes a tree made already (a sharded
+    state's ``parallel/sharding.py::gather_state``, in the one-device
+    layout).  Then only the ``max_to_keep`` newest steps are kept (all
     with None).  ``restore(template, step=None)`` loads the latest step (or
     ``step``) into ``template`` in place and returns it.  Saving is
     synchronous: ``wait`` and ``close`` are there for the JAX manager's
@@ -186,6 +188,10 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any, force: bool = False) -> bool:
         """Save ``state`` at ``step``; True when it was written."""
+        return self.save_tree(step, state_tree(state), force)
+
+    def save_tree(self, step: int, tree: Any, force: bool = False) -> bool:
+        """Save a :func:`state_tree` at ``step``; True when it was written."""
         steps = self.all_steps()
         if step in steps:
             return False
@@ -195,7 +201,7 @@ class CheckpointManager:
             return False
         tmp = Path(tempfile.mkdtemp(prefix=f".tmp-{step}-", dir=self.directory))
         try:
-            torch.save(state_tree(state), tmp / STATE_FILE)
+            torch.save(tree, tmp / STATE_FILE)
             os.replace(tmp, self.directory / str(step))
         except BaseException:
             shutil.rmtree(tmp, ignore_errors=True)

@@ -30,14 +30,15 @@ fresh ones from the same distributions.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ml_audio_inpainting_torch.models.build import build_model
 from ml_audio_inpainting_torch.models.cnn_blstm import StackedBLSTMCNN
+from ml_audio_inpainting_torch.parallel.collectives import sum_gradients
 from ml_audio_inpainting_torch.train.features import cnn_features, cnn_phase_features
 from ml_audio_inpainting_torch.train.losses import cnn_gap_l1_loss, cnn_phase_l1_loss
 from ml_audio_inpainting_torch.utils.config import Config
@@ -54,13 +55,16 @@ ADAM_EPS = 1e-8
 class CNNTrainState:
     """The model (parameters and BatchNorm running statistics), its Adam
     optimizer and learning-rate schedule, the parameters' EMA (``None`` when
-    off; serving weights the optimizer never sees) and the step count."""
+    off; serving weights the optimizer never sees), the step count, and the
+    parameters a mesh split over its ``model`` axis
+    (``parallel/sharding.py::place_state``; empty on one device)."""
 
     model: StackedBLSTMCNN
     optimizer: torch.optim.Adam
     scheduler: Optional[torch.optim.lr_scheduler.ExponentialLR]
     ema_params: Optional[Dict[str, torch.Tensor]]
     step: int = 0
+    shardings: Dict[str, Any] = field(default_factory=dict)
 
 
 def create_cnn_state(
@@ -193,6 +197,8 @@ def make_cnn_train_step(
             pred = forward(model, batch["net_in"])
             loss = _loss(pred.float(), batch, phase_mode)
             loss.backward()
+        params = dict(model.named_parameters())
+        sum_gradients(params.values(), split=[params[n] for n in state.shardings])
         state.optimizer.step()
         if state.scheduler is not None:
             state.scheduler.step()

@@ -57,8 +57,8 @@ from the same distributions.
 from __future__ import annotations
 
 import copy
-from dataclasses import dataclass
-from typing import Callable, Dict, List, Mapping, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,6 +71,7 @@ from ml_audio_inpainting_torch.models.cnn_blstm import running_stats_frozen
 from ml_audio_inpainting_torch.models.discriminator import Discriminator
 from ml_audio_inpainting_torch.models.pconv_unet import PConvUNet
 from ml_audio_inpainting_torch.models.vgg import VGG19Features, vgg_perceptual_style_losses
+from ml_audio_inpainting_torch.parallel.collectives import sum_gradients
 from ml_audio_inpainting_torch.train.features import gan_features
 from ml_audio_inpainting_torch.train.losses import discriminator_loss, generator_losses
 from ml_audio_inpainting_torch.utils.config import Config
@@ -103,12 +104,15 @@ class GANState:
     """One network (G's PConv U-Net with its BatchNorm running statistics,
     or D with its spectral-norm state), its Adam optimizer, the parameters'
     EMA (``None`` when off; G's serving weights, which the optimizer never
-    sees) and the step count."""
+    sees), the step count, and the parameters a mesh split over its
+    ``model`` axis (``parallel/sharding.py::place_state``; none at this
+    model's widths)."""
 
     model: nn.Module
     optimizer: torch.optim.Adam
     ema_params: Optional[Dict[str, torch.Tensor]] = None
     step: int = 0
+    shardings: Dict[str, Any] = field(default_factory=dict)
 
 
 def create_gan_states(
@@ -170,10 +174,12 @@ def _batch(cfg: Config, audio: torch.Tensor, gap_start: torch.Tensor,
 
 def _set_grads(params: List[torch.Tensor], loss: torch.Tensor) -> None:
     """``.grad`` of each of ``params`` set to ``d loss / d param`` (zeros
-    where the loss does not depend on it); nothing else accumulates."""
+    where the loss does not depend on it), summed over a mesh's ``data``
+    group; nothing else accumulates."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     for p, g in zip(params, grads):
         p.grad = torch.zeros_like(p) if g is None else g
+    sum_gradients(params)
 
 
 def make_gan_train_step(

@@ -10,6 +10,8 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
+from ml_audio_inpainting_torch.parallel.collectives import global_mean, global_sum
+
 __all__ = ["bce_with_logits", "cnn_gap_l1_loss", "cnn_phase_l1_loss", "generator_losses",
            "discriminator_loss"]
 
@@ -17,7 +19,7 @@ __all__ = ["bce_with_logits", "cnn_gap_l1_loss", "cnn_phase_l1_loss", "generator
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean binary cross-entropy on logits, in JAX's form:
     ``mean(max(z, 0) - z * t + log1p(exp(-|z|)))``."""
-    return torch.mean(
+    return global_mean(
         torch.clamp_min(logits, 0) - logits * targets + torch.log1p(torch.exp(-logits.abs())))
 
 
@@ -27,7 +29,7 @@ def cnn_gap_l1_loss(
     """Sum-reduced L1 between ``10 ** log_pred`` and the linear target
     magnitude, inside the gap only (mask 1 = gap)."""
     pred_lin = torch.pow(10.0, log_pred)
-    return torch.sum(torch.abs(pred_lin * gap_mask - target_mag * gap_mask))
+    return global_sum(torch.sum(torch.abs(pred_lin * gap_mask - target_mag * gap_mask)))
 
 
 def cnn_phase_l1_loss(
@@ -40,7 +42,7 @@ def cnn_phase_l1_loss(
     JAX's is, not the NaN of ``sqrt(re^2 + im^2)``."""
     pred_c = torch.complex(pred_channels[..., 0], pred_channels[..., 1])
     err = (pred_c - target_complex) * gap_mask
-    return torch.sum(torch.abs(err))
+    return global_sum(torch.sum(torch.abs(err)))
 
 
 def generator_losses(
@@ -57,12 +59,12 @@ def generator_losses(
     the L1 terms are sums over the valid or hole pixels divided by their
     count plus 1e-8; the VGG terms are 0 without ``vgg_losses``."""
     g_adv = bce_with_logits(d_fake_logits, torch.ones_like(d_fake_logits))
-    valid_cnt = mask.sum() + 1e-8
-    g_l1_valid = (generated_mag * mask - original_mag * mask).abs().sum() / valid_cnt
+    valid_cnt = global_sum(mask.sum()) + 1e-8
+    g_l1_valid = global_sum((generated_mag * mask - original_mag * mask).abs().sum()) / valid_cnt
     hole = 1.0 - mask
-    hole_cnt = hole.sum() + 1e-8
-    g_l1_hole = (generated_mag * hole - original_mag * hole).abs().sum() / hole_cnt
-    g_mag_weighted = ((generated_mag - original_mag).abs() * original_mag.abs()).mean()
+    hole_cnt = global_sum(hole.sum()) + 1e-8
+    g_l1_hole = global_sum((generated_mag * hole - original_mag * hole).abs().sum()) / hole_cnt
+    g_mag_weighted = global_mean((generated_mag - original_mag).abs() * original_mag.abs())
     if vgg_losses is None:
         zero = torch.zeros((), dtype=generated_mag.dtype, device=generated_mag.device)
         vgg_losses = (zero, zero)

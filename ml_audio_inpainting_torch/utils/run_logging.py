@@ -38,9 +38,12 @@ class RunContext:
     """Creates the run's directories under ``base_dir`` (``cfg.paths``:
     checkpoints, logs, samples, tensorboard), a log file and a stderr
     handler, and a TensorBoard writer where ``tensorboardX`` is
-    installed."""
+    installed.  A ``primary=False`` context (a rank of a multi-device run
+    other than the first) names the same paths but creates nothing, logs
+    nothing and has no writer."""
 
-    def __init__(self, cfg, run_name: Optional[str] = None, base_dir: str = "."):
+    def __init__(self, cfg, run_name: Optional[str] = None, base_dir: str = ".",
+                 primary: bool = True):
         stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
         name = run_name or cfg.logging.run_name
         self.run_name = f"{name}_{stamp}"
@@ -49,12 +52,17 @@ class RunContext:
         self.log_dir = base / cfg.paths.log_dir
         self.sample_dir = base / cfg.paths.sample_dir / self.run_name
         self.tb_dir = base / cfg.paths.tensorboard_dir / self.run_name
-        for d in (self.checkpoint_dir, self.log_dir, self.sample_dir, self.tb_dir):
-            d.mkdir(parents=True, exist_ok=True)
-
         self.logger = logging.getLogger(f"{__name__}.{self.run_name}.{id(self)}")
         self.logger.setLevel(logging.INFO)
         self.logger.propagate = False
+        self._handlers = []
+        self.writer = None
+        if not primary:
+            self.logger.addHandler(logging.NullHandler())
+            return
+        for d in (self.checkpoint_dir, self.log_dir, self.sample_dir, self.tb_dir):
+            d.mkdir(parents=True, exist_ok=True)
+
         fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
         self._handlers = [logging.FileHandler(self.log_dir / f"{self.run_name}.log"),
                           logging.StreamHandler(sys.stderr)]

@@ -1263,3 +1263,72 @@ def test_corpus_clis_on_card_match_cpu(cuda_device, tmp_path):
     for f in sorted((tmp_path / "cpu_gapped").glob("*.flac")):
         card = read_audio(tmp_path / "card_gapped" / f.name)[0]
         assert np.abs(card - read_audio(f)[0]).max() <= 1.0001 / 32768
+
+
+# Multi-device: two ranks sharing the card (gloo; NCCL refuses two ranks on
+# one device) take the 1 x 2 CNN+BiLSTM step, with layer 0's w_ih and the
+# projection split over ``model``; the losses and parameters against the
+# one-rank step on the card at tests/test_parallel.py's bounds (loss rtol
+# 1e-5 f32 and 5e-3 bf16, parameters one Adam step: 2.1 lr), and each rank
+# launches the step's three kernels 3 times (one a BiLSTM layer, hidden 16).
+
+MP_CFG = {"data": {"max_len_s": 0.5, "gap_len_s": 0.05, "gaps_per_audio": 2,
+                   "spectrogram": {"n_fft": 256, "hop_length": 64, "win_length": 256}},
+          "model": {"num_lstm_layers": 3, "lstm_hidden_dim": 16, "enc_filters": [4, 8],
+                    "dec_filters": [8, 8]},
+          "training": {"starter_learning_rate": 1e-4}}
+
+
+def _mp_step(device, mesh, flat, batch, dtype):
+    from ml_audio_inpainting_torch.parallel.mesh import shard_batch
+    from ml_audio_inpainting_torch.parallel.sharding import (
+        gather_state,
+        make_sharded_step,
+        place_state,
+    )
+
+    cfg = Config.from_dict(MP_CFG)
+    state = create_cnn_state(cfg, device=device, params=flat)
+    step = make_sharded_step(make_cnn_train_step(cfg, compute_dtype=dtype), state, mesh)
+    place_state(state, mesh)
+    state, m = step(state, *shard_batch(batch, mesh))
+    return m["loss"].item(), gather_state(state, mesh)["model"], sorted(state.shardings)
+
+
+def model_parallel_rank(device, flat, batch):
+    """One of two ranks on the card: the 1 x 2 step in f32 and in bf16."""
+    from ml_audio_inpainting_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(1, 2, device=device)
+    return {dtype: _mp_step(device, mesh, flat, batch, dtype)
+            for dtype in (None, torch.bfloat16)}
+
+
+@pytest.mark.gpu
+def test_model_parallel_step_on_two_ranks_of_the_card(cuda_device):
+    from ml_audio_inpainting_torch.parallel.launch import spawn
+    from ml_audio_inpainting_torch.parallel.mesh import make_mesh
+
+    from ml_audio_inpainting_torch.train.recipe import live_bilstm
+
+    fresh = create_cnn_state(Config.from_dict(MP_CFG), device="cpu", seed=4).model.state_dict()
+    flat = live_bilstm(cnn_blstm_flat_variables(fresh), seed=5)
+    rng = np.random.default_rng(5)
+    batch = ((rng.standard_normal((2, 8000)) * 0.1).astype(np.float32),
+             np.array([[500, 4000], [2000, 6000]]))
+    ranks = spawn(model_parallel_rank, 2, "cuda", flat, batch, timeout_s=600)
+    one = {dtype: _mp_step(cuda_device, make_mesh(device=cuda_device), flat, batch, dtype)
+           for dtype in (None, torch.bfloat16)}
+    for dtype, rtol in ((None, 1e-5), (torch.bfloat16, 5e-3)):
+        loss, model, split = ranks[0].value[dtype]
+        assert split == ["lstm.l0_bwd_w_ih", "lstm.l0_fwd_w_ih", "projection.weight"]
+        assert ranks[1].value[dtype][0] == loss
+        np.testing.assert_allclose(loss, one[dtype][0], rtol=rtol)
+        for name, want in one[dtype][1].items():
+            if want.is_floating_point() and not name.endswith(("running_mean", "running_var")):
+                assert (model[name] - want).abs().max().item() <= 2.1e-4, name
+    for r in ranks:
+        assert r.launches == {**{k: 3 for k in lstm_cell.WRAPPERS},
+                              **{f"{k}_bf16": 3 for k in lstm_cell.WRAPPERS}}, r.launches

@@ -94,7 +94,8 @@ def test_port_package_has_every_slice_module():
         "utils.run_logging", "utils.visualize", "models.refiner", "train.refiner_trainer",
         "cli.train_refiner", "runtime.adapt", "ops.refine", "cli.soup", "utils.stats",
         "runtime.profiling", "cli.preprocess", "cli.build_gaps_table", "cli.ar_tune",
-        "cli.ar_plots", "utils.tb_analysis",
+        "cli.ar_plots", "utils.tb_analysis", "parallel.mesh", "parallel.collectives",
+        "parallel.sharding", "parallel.launch", "parallel.dryrun", "cli.scaling_bench",
     ):
         assert f"ml_audio_inpainting_torch.{mod}" in names
 

@@ -179,7 +179,7 @@ def test_phase_mode_cli_trains_and_its_directory_serves(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--model", "gan", "--model-parallel", "2"], "ROADMAP Queue A item 8"),
+    (["--model", "gan", "--model-parallel", "2"], "model_parallel=2 does not divide 1 ranks"),
     (["--model", "cnn_blstm", "--remat"], "gan only"),
     (["--model", "gan", "--phase-mode"], "cnn_blstm only"),
     (["--model", "cnn_blstm", "--phase-anchor"], "requires --phase-mode"),
