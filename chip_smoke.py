@@ -38,13 +38,20 @@ Phases, each printing one flushed line per step with the seconds since start:
                  B=128, the batch of ``cnn_blstm_formant_v2_b128_r4.npz``;
 4b. kernel_bf16 -- the bf16 forms of the three kernels against their plain
                  versions in bf16 on the card (f32 carries and sums, bf16
-                 stores; dW_hh summed from the f32 dgates), at the production
-                 recipe's batch (B=128) and at B=25, T=417, H=128: every bf16
-                 output within one bf16 ulp of the plain version's plus the
-                 f32 bound; two launches bit for bit; CUDA-event times, the
-                 plain versions', and cuDNN's ``nn.LSTM(256, 128,
-                 bidirectional=True)`` in bf16, forward and backward, on layer
-                 1's shapes as the yardstick (the port never calls it);
+                 stores; the backward on the tensor cores, its dh carry from
+                 three bf16 pieces of the f32 dgates, dW_hh summed from the
+                 pair (dxw, lo)), at the production recipe's batch (B=128)
+                 and at B=25, T=417, H=128: every bf16 output within one bf16
+                 ulp of the plain version's plus the f32 bound, dxw + lo
+                 within 1e-4 of the plain f32 dgates; two launches bit for
+                 bit; the bf16 backward's launch plans, max active clusters
+                 and ptxas' registers and spills; CUDA-event times, the plain
+                 versions', both bounds (the f32-FMA figure, and the bf16
+                 forms' bytes and tensor-core products), cuBLAS's
+                 ``h_prev^T @ dgates`` (f32, one a direction) and cuDNN's
+                 ``nn.LSTM(256, 128, bidirectional=True)`` in bf16, forward
+                 and backward, on layer 1's shapes as the yardsticks (the port
+                 calls neither);
 5. serving    -- the CNN+BiLSTM runner with the committed
                  ``results/checkpoints/cnn_blstm_formant_v2_r2.npz`` answers 3
                  requests of 32 seeded speech-like 5 s clips with an 80 ms gap
@@ -324,7 +331,11 @@ from ml_audio_inpainting_torch.ops.cuda.lstm_cell import (
     bilstm_recurrence,
     bilstm_recurrence_backward,
     bilstm_recurrence_reference,
+    bf16_residual,
+    bwd_mma_layout,
+    bwd_mma_plan,
     bwd_plan,
+    dwhh_mma_plan,
     dwhh_plan,
     dwhh_reference,
     fwd_plan,
@@ -616,7 +627,7 @@ def ptxas_report(output: str) -> dict:
     spills, from ptxas' ``-v`` report.  An instance of a kernel template is
     named with its integer arguments, e.g. ``lstm_fwd_kernel<2,4>`` (Rows,
     KQ); f32 is left out, and a bf16 instance's arguments start with
-    ``bf16`` (``lstm_fwd_kernel<bf16,2,4>``, ``lstm_bwd_kernel<bf16>``)."""
+    ``bf16`` (``lstm_fwd_kernel<bf16,2,4>``, ``lstm_dwhh_reduce_kernel<bf16>``)."""
     report, name = {}, None
     for line in output.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -867,11 +878,12 @@ def _check_backward(label: str, layer: tuple, g, h, c, dxw: tuple, dw: tuple) ->
 
 def _backward_bounds(b: int, elem: int = 4) -> tuple:
     """((ms, by) of lstm_bwd, (ms, by) of lstm_dwhh) at batch b, both
-    directions, elements of ``elem`` bytes.  lstm_bwd: xw, W_hh, h, c, g read
-    once, dxw written once; two (B,H)x(H,4H) products a step (gates, dh).
-    lstm_dwhh: h and the dgates (f32 in both forms: in f32 they are dxw)
-    read once, dW_hh written once; one product of depth B*T.  Products in
-    f32 FMA in both forms."""
+    directions, elements of ``elem`` bytes, as the f32 forms compute: the
+    sweep reads xw, W_hh, h, c, g once and writes dxw once, and does two
+    (B,H)x(H,4H) products a step (gates, dh); the sum reads h and the f32
+    dgates (dxw) once and writes dW_hh once, one product of depth B*T.
+    Products in f32 FMA.  For bf16 this is the f32-FMA figure of the
+    kernels' arithmetic; :func:`_bf16_backward_bounds` is the bf16 forms'."""
     e, f4 = elem, 4
     bwd_bytes = 2 * e * (b * T * 4 * H + H * 4 * H + b * T * 4 * H) + 3 * e * b * T * 2 * H
     bwd_flops = 2 * 2 * (2 * b * T * H * 4 * H)
@@ -881,6 +893,52 @@ def _backward_bounds(b: int, elem: int = 4) -> tuple:
                       f"{bwd_flops / 1e9:.3f} GFLOP; lstm_dwhh {dwhh_bytes / 1e6:.1f} MB, "
                       f"{dwhh_flops / 1e9:.3f} GFLOP")
     return roofline(bwd_bytes, bwd_flops), roofline(dwhh_bytes, dwhh_flops)
+
+
+def _bf16_backward_bounds(b: int) -> dict:
+    """The bounds of the bf16 backward at batch b, both directions, at the
+    H100's HBM rate and bf16 dense peak, each (ms, by, bytes, flop).
+
+    The functions' minimum: "sweep" reads xw, W_hh, h, c, g once and writes
+    dxw once and does two (B,H)x(H,4H) products a step (gates, dh); "dwhh"
+    reads h and the dgates (as the bf16 pair dxw, lo: the f32 dgates' bytes)
+    and writes dW_hh, one product of depth B*T; "b2" is B2 as a whole (the
+    sweep and the sum), which reads xw, W_hh, h, c, g and writes dxw and
+    dW_hh once, three products.
+
+    The design's traffic: "sweep_design" adds the lo that the sweep writes
+    for the sum, and counts the m16n8k16 products it issues (a CTA, a step,
+    kc x kh x Rows/8 for the gates and kh x kc x DH_PIECES x Rows/8 for dh,
+    over T and T - 1 steps); "dwhh_design" counts the sum's (16 a warp for
+    each of dxw and lo per 16 rows of K, over every 32-row stage of every
+    slice and column tile)."""
+    e, mma = 2, 2 * 16 * 8 * 16
+    plan = bwd_mma_plan(b, H)
+    lay = bwd_mma_layout(plan)
+    n_tiles = plan.rows // 8
+    per_cta = (T * lay.kc * lay.kh + (T - 1) * lay.kh * lay.kc * lstm_cell.DH_PIECES) * n_tiles
+    product = 2 * (2 * b * T * H * 4 * H)  # one (B*T, H) x (H, 4H) product, both directions
+    reads = e * (2 * b * T * 4 * H + 2 * H * 4 * H + 3 * b * T * 2 * H)  # xw, W_hh, h, c, g
+    dxw, dw = e * 2 * b * T * 4 * H, e * 2 * H * 4 * H
+    dp = dwhh_mma_plan(b, T, H)
+    stages = sum(-(-len(dp.rows_of(s)) // lstm_cell.DWHH_MMA_DEPTH) for s in range(dp.slices))
+    work = {
+        "sweep": (reads + dxw, 2 * product),
+        "dwhh": (e * b * T * 2 * H + 2 * dxw + dw, product),
+        "b2": (reads + dxw + dw, 3 * product),
+        "sweep_design": (reads + 2 * dxw, mma * per_cta * plan.grid[0] * plan.grid[1]),
+        "dwhh_design": (e * b * T * 2 * H + 2 * dxw + dw,
+                        mma * 2 * dp.tiles_j * stages * (lstm_cell.DWHH_MMA_DEPTH // 16) * 2 * 8 * 16),
+    }
+    out = {}
+    for name, (by, fl) in work.items():
+        t_bytes, t_ops = by / HBM_BYTES_PER_S, fl / BF16_FLOP_PER_S
+        out[name] = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+                     by, fl)
+    log("kernel_bf16", "B={}, bf16 backward, bytes and GFLOP: {}".format(b, ", ".join(
+        f"{k} {by / 1e6:.1f} MB, {fl / 1e9:.3f} GFLOP (bound {ms:.5f} ms by {bound_by})"
+        for k, (ms, bound_by, by, fl) in out.items())))
+    return out
 
 
 def phase_kernel_bwd(card: str, ptxas: dict) -> list:
@@ -947,7 +1005,7 @@ def phase_kernel_bwd(card: str, ptxas: dict) -> list:
 
     # The launch plans at the training shapes.
     bp, dp = bwd_plan(b, H), dwhh_plan(b, T, H)
-    smem = load_library("lstm_bwd").cdll.lstm_bwd_smem_bytes(H, bp.cluster, bp.ksplit, 4)
+    smem = load_library("lstm_bwd").cdll.lstm_bwd_smem_bytes(H, bp.cluster, bp.ksplit)
     bwd_launch = {"cluster": bp.cluster, "grid": list(bp.grid), "threads": BWD_THREADS,
                   "dynamic_smem_bytes": smem, "units_per_cta": bp.units, "ksplit": bp.ksplit}
     dwhh_launch = {"grid": list(dp.grid), "threads": BWD_THREADS, "slices": dp.slices,
@@ -1097,11 +1155,46 @@ def _cudnn_bf16_yardstick(b: int, seed: int) -> dict:
             "port_backward_ms": port_fb - port_f}
 
 
+def _bf16_backward_plan(b: int, ptxas: dict) -> dict:
+    """The bf16 sweep's launch plan at batch b, its dynamic shared memory
+    (the launcher's against ``bwd_mma_layout``), the most clusters of its
+    configuration the card holds at once (cudaOccupancyMaxActiveClusters),
+    and ptxas' report of its instance; the bf16 sum's plan."""
+    cdll = load_library("lstm_bwd").cdll
+    plan, dplan = bwd_mma_plan(b, H), dwhh_mma_plan(b, T, H)
+    lay = bwd_mma_layout(plan)
+    smem = cdll.lstm_bwd_mma_smem_bytes(H, plan.rows, plan.cluster, plan.ksplit)
+    if smem != lay.smem_bytes:
+        raise AssertionError(f"bwd_mma_layout says {lay.smem_bytes} bytes, the kernel {smem}")
+    clusters = cdll.lstm_bwd_mma_max_clusters(H, plan.rows, plan.cluster, plan.ksplit)
+    if clusters <= 0:
+        raise AssertionError(f"cudaOccupancyMaxActiveClusters failed: {clusters}")
+    tiles = next(t for t in lstm_cell.BWD_MMA_TILE_CHOICES if lay.tiles <= t)
+    sweep = f"lstm_bwd_mma_kernel<{plan.rows},{tiles}>"
+    vec = 8 if H % 8 == 0 else 4
+    return {"sweep": {"kernel": sweep, "rows": plan.rows, "cluster": plan.cluster,
+                      "grid": list(plan.grid), "ctas": plan.grid[0] * plan.grid[1],
+                      "ksplit": plan.ksplit, "tiles": tiles, "dynamic_smem_bytes": smem,
+                      "max_active_clusters": clusters,
+                      "waves": -(-plan.grid[0] * plan.grid[1] // (clusters * plan.cluster)),
+                      "ptxas": ptxas.get(sweep)},
+            "dwhh": {"kernels": [f"lstm_dwhh_mma_kernel<{vec}>", "lstm_dwhh_reduce_kernel<bf16>"],
+                     "grid": list(dplan.grid), "slices": dplan.slices,
+                     "rows_per_slice": dplan.rows_per_slice,
+                     "ptxas": {k: ptxas.get(k) for k in (f"lstm_dwhh_mma_kernel<{vec}>",
+                                                          "lstm_dwhh_reduce_kernel<bf16>")}}}
+
+
 def phase_kernel_bf16(card: str, ptxas: dict) -> list:
     """The bf16 forms of lstm_fwd, lstm_bwd and lstm_dwhh against their plain
     versions in bf16 on the card at B=128 (the production recipe's batch,
-    the main path's) and B=25; two launches bitwise equal; times, plain
-    versions' times, bounds and cuDNN's bf16 layer as the yardstick."""
+    the main path's) and B=25: lstm_bwd's dxw within one bf16 ulp + DXW_ATOL
+    and its pair dxw + lo within DXW_ATOL of the plain f32 dgates, dW_hh
+    within one bf16 ulp + DWHH_RTOL_OF_MAX of its largest entry; two
+    launches bitwise equal; the bf16 backward's launch plans, occupancy and
+    ptxas reports; times, plain versions' times, both bounds (the f32-FMA
+    figure and the bf16 forms' own), cuBLAS's h_prev^T @ dgates and cuDNN's
+    bf16 layer as the yardsticks."""
     runs = {}
     for b, seed in ((B_LARGE, 7), (B_TRAIN, 8)):
         layer, g = _bf16_inputs(b, seed)
@@ -1117,37 +1210,59 @@ def phase_kernel_bf16(card: str, ptxas: dict) -> list:
             del again, want_h, want_c
 
             out = bilstm_recurrence_backward(*layer, h, c, g, dgates=True)
-            dws = bilstm_dwhh(h, *out[2:])
+            dws = bilstm_dwhh(h, *out)
             torch.cuda.synchronize()
             err_b = err_dg = err_w = 0.0
+            dgates = []  # the plain f32 dgates, for the yardstick below
             for i, (sl, xw, w, reverse) in enumerate(((slice(0, H), xw_f, w_f, False),
                                                       (slice(H, 2 * H), xw_b, w_b, True))):
                 want_dxw, want_dg = lstm_recurrence_backward_reference(
                     xw, w, h[..., sl], c[..., sl], g[..., sl], reverse, return_dgates=True)
                 err_b = max(err_b, _bf16_err(f"lstm_bwd bf16 dxw (B={b})", out[i], want_dxw,
                                              DXW_ATOL))
-                e_dg = (out[2 + i] - want_dg).abs().max().item()
+                e_dg = (out[i].float() + out[2 + i].float() - want_dg).abs().max().item()
                 if not e_dg <= DXW_ATOL:
-                    raise AssertionError(f"lstm_bwd bf16 f32 dgates (B={b}): {e_dg} > {DXW_ATOL}")
+                    raise AssertionError(f"lstm_bwd bf16 dxw + lo vs the f32 dgates (B={b}): "
+                                         f"{e_dg} > {DXW_ATOL}")
                 err_dg = max(err_dg, e_dg)
-                want_dw = dwhh_reference(h[..., sl], want_dg, reverse)
+                want_dw = dwhh_reference(h[..., sl], want_dxw, reverse,
+                                         lo=bf16_residual(want_dg, want_dxw))
                 dw_max = want_dw.float().abs().max().item()
                 err_w = max(err_w, _bf16_err(f"lstm_dwhh bf16 (B={b})", dws[i], want_dw,
                                              DWHH_RTOL_OF_MAX * dw_max) / dw_max)
-                del want_dxw, want_dg, want_dw
+                dgates.append(want_dg)
+                del want_dxw, want_dw
             again = bilstm_recurrence_backward(*layer, h, c, g, dgates=True)
-            again = (*again, *bilstm_dwhh(h, *again[2:]))
+            again = (*again, *bilstm_dwhh(h, *again))
             same = same and all(torch.equal(x, y) for x, y in zip((*out, *dws), again))
             if not same:
                 raise AssertionError(f"the bf16 kernels are not deterministic at B={b}")
             del again
             log("kernel_bf16", f"B={b}: max |kernel - plain| lstm_fwd h, c {err_f:.3e}; lstm_bwd "
-                               f"dxw {err_b:.3e}, f32 dgates {err_dg:.3e}; lstm_dwhh {err_w:.3e} "
-                               f"of max |dW_hh| (each within one bf16 ulp + the f32 bound); "
-                               f"second launches bitwise equal")
+                               f"dxw {err_b:.3e}, dxw + lo vs the f32 dgates {err_dg:.3e}; "
+                               f"lstm_dwhh {err_w:.3e} of max |dW_hh| (each within one bf16 ulp + "
+                               f"the f32 bound); second launches bitwise equal")
             fwd_ms = cuda_ms(lambda: bilstm_forward(*layer, with_c=True), reps=20)
-            bwd_ms = cuda_ms(lambda: bilstm_recurrence_backward(*layer, h, c, g), reps=10)
-            dwhh_ms = cuda_ms(lambda: bilstm_dwhh(h, *out[2:]), reps=20)
+            bwd_ms = cuda_ms(lambda: bilstm_recurrence_backward(*layer, h, c, g, dgates=True),
+                             reps=10)
+            dwhh_ms = cuda_ms(lambda: bilstm_dwhh(h, *out), reps=20)
+            # The library yardsticks of the sum, one cuBLAS product a
+            # direction on pre-shifted h_prev: [h_prev; h_prev]^T @ [dxw; lo]
+            # in bf16 (f32 accumulation, bf16 out: the kernel's function), and
+            # h_prev^T @ dgates in f32 (the upcast h and the f32 dgates).
+            hp = torch.stack([
+                torch.cat([torch.zeros_like(h[:, :1, :H]), h[:, :-1, :H]], dim=1),
+                torch.cat([h[:, 1:, H:], torch.zeros_like(h[:, :1, H:])], dim=1),
+            ]).reshape(2, b * T, H)
+            hp32 = hp.float()
+            dg32 = [d.reshape(b * T, 4 * H) for d in dgates]
+            hp2 = torch.cat([hp, hp], dim=1)
+            pairs = [torch.cat([out[i], out[2 + i]]).reshape(2 * b * T, 4 * H) for i in range(2)]
+            lib = {"f32_ms": cuda_ms(lambda: [torch.matmul(hp32[i].T, dg32[i]) for i in range(2)],
+                                     reps=20),
+                   "bf16_ms": cuda_ms(lambda: [torch.matmul(hp2[i].T, pairs[i]) for i in range(2)],
+                                      reps=20)}
+            del hp, hp32, dg32, hp2, pairs, dgates
             plain = {}
             if b == B_LARGE:
                 plain["fwd"] = cuda_ms(lambda: bilstm_recurrence_reference(*layer, return_c=True),
@@ -1157,39 +1272,51 @@ def phase_kernel_bf16(card: str, ptxas: dict) -> list:
                     for xw, w, sl, rev in ((xw_f, w_f, slice(0, H), False),
                                            (xw_b, w_b, slice(H, 2 * H), True))],
                     reps=2, warmup=1)
-                plain["dwhh"] = cuda_ms(lambda: (dwhh_reference(h[..., :H], out[2], False),
-                                                 dwhh_reference(h[..., H:], out[3], True)),
+                plain["dwhh"] = cuda_ms(lambda: (dwhh_reference(h[..., :H], out[0], False, out[2]),
+                                                 dwhh_reference(h[..., H:], out[1], True, out[3])),
                                         reps=10)
-                # dW_hh as one library call: a batched f32 product over the
-                # pre-shifted, upcast h and the f32 dgates.
-                hp = torch.stack([
-                    torch.cat([torch.zeros_like(h[:, :1, :H]), h[:, :-1, :H]], dim=1),
-                    torch.cat([h[:, 1:, H:], torch.zeros_like(h[:, :1, H:])], dim=1),
-                ]).reshape(2, b * T, H).float()
-                dg_both = torch.stack(out[2:]).reshape(2, b * T, 4 * H)
-                plain["library_dwhh"] = cuda_ms(lambda: torch.bmm(hp.transpose(1, 2), dg_both),
-                                                reps=20)
-                del hp, dg_both
         (fwd_bound, fwd_by) = _forward_bound(b, True, elem=2)
-        (bwd_bound, bwd_by), (dwhh_bound, dwhh_by) = _backward_bounds(b, elem=2)
+        (bwd_f32, _), (dwhh_f32, _) = _backward_bounds(b, elem=2)
+        bounds = _bf16_backward_bounds(b)
+        launch = _bf16_backward_plan(b, ptxas)
         yard = _cudnn_bf16_yardstick(b, seed)
         log("kernel_bf16", f"B={b}, T={T}, H={H}, both directions: lstm_fwd {fwd_ms:.4f} ms "
                            f"(bound {fwd_bound:.5f} by {fwd_by}), lstm_bwd {bwd_ms:.4f} ms (bound "
-                           f"{bwd_bound:.5f} by {bwd_by}), lstm_dwhh {dwhh_ms:.4f} ms (bound "
-                           f"{dwhh_bound:.5f} by {dwhh_by}); plain {plain}; layer-1 yardstick "
-                           f"{yard} ({card})")
+                           f"{bounds['sweep'][0]:.5f} by {bounds['sweep'][1]}; the design's "
+                           f"traffic {bounds['sweep_design'][0]:.5f}; as f32 FMA {bwd_f32:.5f}), "
+                           f"lstm_dwhh {dwhh_ms:.4f} ms (bound {bounds['dwhh'][0]:.5f} by "
+                           f"{bounds['dwhh'][1]}; as f32 FMA {dwhh_f32:.5f}; cuBLAS bf16 pair "
+                           f"[h_prev; h_prev]^T @ [dxw; lo] {lib['bf16_ms']:.4f}, f32 h_prev^T @ "
+                           f"dgates {lib['f32_ms']:.4f}); B2 whole (sweep + sum) "
+                           f"{bwd_ms + dwhh_ms:.4f} ms against its minimum "
+                           f"{bounds['b2'][0]:.5f} by {bounds['b2'][1]}; plain {plain}; layer-1 "
+                           f"yardstick {yard} ({card})")
+        log("kernel_bf16", f"B={b}: bf16 lstm_bwd launch {launch['sweep']}; lstm_dwhh "
+                           f"{launch['dwhh']}")
         runs[b] = {"fwd": {"ms": fwd_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
                            "max_abs_err": err_f},
-                   "bwd": {"ms": bwd_ms, "bound_ms": bwd_bound, "bound_by": bwd_by,
-                           "max_abs_err": err_b, "dgates_max_abs_err": err_dg},
-                   "dwhh": {"ms": dwhh_ms, "bound_ms": dwhh_bound, "bound_by": dwhh_by,
-                            "max_abs_err": err_w},
+                   "bwd": {"ms": bwd_ms, "bound_ms": bounds["sweep"][0],
+                           "bound_by": bounds["sweep"][1], "bound_f32_fma_ms": bwd_f32,
+                           "bytes": bounds["sweep"][2], "flop": bounds["sweep"][3],
+                           "design_bound_ms": bounds["sweep_design"][0],
+                           "design_bytes": bounds["sweep_design"][2],
+                           "design_flop": bounds["sweep_design"][3],
+                           "b2_ms": bwd_ms + dwhh_ms, "b2_bound_ms": bounds["b2"][0],
+                           "b2_bound_by": bounds["b2"][1],
+                           "max_abs_err": err_b, "pair_vs_f32_dgates_max_abs_err": err_dg,
+                           "launch": launch["sweep"]},
+                   "dwhh": {"ms": dwhh_ms, "bound_ms": bounds["dwhh"][0],
+                            "bound_by": bounds["dwhh"][1], "bound_f32_fma_ms": dwhh_f32,
+                            "bytes": bounds["dwhh"][2], "flop": bounds["dwhh"][3],
+                            "design_flop": bounds["dwhh_design"][3],
+                            "max_abs_err": err_w, "library_ms": lib["bf16_ms"],
+                            "library_f32_ms": lib["f32_ms"], "launch": launch["dwhh"]},
                    "plain": plain, "yardstick": yard}
         del layer, g, h, c, out, dws
 
     main, small = runs[B_LARGE], runs[B_TRAIN]
     shapes = {"B": B_LARGE, "T": T, "H": H, "directions": 2, "dtype": "bfloat16"}
-    fplan, bplan, dplan = fwd_plan(B_LARGE, H), bwd_plan(B_LARGE, H), dwhh_plan(B_LARGE, T, H)
+    fplan = fwd_plan(B_LARGE, H)
     common = {"route": "cuda", "launches": None, "shapes": shapes, "deterministic": True}
     return [
         {"name": "lstm_fwd_bf16", **common,
@@ -1210,28 +1337,26 @@ def phase_kernel_bf16(card: str, ptxas: dict) -> list:
          "replaces": "ml_audio_inpainting_tpu/ops/pallas/lstm_cell.py:64",
          **main["bwd"], "plain_ms": main["plain"]["bwd"],
          "max_abs_err_is": "dxw (bf16), both directions, B=128",
+         "bound_is": "the sweep's function (xw, W_hh, h, c, g in, dxw out; gate and dh "
+                     "products) at 3.35 TB/s and 989 TFLOP/s; design_* add the lo written for "
+                     "the sum and the products issued; b2_* are B2 whole (sweep + sum)",
          "library_ms": main["yardstick"]["cudnn_backward_ms"],
          "library_call": "torch.nn.LSTM(256, 128, bidirectional=True) backward in bf16, "
                          "layer-1 shapes (forward+backward minus forward)",
          "port_same_work_ms": main["yardstick"]["port_backward_ms"],
-         "launch": {"cluster": bplan.cluster, "grid": list(bplan.grid)},
-         "ptxas": ptxas.get("lstm_bwd_kernel<bf16>"),
          "b25": {**small["bwd"], "library_ms": small["yardstick"]["cudnn_backward_ms"],
                  "port_same_work_ms": small["yardstick"]["port_backward_ms"]}},
         {"name": "lstm_dwhh_bf16", **common,
          "source": "ml_audio_inpainting_torch/csrc/lstm_bwd.cu",
          "replaces": "ml_audio_inpainting_tpu/ops/pallas/lstm_cell.py:109",
          **main["dwhh"], "plain_ms": main["plain"]["dwhh"],
-         "plain_is": "dwhh_reference: shifted f32 copies of h and one cuBLAS product a direction",
+         "plain_is": "dwhh_reference: shifted f32 copies of h, two cuBLAS products a direction "
+                     "(dxw, lo)",
          "max_abs_err_is": "relative to max |dW_hh| (bf16 output)",
-         "library_ms": main["plain"]["library_dwhh"],
-         "library_call": "torch.bmm of the shifted f32 h_prev^T and the f32 dgates, both "
-                         "directions",
-         "passes": ["lstm_dwhh_partial_kernel<bf16>", "lstm_dwhh_reduce_kernel<bf16>"],
-         "launch": {"grid": list(dplan.grid), "slices": dplan.slices,
-                    "rows_per_slice": dplan.rows_per_slice},
-         "ptxas": {k: ptxas.get(k) for k in ("lstm_dwhh_partial_kernel<bf16>",
-                                              "lstm_dwhh_reduce_kernel<bf16>")},
+         "bound_is": "h, dxw and lo in, dW_hh out, one product of depth B*T, at 3.35 TB/s and "
+                     "989 TFLOP/s",
+         "library_call": "torch.matmul([h_prev; h_prev]^T, [dxw; lo]) in bf16, one a direction "
+                         "(the kernel's function); library_f32_ms: h_prev^T @ dgates in f32",
          "b25": small["dwhh"]},
     ]
 

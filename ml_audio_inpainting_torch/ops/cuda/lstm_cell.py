@@ -50,9 +50,13 @@ Element types: f32 and bf16, one type for a layer's ``xw`` and ``W_hh``
 the Pallas kernels run it (the JAX package's bf16 training): f32 carries,
 ``W_hh`` and ``xw`` upcast, ``h`` and ``c`` rounded to bf16 only where they
 are stored; the backward recomputes the gates from the stored bf16
-``h_prev`` and ``c``, stores ``dxw`` in bf16, and sums ``dW_hh`` in f32 from
-the unrounded f32 ``dgates``, rounded to bf16 once at the end.  A CUDA
-tensor of any other type, or of mixed types, raises.
+``h_prev`` and ``c``, stores ``dxw`` in bf16, and sums ``dW_hh`` in f32,
+rounded to bf16 once at the end.  The bf16 backward has kernels of its own,
+on the tensor cores: its dh carry takes the f32 ``dgates`` as
+``DH_PIECES`` bf16 pieces, and ``dW_hh`` sums the pair ``(dxw, lo)``, ``lo
+= bf16(dgates - dxw)``, which carries ``dgates`` to 16 bits (the plain
+versions compute the same; :func:`split_bf16`, :func:`bf16_residual`).  A
+CUDA tensor of any other type, or of mixed types, raises.
 """
 
 from __future__ import annotations
@@ -80,12 +84,18 @@ __all__ = [
     "lstm_recurrence_reference",
     "lstm_recurrence_backward_reference",
     "dwhh_reference",
+    "split_bf16",
+    "bf16_residual",
     "ClusterPlan",
     "fwd_plan",
     "fwd_smem_bytes",
     "bwd_plan",
+    "MmaLayout",
+    "bwd_mma_layout",
+    "bwd_mma_plan",
     "DwhhPlan",
     "dwhh_plan",
+    "dwhh_mma_plan",
     "DTYPE_CODES",
     "bilstm_recurrence",
     "bilstm_recurrence_reference",
@@ -133,6 +143,23 @@ DWHH_TARGET_BLOCKS = 256
 # the error where B=25's 8 slices of 1312 rows have it (1.8e-5).
 DWHH_MAX_SLICE_ROWS = 1344
 
+# Constants of the bf16 forms of csrc/lstm_bwd.cu, whose products run on the
+# tensor cores (lstm_bwd_mma_kernel, lstm_dwhh_mma_kernel).
+DH_PIECES = 3  # kPieces: bf16 pieces of the f32 dgates in the sweep's dh product
+BWD_MMA_ROW_CHOICES = (8, 16)  # the Rows instances: batch rows a cluster, one or two n8 tiles
+BWD_MMA_TILE_CHOICES = (4, 8)  # the Tiles instances: A fragments a warp keeps of each product
+BWD_MMA_WARPS = 8  # kThreads / 32
+BWD_MMA_MAX_UNITS = 32  # kMaxUnits: H / cluster at most (H <= 128, cluster >= 4)
+# CTAs that bwd_mma_plan aims the grid at: one wave at one CTA on each of an
+# H100's 132 SMs.
+BWD_MMA_TARGET_CTAS = 132
+DWHH_MMA_TILE = 128  # kDwTile: dW_hh tile edge of the bf16 sum (all of H <= 128)
+DWHH_MMA_DEPTH = 32  # kDwDepth: rows of K a stage
+DWHH_MMA_STAGES = 3  # kDwStages: cp.async stages of (h_prev, dxw, lo) tiles
+# Blocks the bf16 sum aims at: two on each of 132 SMs (each holds its
+# stages in 78 KB of shared memory).
+DWHH_MMA_TARGET_BLOCKS = 264
+
 # The element types the kernels are instantiated for, and their codes at the
 # C interface (kF32, kBF16 in the sources).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -148,14 +175,22 @@ _LAUNCHERS = {
         "lstm_fwd_smem_bytes": [_I] * 5,
     },
     "lstm_bwd": {
-        # xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_seq, c_seq, g_out, dxw_fwd, dxw_bwd,
-        # dg_fwd, dg_bwd (f32 dgates; null in f32); B, T, H, cluster, ksplit, dtype code
-        "lstm_bwd_launch": [_P] * 11 + [_I] * 6 + [_P],
-        # h_seq, dg_fwd, dg_bwd, part, dw_fwd, dw_bwd; B, T, H, slices, rows_per_slice,
-        # dtype code (of h_seq and dw)
-        "lstm_dwhh_launch": [_P] * 6 + [_I] * 6 + [_P],
-        # H, cluster, ksplit, element bytes -> dynamic shared memory of a sweep CTA, bytes
-        "lstm_bwd_smem_bytes": [_I] * 4,
+        # f32: xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_seq, c_seq, g_out, dxw_fwd, dxw_bwd;
+        # B, T, H, cluster, ksplit
+        "lstm_bwd_launch": [_P] * 9 + [_I] * 5 + [_P],
+        # f32: h_seq, dxw_fwd, dxw_bwd, part, dw_fwd, dw_bwd; B, T, H, slices, rows_per_slice
+        "lstm_dwhh_launch": [_P] * 6 + [_I] * 5 + [_P],
+        # H, cluster, ksplit -> dynamic shared memory of an f32 sweep CTA, bytes
+        "lstm_bwd_smem_bytes": [_I] * 3,
+        # bf16: the f32 sweep's pointers, then lo_fwd, lo_bwd; B, T, H, rows, cluster, ksplit
+        "lstm_bwd_mma_launch": [_P] * 11 + [_I] * 6 + [_P],
+        # H, rows, cluster, ksplit -> dynamic shared memory of a bf16 sweep CTA, bytes
+        "lstm_bwd_mma_smem_bytes": [_I] * 4,
+        # H, rows, cluster, ksplit -> cudaOccupancyMaxActiveClusters (or -error)
+        "lstm_bwd_mma_max_clusters": [_I] * 4,
+        # bf16: h_seq, dxw_fwd, dxw_bwd, lo_fwd, lo_bwd, part, dw_fwd, dw_bwd;
+        # B, T, H, slices, rows_per_slice
+        "lstm_dwhh_mma_launch": [_P] * 8 + [_I] * 5 + [_P],
     },
 }
 
@@ -293,6 +328,7 @@ def lstm_recurrence_backward_reference(
     g: torch.Tensor,
     reverse: bool = False,
     return_dgates: bool = False,
+    pieces: int = DH_PIECES,
 ):
     """Plain version of one direction of ``lstm_bwd``: ``dxw (B, T, 4H)``, the
     gradient of ``sum(h * g)`` for the direction's saved ``h``, ``c`` and
@@ -301,12 +337,19 @@ def lstm_recurrence_backward_reference(
     :func:`dwhh_reference` of its unrounded ``dgates`` is ``_bwd_kernel``'s
     ``dW_hh``.
 
-    bf16 inputs run as ``_bwd_kernel`` runs them: the gates recomputed from
+    bf16 inputs run as the bf16 kernel runs them: the gates recomputed from
     the stored (bf16) ``h_prev`` and ``c`` and the upcast ``xw`` and
-    ``W_hh``, the ``dh`` and ``dc`` carries in f32, and ``dgates`` rounded
-    to bf16 only where it is stored as ``dxw``.  With ``return_dgates`` the
-    result is ``(dxw, dgates)``, ``dgates`` unrounded (for f32 inputs the
-    same values as ``dxw``)."""
+    ``W_hh`` (exact products summed in f32, as ``_bwd_kernel`` and the
+    tensor cores sum them), the ``dh`` and ``dc`` carries in f32, and
+    ``dgates`` rounded to bf16 only where it is stored as ``dxw``.  The
+    carry ``dh = dgates @ W_hh^T`` takes the f32 ``dgates`` as the sum of
+    ``pieces`` bf16 pieces (:func:`split_bf16`), each an exact bf16 operand
+    of the tensor cores: one piece (``dgates`` rounded) moves ``dxw`` off
+    Pallas's f32 product, three put it as close as an f32 product
+    (``tests/test_torch_bf16_lstm.py``).  With ``return_dgates`` the result
+    is ``(dxw, dgates)``, ``dgates`` unrounded (for f32 inputs the same
+    values as ``dxw``); :func:`bf16_residual` of the two is the kernel's
+    ``lo``."""
     B, T, _ = xw.shape
     H = w_hh.shape[0]
     acc = _carry_dtype(xw.dtype)
@@ -317,7 +360,8 @@ def lstm_recurrence_backward_reference(
     dh_carry = xw.new_zeros((B, H))
     dc_carry = xw.new_zeros((B, H))
     dxw = xw_in.new_empty(xw.shape)
-    dg_seq = xw.new_empty(xw.shape) if return_dgates and acc != xw_in.dtype else None
+    split = acc != xw_in.dtype  # bf16: the dh carry reads dgates as bf16 pieces
+    dg_seq = xw.new_empty(xw.shape) if return_dgates and split else None
     for t in (range(T) if reverse else range(T - 1, -1, -1)):
         gates = xw[:, t] + h_prev[:, t] @ w_hh
         i, f, gg, o = gates.chunk(4, dim=-1)
@@ -337,22 +381,58 @@ def lstm_recurrence_backward_reference(
         dxw[:, t] = dgates
         if dg_seq is not None:
             dg_seq[:, t] = dgates
-        dh_carry = dgates @ w_hh.T
+        dh_carry = _split_product(dgates, w_hh.T, pieces) if split else dgates @ w_hh.T
         dc_carry = dc * f
     if return_dgates:
         return dxw, (dxw if dg_seq is None else dg_seq)
     return dxw
 
 
-def dwhh_reference(h: torch.Tensor, dgates: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+def split_bf16(x: torch.Tensor, pieces: int) -> list:
+    """``x`` (f32) as ``pieces`` bf16 tensors whose sum approaches it: each
+    piece is the residual left by the earlier ones, rounded to nearest even
+    (the first is ``x`` rounded, the second :func:`bf16_residual`).  Three
+    pieces carry 24 bits of ``x``, all that f32 has, wherever no piece
+    falls below bf16's range."""
+    out, rest = [], x
+    for _ in range(pieces):
+        out.append(rest.to(torch.bfloat16))
+        rest = rest - out[-1].to(rest.dtype)
+    return out
+
+
+def bf16_residual(dgates: torch.Tensor, dxw: torch.Tensor) -> torch.Tensor:
+    """``lo = bf16(dgates - dxw)``: what the bf16 ``dxw`` (``dgates``
+    rounded) leaves of the f32 ``dgates``, in bf16.  ``dxw + lo`` carries
+    16 bits of ``dgates``, enough for ``dW_hh`` (:func:`dwhh_reference`)."""
+    return (dgates - dxw.to(dgates.dtype)).to(torch.bfloat16)
+
+
+def _split_product(x: torch.Tensor, w: torch.Tensor, pieces: int) -> torch.Tensor:
+    """``x @ w`` in f32 with ``x`` taken as :func:`split_bf16` pieces, one
+    product each, summed from the smallest piece's up, as the bf16 kernel
+    sums its accumulators (``w``: bf16 values, upcast)."""
+    parts = [p.to(w.dtype) @ w for p in split_bf16(x, pieces)]
+    total = parts[-1]
+    for part in reversed(parts[:-1]):
+        total = total + part
+    return total
+
+
+def dwhh_reference(h: torch.Tensor, dgates: torch.Tensor, reverse: bool = False,
+                   lo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of one direction of ``lstm_dwhh``:
     ``sum_{b,t} h_prev[b, t]^T dgates[b, t]`` for the direction's ``h (B, T,
     H)``, in ``h``'s type.  For bf16 ``h`` the sum runs in f32 over the
-    upcast ``h`` and ``dgates`` (which the caller passes unrounded, in f32,
-    as ``_bwd_kernel`` sums them) and is rounded once at the end."""
+    upcast ``h`` and ``dgates``, and is rounded once at the end; with ``lo``
+    (the bf16 kernel's pair: ``dgates`` is the bf16 ``dxw``, ``lo`` its
+    :func:`bf16_residual`) it is ``h_prev^T dxw + h_prev^T lo``, two
+    products in f32 added before the one rounding."""
     acc = _carry_dtype(h.dtype)
-    h_prev = _shift_prev(h, reverse).to(acc)
-    dw = h_prev.reshape(-1, h.shape[-1]).T @ dgates.to(acc).reshape(-1, dgates.shape[-1])
+    h_prev = _shift_prev(h, reverse).to(acc).reshape(-1, h.shape[-1]).T
+    dw = h_prev @ dgates.to(acc).reshape(-1, dgates.shape[-1])
+    if lo is not None:
+        dw = dw + h_prev @ lo.to(acc).reshape(-1, lo.shape[-1])
     return dw.to(h.dtype)
 
 
@@ -448,6 +528,49 @@ def bwd_plan(B: int, H: int) -> ClusterPlan:
 
 
 @dataclass(frozen=True)
+class MmaLayout:
+    """The tiles and shared memory of a bf16 sweep CTA under a plan, as
+    ``MmaLayout`` in ``csrc/lstm_bwd.cu`` computes them: ``kh`` 16-wide tiles
+    of the H inputs (gate product) and of the H units (dh product), ``kc`` of
+    the CTA's ``4u`` gate columns; the gate product's k-tiles in ``ksplit``
+    slices of ``span``; ``tiles`` A fragments a warp keeps of either
+    product; ``smem_bytes`` of dynamic shared memory."""
+
+    kh: int
+    kc: int
+    span: int
+    tiles: int
+    smem_bytes: int
+
+
+def bwd_mma_layout(plan: ClusterPlan) -> MmaLayout:
+    kh, kc = _cdiv(plan.H, 16), _cdiv(4 * plan.units, 16)
+    span = _cdiv(kh, plan.ksplit)
+    ldh, ldd, ldp, ldg = 16 * kh + 8, 16 * kc + 8, 16 * kh + 4, 16 * kc + 4
+    rows = plan.rows
+    smem = (2 * 2 * rows * ldh + 2 * DH_PIECES * rows * ldd + 4 * 2 * rows * ldp
+            + 4 * 2 * plan.ksplit * rows * ldg)
+    return MmaLayout(kh, kc, span, max(span, kc), smem)
+
+
+def bwd_mma_plan(B: int, H: int) -> ClusterPlan:
+    """The plan of the bf16 sweep (``lstm_bwd_mma_kernel``) for ``H % 4 ==
+    0``, ``4 <= H <= 128``: clusters of 8 CTAs where 8 divides ``H``, else 4,
+    as the f32 sweep; as batch rows a cluster the fewest of
+    ``BWD_MMA_ROW_CHOICES`` that keep the grid within ``BWD_MMA_TARGET_CTAS``
+    (one wave at one CTA an SM), else the most; the gate product's k-tiles in
+    as many slices (a warp each, beside the other column tiles' warps) as
+    ``BWD_MMA_WARPS`` warps take, none empty."""
+    cluster = 8 if H % 8 == 0 else 4
+    units = H // cluster
+    rows = next((r for r in BWD_MMA_ROW_CHOICES
+                 if 2 * cluster * _cdiv(B, r) <= BWD_MMA_TARGET_CTAS), BWD_MMA_ROW_CHOICES[-1])
+    kh, kc = _cdiv(H, 16), _cdiv(4 * units, 16)
+    span = _cdiv(kh, max(1, min(BWD_MMA_WARPS // kc, kh)))
+    return ClusterPlan(B, H, rows, cluster, units, _cdiv(kh, span), _cdiv(B, rows))
+
+
+@dataclass(frozen=True)
 class DwhhPlan:
     """How ``lstm_dwhh`` splits ``dW_hh = h_prev^T dxw`` of depth ``K = B*T``:
     ``tiles_i x tiles_j`` output tiles of ``DWHH_TILE`` squared per
@@ -483,6 +606,19 @@ def dwhh_plan(B: int, T: int, H: int) -> DwhhPlan:
     want = max(1, min(_cdiv(DWHH_TARGET_BLOCKS, 2 * tiles_i * tiles_j), _cdiv(K, DWHH_DEPTH)),
                _cdiv(K, DWHH_MAX_SLICE_ROWS))
     rows = _cdiv(_cdiv(K, want), DWHH_DEPTH) * DWHH_DEPTH
+    return DwhhPlan(H, K, tiles_i, tiles_j, _cdiv(K, rows), rows)
+
+
+def dwhh_mma_plan(B: int, T: int, H: int) -> DwhhPlan:
+    """The bf16 sum's split of ``K = B*T`` (``lstm_dwhh_mma_kernel``): tiles
+    of ``DWHH_MMA_TILE`` squared (all of ``H``), slices enough for about
+    ``DWHH_MMA_TARGET_BLOCKS`` blocks, each a whole number of
+    ``DWHH_MMA_DEPTH``-row stages, none empty."""
+    K = B * T
+    tiles_i, tiles_j = _cdiv(H, DWHH_MMA_TILE), _cdiv(4 * H, DWHH_MMA_TILE)
+    want = max(1, min(_cdiv(DWHH_MMA_TARGET_BLOCKS, 2 * tiles_i * tiles_j),
+                      _cdiv(K, DWHH_MMA_DEPTH)))
+    rows = _cdiv(_cdiv(K, want), DWHH_MMA_DEPTH) * DWHH_MMA_DEPTH
     return DwhhPlan(H, K, tiles_i, tiles_j, _cdiv(K, rows), rows)
 
 
@@ -598,32 +734,34 @@ def bilstm_recurrence_backward(
     c: torch.Tensor,
     g: torch.Tensor,
     dgates: bool = False,
-) -> Tuple[torch.Tensor, ...]:
+) -> Tuple[Optional[torch.Tensor], ...]:
     """``(dxw_fwd, dxw_bwd)``, the gradients of ``sum(h * g)`` with respect to
     a BiLSTM layer's projected inputs, in their type, given its forward
     inputs, its ``(B, T, 2H)`` outputs ``h`` and ``c``
     (:func:`bilstm_forward`) and the incoming gradient ``g``.  With
-    ``dgates``, ``(dxw_fwd, dxw_bwd, dgates_fwd, dgates_bwd)``: the same
-    gradients unrounded, in f32 (in f32 the ``dxw`` tensors themselves),
-    which :func:`bilstm_dwhh` sums into ``dW_hh``.
+    ``dgates``, ``(dxw_fwd, dxw_bwd, lo_fwd, lo_bwd)``: in bf16 ``lo`` is
+    the bf16 residual of the f32 dgates that ``dxw`` rounds
+    (:func:`bf16_residual`), and ``(dxw, lo)`` is what :func:`bilstm_dwhh`
+    sums into ``dW_hh``; in f32 ``dxw`` is the dgates and ``lo`` is None.
 
     CPU tensors take :func:`lstm_recurrence_backward_reference` per
-    direction; CUDA tensors launch ``lstm_bwd`` once for both directions
-    (in bf16 it also writes the f32 dgates, into buffers allocated here,
-    whether or not they are returned), or raise.
+    direction; CUDA tensors launch ``lstm_bwd`` once for both directions,
+    or raise: in f32 ``lstm_bwd_kernel`` on the clusters of
+    :func:`bwd_plan`, in bf16 ``lstm_bwd_mma_kernel`` on those of
+    :func:`bwd_mma_plan`, which also writes ``lo`` into buffers allocated
+    here, whether or not they are returned.
     """
     tensors = (xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h, c, g)
     if all(t.device.type == "cpu" for t in tensors):
         H = w_hh_fwd.shape[0]
-        (dxw_f, dg_f), (dxw_b, dg_b) = (
-            lstm_recurrence_backward_reference(
-                xw_fwd, w_hh_fwd, h[..., :H], c[..., :H], g[..., :H], reverse=False,
-                return_dgates=True),
-            lstm_recurrence_backward_reference(
-                xw_bwd, w_hh_bwd, h[..., H:], c[..., H:], g[..., H:], reverse=True,
-                return_dgates=True),
-        )
-        return (dxw_f, dxw_b, dg_f, dg_b) if dgates else (dxw_f, dxw_b)
+        out = []
+        for xw, w, sl, reverse in ((xw_fwd, w_hh_fwd, slice(0, H), False),
+                                   (xw_bwd, w_hh_bwd, slice(H, 2 * H), True)):
+            dxw, dg = lstm_recurrence_backward_reference(
+                xw, w, h[..., sl], c[..., sl], g[..., sl], reverse=reverse, return_dgates=True)
+            out.append((dxw, bf16_residual(dg, dxw) if xw.dtype == torch.bfloat16 else None))
+        (dxw_f, lo_f), (dxw_b, lo_b) = out
+        return (dxw_f, dxw_b, lo_f, lo_b) if dgates else (dxw_f, dxw_b)
     _check_pair(xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd)
     B, T, _ = xw_fwd.shape
     H = w_hh_fwd.shape[0]
@@ -631,22 +769,22 @@ def bilstm_recurrence_backward(
         _check_layer_seq(name, t, xw_fwd, 2 * H)
     dxw_f = torch.empty_like(xw_fwd)
     dxw_b = torch.empty_like(xw_bwd)
-    if xw_fwd.dtype == torch.float32:
-        dg_f, dg_b = dxw_f, dxw_b
-        dg_ptrs = (None, None)
-    else:
-        dg_f, dg_b = (torch.empty(xw_fwd.shape, device=xw_fwd.device, dtype=torch.float32)
-                      for _ in range(2))
-        dg_ptrs = (dg_f.data_ptr(), dg_b.data_ptr())
-    out = (dxw_f, dxw_b, dg_f, dg_b) if dgates else (dxw_f, dxw_b)
+    bf16 = xw_fwd.dtype == torch.bfloat16
+    lo_f, lo_b = (torch.empty_like(dxw_f), torch.empty_like(dxw_b)) if bf16 else (None, None)
+    out = (dxw_f, dxw_b, lo_f, lo_b) if dgates else (dxw_f, dxw_b)
     if B == 0 or T == 0:
         return out
-    plan = bwd_plan(B, H)
-    launch = load_library("lstm_bwd").cdll.lstm_bwd_launch
+    lib = load_library("lstm_bwd").cdll
     inputs = [_aligned16(t) for t in tensors]
+    ptrs = [t.data_ptr() for t in (*inputs, dxw_f, dxw_b)]
     with torch.cuda.device(h.device):
-        rc = launch(*(t.data_ptr() for t in (*inputs, dxw_f, dxw_b)), *dg_ptrs, B, T, H,
-                    plan.cluster, plan.ksplit, DTYPE_CODES[xw_fwd.dtype], _stream(h.device))
+        if bf16:
+            plan = bwd_mma_plan(B, H)
+            rc = lib.lstm_bwd_mma_launch(*ptrs, lo_f.data_ptr(), lo_b.data_ptr(), B, T, H,
+                                         plan.rows, plan.cluster, plan.ksplit, _stream(h.device))
+        else:
+            plan = bwd_plan(B, H)
+            rc = lib.lstm_bwd_launch(*ptrs, B, T, H, plan.cluster, plan.ksplit, _stream(h.device))
     if rc != 0:
         raise RuntimeError(f"lstm_bwd launch failed with CUDA error {rc} (B={B}, T={T}, H={H}, "
                            f"{xw_fwd.dtype}, {plan})")
@@ -655,42 +793,55 @@ def bilstm_recurrence_backward(
 
 
 def bilstm_dwhh(
-    h: torch.Tensor, dgates_fwd: torch.Tensor, dgates_bwd: torch.Tensor
+    h: torch.Tensor,
+    dxw_fwd: torch.Tensor,
+    dxw_bwd: torch.Tensor,
+    lo_fwd: Optional[torch.Tensor] = None,
+    lo_bwd: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dW_hh_fwd, dW_hh_bwd)`` in ``h``'s type, each
     ``sum_{b,t} h_prev[b, t]^T dgates[b, t]`` for its half of ``h (B, T,
-    2H)``.  The dgates are f32 for bf16 ``h`` (the unrounded ones of
-    :func:`bilstm_recurrence_backward`), else of ``h``'s type.
+    2H)``: in f32 the dgates are ``dxw``; in bf16 they are the pair ``(dxw,
+    lo)`` of :func:`bilstm_recurrence_backward`, summed as ``h_prev^T dxw +
+    h_prev^T lo`` in f32 and rounded once.
 
     CPU tensors take :func:`dwhh_reference`; CUDA tensors launch
     ``lstm_dwhh`` once for both directions (its f32 partial products over
-    the slices of :func:`dwhh_plan`, then their sum in slice order, so the
-    result does not change from run to run, rounded to ``h``'s type at the
-    end), or raise.
+    the fixed slices of K of :func:`dwhh_plan`, f32, or
+    :func:`dwhh_mma_plan`, bf16 on the tensor cores, then their sum in slice
+    order, so the result does not change from run to run, rounded to ``h``'s
+    type at the end), or raise.
     """
     H = h.shape[-1] // 2
-    if all(t.device.type == "cpu" for t in (h, dgates_fwd, dgates_bwd)):
-        return (dwhh_reference(h[..., :H], dgates_fwd, reverse=False),
-                dwhh_reference(h[..., H:], dgates_bwd, reverse=True))
+    if all(t.device.type == "cpu" for t in (h, dxw_fwd, dxw_bwd, lo_fwd, lo_bwd)
+           if t is not None):
+        return (dwhh_reference(h[..., :H], dxw_fwd, reverse=False, lo=lo_fwd),
+                dwhh_reference(h[..., H:], dxw_bwd, reverse=True, lo=lo_bwd))
     if h.device.type != "cuda":
         raise ValueError(f"lstm_dwhh: h on {h.device}; the kernel needs CUDA tensors")
     if h.dtype not in DTYPE_CODES:
         raise TypeError(f"lstm_dwhh takes float32 or bfloat16 h, got {h.dtype}")
-    for name, t in (("dgates_fwd", dgates_fwd), ("dgates_bwd", dgates_bwd)):
-        _check_layer_seq(name, t, h, 4 * H, dtype=torch.float32)
+    bf16 = h.dtype == torch.bfloat16
+    if bf16 != (lo_fwd is not None) or bf16 != (lo_bwd is not None):
+        raise ValueError("lstm_dwhh sums (dxw, lo) pairs for bf16 h and dxw alone for f32 h")
+    seqs = (("dxw_fwd", dxw_fwd), ("dxw_bwd", dxw_bwd), ("lo_fwd", lo_fwd), ("lo_bwd", lo_bwd))
+    seqs = seqs if bf16 else seqs[:2]
+    for name, t in seqs:
+        _check_layer_seq(name, t, h, 4 * H)
     _check_layer_seq("h", h, h, 2 * H)
     B, T, _ = h.shape
     dw_f = torch.empty((H, 4 * H), device=h.device, dtype=h.dtype)
     dw_b = torch.empty_like(dw_f)
     if B == 0 or T == 0:
         return dw_f.zero_(), dw_b.zero_()
-    plan = dwhh_plan(B, T, H)
+    plan = dwhh_mma_plan(B, T, H) if bf16 else dwhh_plan(B, T, H)
     part = torch.empty(plan.partial_shape, device=h.device, dtype=torch.float32)
-    launch = load_library("lstm_bwd").cdll.lstm_dwhh_launch
-    inputs = [_aligned16(t) for t in (h, dgates_fwd, dgates_bwd)]
+    lib = load_library("lstm_bwd").cdll
+    inputs = [_aligned16(t) for t in (h, *(t for _, t in seqs))]
+    launch = lib.lstm_dwhh_mma_launch if bf16 else lib.lstm_dwhh_launch
     with torch.cuda.device(h.device):
         rc = launch(*(t.data_ptr() for t in (*inputs, part, dw_f, dw_b)), B, T, H, plan.slices,
-                    plan.rows_per_slice, DTYPE_CODES[h.dtype], _stream(h.device))
+                    plan.rows_per_slice, _stream(h.device))
     if rc != 0:
         raise RuntimeError(f"lstm_dwhh launch failed with CUDA error {rc} (B={B}, T={T}, H={H}, "
                            f"{h.dtype}, {plan})")
@@ -712,9 +863,9 @@ class _BiLSTMRecurrence(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h, c = ctx.saved_tensors
-        dxw_f, dxw_b, dg_f, dg_b = bilstm_recurrence_backward(
+        dxw_f, dxw_b, lo_f, lo_b = bilstm_recurrence_backward(
             xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h, c, g.contiguous(), dgates=True)
-        dw_f, dw_b = bilstm_dwhh(h, dg_f, dg_b)
+        dw_f, dw_b = bilstm_dwhh(h, dxw_f, dxw_b, lo_f, lo_b)
         return dxw_f, dw_f, dxw_b, dw_b, None
 
 

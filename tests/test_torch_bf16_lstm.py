@@ -19,14 +19,18 @@ hides:
   the two libraries' dots and transcendentals, and a value near a bf16
   rounding boundary can round the other way);
 * backward: ``dxw`` (bf16) and ``dW_hh`` (bf16, summed in f32 from the
-  unrounded f32 dgates) within one bf16 ulp of Pallas's, with a floor of
-  ``1e-6`` of the tensor's largest entry for entries that are f32
-  cancellation noise (entries of ~1e-6 beside a maximum of ~2, where one
-  f32 rounding of another order is many bf16 ulps of the tiny entry), and
-  equal on at least 99 % of the entries;
-* the witness: summing the bf16-rounded ``dxw`` instead of the f32 dgates
-  leaves only ~60 % of ``dW_hh``'s entries equal to Pallas's, so the 99 %
-  bound tells the two designs apart;
+  pair ``(dxw, lo)``, ``lo = bf16(dgates - dxw)``) within one bf16 ulp of
+  Pallas's, with a floor of ``1e-6`` of the tensor's largest entry for
+  entries that are f32 cancellation noise (entries of ~1e-6 beside a
+  maximum of ~2, where one f32 rounding of another order is many bf16 ulps
+  of the tiny entry), and equal on at least 99 % of the entries.  The plain
+  backward computes what the bf16 kernel computes: its dh carry takes the
+  f32 dgates as ``DH_PIECES`` bf16 pieces, the operands of the tensor cores;
+* the witnesses: summing the bf16-rounded ``dxw`` alone instead of the
+  pair leaves only ~59 % of ``dW_hh``'s entries equal to Pallas's, and
+  one bf16 piece in the dh carry (``dgates`` rounded) only 74 % of
+  ``dxw``'s (two pieces 99.9 %, three 99.98 %), so the 99 % bound tells
+  the designs apart;
 * the BiLSTM module in bf16 (``x @ W_ih + b`` in bf16, then the
   recurrence) against flax's ``BiLSTM(use_pallas=True)`` on bf16 parameters:
   within two bf16 ulps of the output's largest entry (the projection's bf16
@@ -125,9 +129,10 @@ def test_cpu_wrapper_runs_the_bf16_plain_version():
             lstm_cell.bilstm_recurrence.bf16_launches) == before
 
 
-def _backward_case(B, T, H, seed, reverse):
-    """Pallas's bf16 dxw and dW_hh, and the port's plain backward (dxw,
-    f32 dgates) on Pallas's own saved h and c."""
+def _backward_case(B, T, H, seed, reverse, pieces=lstm_cell.DH_PIECES):
+    """Pallas's bf16 dxw and dW_hh, and the port's plain backward (dxw, the
+    f32 dgates and their bf16 residual lo; the dh carry from ``pieces``
+    bf16 pieces) on Pallas's own saved h and c."""
     xw, w_hh, g = _inputs(B, T, H, seed)
     _, residuals = _pallas_forward(xw, w_hh, reverse)
     want_dxw, want_dw = pallas_cell._bwd(reverse, residuals, jnp.asarray(g, jnp.bfloat16))
@@ -135,34 +140,94 @@ def _backward_case(B, T, H, seed, reverse):
     h, c = (torch.tensor(_batch_major(s, reverse)).to(torch.bfloat16) for s in residuals[2:])
     xw_t, w_t, g_t = _bf16(xw, w_hh, g)
     dxw, dgates = lstm_cell.lstm_recurrence_backward_reference(
-        xw_t, w_t, h, c, g_t, reverse, return_dgates=True)
-    return h, dxw, dgates, _f32(want_dxw), _f32(want_dw)
+        xw_t, w_t, h, c, g_t, reverse, return_dgates=True, pieces=pieces)
+    lo = lstm_cell.bf16_residual(dgates, dxw)
+    return h, dxw, dgates, lo, _f32(want_dxw), _f32(want_dw)
 
 
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("B,T,H,seed", [(3, 29, 16, 0), (8, 100, 32, 1)])
 def test_plain_bf16_backward_matches_pallas(B, T, H, seed, reverse):
-    h, dxw, dgates, want_dxw, want_dw = _backward_case(B, T, H, seed, reverse)
-    assert dxw.dtype == torch.bfloat16 and dgates.dtype == torch.float32
+    h, dxw, dgates, lo, want_dxw, want_dw = _backward_case(B, T, H, seed, reverse)
+    assert dxw.dtype == lo.dtype == torch.bfloat16 and dgates.dtype == torch.float32
     _assert_matches_bf16(_f32(dxw), want_dxw, 0.99)
-    dw = lstm_cell.dwhh_reference(h, dgates, reverse)
+    dw = lstm_cell.dwhh_reference(h, dxw, reverse, lo=lo)
     assert dw.dtype == torch.bfloat16
     _assert_matches_bf16(_f32(dw), want_dw, 0.99)
-    # The CPU wrapper of lstm_dwhh computes the same, from the same dgates.
-    both = lstm_cell.bilstm_dwhh(torch.cat([h, h], dim=-1), dgates, dgates)
+    # The pair carries the f32 dgates to 16 bits: within 2^-16 of each entry.
+    assert (np.abs(_f32(dxw) + _f32(lo) - _f32(dgates))
+            <= 2.0 ** -16 * np.abs(_f32(dgates))).all()
+    # The CPU wrapper of lstm_dwhh computes the same, from the same pair.
+    both = lstm_cell.bilstm_dwhh(torch.cat([h, h], dim=-1), dxw, dxw, lo, lo)
     assert torch.equal(both[1 if reverse else 0], dw)
 
 
 @pytest.mark.parametrize("reverse", [False, True])
 def test_summing_the_rounded_dxw_fails_the_dwhh_bound(reverse):
     """The witness for the dW_hh design: ``_bwd_kernel`` sums the f32
-    dgates; summing the bf16 dxw it stores instead misses Pallas's dW_hh on
-    ~40 % of the entries, far from the 99 % the port's design meets."""
-    h, dxw, dgates, _, want_dw = _backward_case(8, 100, 32, 1, reverse)
-    right = _f32(lstm_cell.dwhh_reference(h, dgates, reverse))
-    wrong = _f32(lstm_cell.dwhh_reference(h, dxw.float(), reverse))
+    dgates; the pair ``(dxw, lo)`` meets its dW_hh on 99 % of the entries,
+    while the bf16 dxw alone misses it on ~41 %."""
+    h, dxw, _, lo, _, want_dw = _backward_case(8, 100, 32, 1, reverse)
+    right = _f32(lstm_cell.dwhh_reference(h, dxw, reverse, lo=lo))
+    wrong = _f32(lstm_cell.dwhh_reference(h, dxw, reverse))
     assert (right == want_dw).mean() >= 0.99
     assert (wrong == want_dw).mean() < 0.8
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("pieces,meets", [(1, False), (lstm_cell.DH_PIECES, True)])
+def test_dh_carry_pieces_decide_the_dxw_bound(pieces, meets, reverse):
+    """The witness for the sweep's dh product: with the f32 dgates as one
+    bf16 piece (rounded), dxw equals Pallas's on only ~74 % of the entries
+    and leaves one bf16 ulp; with the kernel's ``DH_PIECES`` it meets the
+    bound of ``test_plain_bf16_backward_matches_pallas``."""
+    _, dxw, _, _, want_dxw, _ = _backward_case(8, 100, 32, 1, reverse, pieces=pieces)
+    got = _f32(dxw)
+    passed = bool(_within_one_ulp(got, want_dxw).all() and (got == want_dxw).mean() >= 0.99)
+    assert passed == meets, (got == want_dxw).mean()
+
+
+def test_split_bf16_pieces():
+    """The pieces of an f32 tensor: the first is it rounded, the second its
+    bf16 residual, and three sum back to it within f32's own resolution."""
+    x = torch.tensor(np.random.default_rng(9).standard_normal(4096).astype(np.float32)) * 3
+    p = lstm_cell.split_bf16(x, 3)
+    assert all(t.dtype == torch.bfloat16 for t in p)
+    assert torch.equal(p[0], x.to(torch.bfloat16))
+    assert torch.equal(p[1], lstm_cell.bf16_residual(x, p[0]))
+    total = p[2].double() + p[1].double() + p[0].double()
+    assert ((total - x.double()).abs() <= 2.0 ** -24 * x.double().abs()).all()
+
+
+def test_cpu_backward_wrapper_returns_the_bf16_pair():
+    """``bilstm_recurrence_backward(..., dgates=True)`` on bf16 CPU tensors:
+    bf16 ``lo``, the plain version's residual of its f32 dgates; in f32,
+    ``lo`` is None and ``dW_hh`` sums ``dxw``; no launch counted."""
+    B, T, H = 3, 17, 8
+    xw_f, w_f, g = _inputs(B, T, H, 5)
+    xw_b, w_b, _ = _inputs(B, T, H, 6)
+    g2 = np.concatenate([g, g[:, ::-1]], axis=-1)
+    counts = (lstm_cell.bilstm_recurrence_backward.launches, lstm_cell.bilstm_dwhh.launches)
+    for dtype in (torch.bfloat16, torch.float32):
+        layer = [torch.tensor(a).to(dtype) for a in (xw_f, w_f, xw_b, w_b)]
+        h, c = lstm_cell.bilstm_forward(*layer, with_c=True)
+        g_t = torch.tensor(g2.copy()).to(dtype)
+        dxw_f, dxw_b, lo_f, lo_b = lstm_cell.bilstm_recurrence_backward(
+            *layer, h, c, g_t, dgates=True)
+        for sl, xw, w, dxw, lo, reverse in ((slice(0, H), *layer[:2], dxw_f, lo_f, False),
+                                            (slice(H, 2 * H), *layer[2:], dxw_b, lo_b, True)):
+            want_dxw, dg = lstm_cell.lstm_recurrence_backward_reference(
+                xw, w, h[..., sl], c[..., sl], g_t[..., sl], reverse, return_dgates=True)
+            assert torch.equal(dxw, want_dxw)
+            if dtype == torch.bfloat16:
+                assert torch.equal(lo, lstm_cell.bf16_residual(dg, dxw))
+            else:
+                assert lo is None and dg is want_dxw
+        dws = lstm_cell.bilstm_dwhh(h, dxw_f, dxw_b, lo_f, lo_b)
+        assert dws[0].dtype == dtype
+        assert torch.equal(dws[0], lstm_cell.dwhh_reference(h[..., :H], dxw_f, False, lo=lo_f))
+    assert counts == (lstm_cell.bilstm_recurrence_backward.launches,
+                      lstm_cell.bilstm_dwhh.launches)
 
 
 @pytest.mark.parametrize("reverse", [False, True])

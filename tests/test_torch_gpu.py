@@ -28,9 +28,12 @@ The bf16 forms of the LSTM kernels against their plain versions in bf16 on
 the card: every bf16 output (h, c, dxw, dW_hh) within one bf16 ulp of the
 plain version's plus the f32 bound above (``1e-4``, for dW_hh ``1e-4`` of
 its largest entry): both carry and sum in f32 and differ there as the f32
-kernels do, and one rounding to bf16 can then land one ulp apart; the f32
-dgates the backward kernel writes for dW_hh within ``1e-4``.  Two bf16
-launches agree bit for bit.  A bf16 train step of a narrow model on the
+kernels do, and one rounding to bf16 can then land one ulp apart; the pair
+``(dxw, lo)`` the bf16 backward kernel writes for dW_hh sums to within
+``1e-4`` of the plain version's f32 dgates.  Two bf16 launches agree bit for
+bit.  The f32 backward kernels give, on seeded inputs, the outputs they
+gave before the bf16 forms got kernels of their own, bit for bit (sha256
+digests taken on an H100).  A bf16 train step of a narrow model on the
 card launches only the bf16 forms, and its loss lies within ``rtol=5e-2``
 of the f32 step's (bf16 rounding through the network: 1.8e-2 on the CPU
 for the same batch).
@@ -38,6 +41,7 @@ for the same batch).
 
 import copy
 import dataclasses
+import hashlib
 import os
 
 import numpy as np
@@ -518,26 +522,30 @@ def _bf16_backward_inputs(device, B, T, H):
     (7, 23, 12),  # H=12: 3 units a CTA
 ])
 def test_bf16_backward_kernels_match_plain_on_card(cuda_device, B, T, H):
-    """lstm_bwd in bf16 (bf16 dxw, f32 dgates) and lstm_dwhh in bf16 (f32
-    sums of the f32 dgates, rounded once) against the plain backward of each
-    direction in bf16, on h and c written by the bf16 lstm_fwd."""
+    """lstm_bwd in bf16 (the tensor-core sweep: bf16 dxw and its bf16
+    residual lo) and lstm_dwhh in bf16 (f32 sums of h_prev^T dxw + h_prev^T
+    lo, rounded once) against the plain backward of each direction in bf16
+    (the same bf16 pieces in the dh carry), on h and c written by the bf16
+    lstm_fwd."""
     xw_f, w_f, xw_b, w_b, g, h, c = _bf16_backward_inputs(cuda_device, B, T, H)
     counts = (lstm_cell.bilstm_recurrence_backward, lstm_cell.bilstm_dwhh)
     before = [(k.launches, k.bf16_launches) for k in counts]
-    dxw_f, dxw_b, dg_f, dg_b = lstm_cell.bilstm_recurrence_backward(
+    dxw_f, dxw_b, lo_f, lo_b = lstm_cell.bilstm_recurrence_backward(
         xw_f, w_f, xw_b, w_b, h, c, g, dgates=True)
-    dw_f, dw_b = lstm_cell.bilstm_dwhh(h, dg_f, dg_b)
+    dw_f, dw_b = lstm_cell.bilstm_dwhh(h, dxw_f, dxw_b, lo_f, lo_b)
     torch.cuda.synchronize()
     assert [(k.launches, k.bf16_launches) for k in counts] == [(n + 1, m + 1) for n, m in before]
-    assert dg_f.dtype == dg_b.dtype == torch.float32
-    for sl, xw, w, dxw, dg, dw, reverse in (
-            (slice(0, H), xw_f, w_f, dxw_f, dg_f, dw_f, False),
-            (slice(H, 2 * H), xw_b, w_b, dxw_b, dg_b, dw_b, True)):
+    assert lo_f.dtype == lo_b.dtype == torch.bfloat16
+    for sl, xw, w, dxw, lo, dw, reverse in (
+            (slice(0, H), xw_f, w_f, dxw_f, lo_f, dw_f, False),
+            (slice(H, 2 * H), xw_b, w_b, dxw_b, lo_b, dw_b, True)):
         want_dxw, want_dg = lstm_cell.lstm_recurrence_backward_reference(
             xw, w, h[..., sl], c[..., sl], g[..., sl], reverse, return_dgates=True)
         _assert_bf16_close("dxw", dxw, want_dxw, 1e-4)
-        np.testing.assert_allclose(dg.cpu().numpy(), want_dg.cpu().numpy(), rtol=0, atol=1e-4)
-        want_dw = lstm_cell.dwhh_reference(h[..., sl], want_dg, reverse)
+        np.testing.assert_allclose((dxw.float() + lo.float()).cpu().numpy(),
+                                   want_dg.cpu().numpy(), rtol=0, atol=1e-4)
+        want_dw = lstm_cell.dwhh_reference(h[..., sl], want_dxw, reverse,
+                                           lo=lstm_cell.bf16_residual(want_dg, want_dxw))
         _assert_bf16_close("dW_hh", dw, want_dw, 1e-4 * want_dw.float().abs().max().item())
 
 
@@ -545,15 +553,53 @@ def test_bf16_backward_kernels_match_plain_on_card(cuda_device, B, T, H):
 @pytest.mark.parametrize("B,T,H", [(128, 417, 128), (7, 23, 12)])
 def test_bf16_backward_kernels_are_deterministic(cuda_device, B, T, H):
     """Two bf16 launches of lstm_bwd and lstm_dwhh on the same inputs give
-    the same dxw, dgates and dW_hh, bit for bit."""
+    the same dxw, lo and dW_hh, bit for bit."""
     inputs = _bf16_backward_inputs(cuda_device, B, T, H)
     runs = []
     for _ in range(2):
         out = lstm_cell.bilstm_recurrence_backward(*inputs, dgates=True)
-        runs.append((*out, *lstm_cell.bilstm_dwhh(inputs[5], *out[2:])))
+        runs.append((*out, *lstm_cell.bilstm_dwhh(inputs[5], *out)))
     torch.cuda.synchronize()
     for first, second in zip(*runs):
         assert torch.equal(first, second)
+
+
+# sha256 (first 16 hex digits) of (dxw_fwd, dxw_bwd, dW_fwd, dW_bwd) of the
+# f32 backward kernels on _f32_digest_inputs, taken on an H100 from the
+# kernels as they were before the bf16 forms got kernels of their own.
+F32_BACKWARD_DIGESTS = {
+    (25, 417, 128): "62d9bc5de9c3c358",
+    (5, 29, 16): "39cb12dd6aa7bd54",
+    (7, 23, 12): "e5cb0e580ffbfe17",
+    (128, 417, 128): "425e7c9e6655fdaa",
+}
+
+
+def _f32_digest_inputs(device, B, T, H):
+    rng = np.random.default_rng(B * 1000 + H)
+    mk = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32), device=device)
+    xw_f, xw_b = mk(B, T, 4 * H), mk(B, T, 4 * H)
+    w_f, w_b = mk(H, 4 * H) * H ** -0.5, mk(H, 4 * H) * H ** -0.5
+    h = torch.tanh(mk(B, T, 2 * H))
+    c, g = mk(B, T, 2 * H), mk(B, T, 2 * H)
+    return xw_f, w_f, xw_b, w_b, h, c, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H", list(F32_BACKWARD_DIGESTS))
+def test_f32_backward_kernels_are_unchanged_bit_for_bit(cuda_device, B, T, H):
+    """The f32 forms of lstm_bwd and lstm_dwhh, launched as the f32 step
+    launches them, give the outputs of the f32 kernels before the bf16
+    redesign, bit for bit (the bf16 forms are kernels of their own)."""
+    inputs = _f32_digest_inputs(cuda_device, B, T, H)
+    dxw = lstm_cell.bilstm_recurrence_backward(*inputs, dgates=True)
+    assert dxw[2] is None and dxw[3] is None
+    dw = lstm_cell.bilstm_dwhh(inputs[4], *dxw)
+    torch.cuda.synchronize()
+    digest = hashlib.sha256()
+    for t in (*dxw[:2], *dw):
+        digest.update(t.cpu().numpy().tobytes())
+    assert digest.hexdigest()[:16] == F32_BACKWARD_DIGESTS[(B, T, H)]
 
 
 @pytest.mark.gpu
@@ -571,8 +617,11 @@ def test_bf16_kernels_refuse_mixed_dtypes(cuda_device):
         lstm_cell.bilstm_recurrence(xw_f.float(), w_f.float(), xw_b, w_b)
     with pytest.raises(ValueError, match="expected torch.bfloat16"):
         lstm_cell.bilstm_recurrence_backward(xw_f, w_f, xw_b, w_b, h, c, g.float())
-    with pytest.raises(ValueError, match="expected torch.float32"):
-        lstm_cell.bilstm_dwhh(h, *_bf16(torch.zeros_like(xw_f), torch.zeros_like(xw_b)))
+    zeros = torch.zeros(xw_f.shape, device=cuda_device)
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        lstm_cell.bilstm_dwhh(h, zeros, zeros, zeros, zeros)
+    with pytest.raises(ValueError, match="pairs"):
+        lstm_cell.bilstm_dwhh(h, *_bf16(zeros, zeros))
     assert counts == [lstm_cell.bilstm_recurrence.launches,
                       lstm_cell.bilstm_recurrence_backward.launches,
                       lstm_cell.bilstm_dwhh.launches]

@@ -13,10 +13,16 @@ computes what is checked here:
   cover every input exactly once, and each phase fits the CTA's threads;
 * ``dwhh_plan`` (the split-K reduction): the slices cover every row of
   K = B*T exactly once, none is empty, and the tiles cover dW_hh;
+* ``bwd_mma_plan`` and ``dwhh_mma_plan`` (the bf16 forms on the tensor
+  cores): the clusters cover every batch row once, the warps' fragment
+  tiles every (gate column, input) and (unit, gate column) pair of a CTA
+  once, phase C's items every (row, unit) once; a CTA fits its warps, the
+  kernel's instances, the registers and the shared memory, and the
+  production batch fills one wave of an H100's SMs;
 * the constants the plans use are the ones the CUDA sources declare, and
-  the text edits of ``scripts/torch_lstm_bwd_phases.py`` and
-  ``scripts/torch_lstm_fwd_phases.py`` still find the phases of the sweeps
-  they switch off.
+  the text edits of ``scripts/torch_lstm_bwd_phases.py`` (both backward
+  sweeps, f32 and bf16) and ``scripts/torch_lstm_fwd_phases.py`` still find
+  the phases of the sweeps they switch off.
 """
 
 import re
@@ -26,8 +32,17 @@ import torch
 
 from ml_audio_inpainting_torch.ops.cuda import lstm_cell
 from ml_audio_inpainting_torch.ops.cuda.lstm_cell import (
+    BWD_MMA_MAX_UNITS,
+    BWD_MMA_ROW_CHOICES,
+    BWD_MMA_TARGET_CTAS,
+    BWD_MMA_TILE_CHOICES,
+    BWD_MMA_WARPS,
     BWD_ROWS,
     BWD_THREADS,
+    DH_PIECES,
+    DWHH_MMA_DEPTH,
+    DWHH_MMA_STAGES,
+    DWHH_MMA_TILE,
     DWHH_DEPTH,
     DWHH_TILE,
     FWD_MAX_CLUSTER,
@@ -35,13 +50,16 @@ from ml_audio_inpainting_torch.ops.cuda.lstm_cell import (
     FWD_ROW_CHOICES,
     FWD_STAGES,
     FWD_THREADS,
+    bwd_mma_layout,
+    bwd_mma_plan,
     bwd_plan,
+    dwhh_mma_plan,
     dwhh_plan,
     fwd_plan,
     fwd_smem_bytes,
 )
 from scripts import torch_lstm_fwd_phases
-from scripts.torch_lstm_bwd_phases import VARIANTS, variant_sources
+from scripts.torch_lstm_bwd_phases import VARIANTS, VARIANTS_BF16, variant_sources
 from torch_threads import one_thread  # noqa: F401  (a module fixture)
 
 HIDDEN = list(range(4, lstm_cell.MAX_HIDDEN + 1, 4))
@@ -258,14 +276,148 @@ def test_plan_constants_match_the_cuda_source():
     assert int(declared["kTile"]) == DWHH_TILE
     assert int(declared["kDepth"]) == DWHH_DEPTH
     assert int(declared["kMaxCluster"]) == 8
-    assert {torch.float32: int(declared["kF32"]), torch.bfloat16: int(declared["kBF16"])} == (
-        lstm_cell.DTYPE_CODES)
-    assert set(re.findall(r"launch_(?:bwd|dwhh)<([\w]+)>", src)) == {"float", "__nv_bfloat16"}
+    # The f32 kernels are instantiated for f32 alone; bf16 has kernels of its own.
+    # The f32 sweep and partial sum are plain f32 kernels; the reduction is
+    # instantiated for both forms' outputs.
+    assert "auto kernel = lstm_bwd_kernel;" in src
+    assert "lstm_dwhh_partial_kernel<<<" in src
+    assert set(re.findall(r"lstm_dwhh_reduce_kernel<([\w]+)><<<", src)) == {"float", "bf16"}
     # The k-slice span the kernel derives from ksplit, as BwdPlan.k_parts does.
     assert "const int kspan = ((H + ksplit - 1) / ksplit + 3) / 4 * 4;" in src
+    # The bf16 forms: their constants, instances, strides and warp mappings,
+    # which bwd_mma_plan, bwd_mma_layout and the tests above mirror.
+    assert int(declared["kPieces"]) == DH_PIECES
+    assert int(declared["kMaxUnits"]) == BWD_MMA_MAX_UNITS
+    assert int(declared["kThreads"]) // 32 == BWD_MMA_WARPS
+    assert int(declared["kDwTile"]) == DWHH_MMA_TILE
+    assert int(declared["kDwDepth"]) == DWHH_MMA_DEPTH
+    assert int(declared["kDwStages"]) == DWHH_MMA_STAGES
+    assert set(re.findall(r"lstm_bwd_mma_kernel<(\d+), (\d+)>;", src)) == {
+        (str(r), str(t)) for r in BWD_MMA_ROW_CHOICES for t in BWD_MMA_TILE_CHOICES}
+    assert set(re.findall(r"lstm_dwhh_mma_kernel<(\d+)>;", src)) == {"4", "8"}
+    for line in ("ldh = 16 * kh + 8;", "ldd = 16 * kc + 8;", "ldp = 16 * kh + 4;",
+                 "ldg = 16 * kc + 4;", "span = (kh + ksplit - 1) / ksplit;",
+                 "const int gq = warp / kc, gm = warp - gq * kc;",
+                 "const bool d_warp = warp < kh;",
+                 "constexpr int kCPer = (Rows * 4 * Tiles + kThreads - 1) / kThreads;",
+                 "cr[j] = e / units;", "const int wm = warp / 4, wn = warp % 4;"):
+        assert line in src, line
 
 
 def test_phase_variants_find_their_edits_in_the_kernel():
-    sources = variant_sources()
-    assert sources["all"] == lstm_cell.SOURCES["lstm_bwd"].read_text()
-    assert len(set(sources.values())) == len(VARIANTS)  # every edit changed something
+    for form, variants in (("f32", VARIANTS), ("bf16", VARIANTS_BF16)):
+        sources = variant_sources(form)
+        assert sources["all"] == lstm_cell.SOURCES["lstm_bwd"].read_text()
+        assert len(set(sources.values())) == len(variants)  # every edit changed something
+
+
+def _mma_warps(plan):
+    """(warp, gate column tile, k-tiles) of the gate product and (warp, unit
+    tile, column tiles) of the dh product, in the kernel's mapping."""
+    lay = bwd_mma_layout(plan)
+    gate, dh = [], []
+    for w in range(BWD_MMA_WARPS):
+        gq, gm = divmod(w, lay.kc)
+        if gq < plan.ksplit:
+            gate.append((w, gm, [gq * lay.span + i for i in range(lay.span)
+                                 if gq * lay.span + i < lay.kh]))
+        if w < lay.kh:
+            dh.append((w, w, list(range(lay.kc))))
+    return gate, dh
+
+
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("H", HIDDEN)
+def test_bwd_mma_plan_covers_every_row_unit_and_column_once(H, B):
+    plan = bwd_mma_plan(B, H)
+    lay = bwd_mma_layout(plan)
+    assert plan.rows in BWD_MMA_ROW_CHOICES
+    assert plan.cluster == (8 if H % 8 == 0 else 4) and plan.units * plan.cluster == H
+    assert [b for g in range(plan.groups) for b in plan.batch_rows_of(g)] == list(range(B))
+    assert plan.grid == (plan.cluster * plan.groups, 2)
+    # Fragment tiles: 16 columns (or inputs, or units) each; the padding
+    # past 4u columns and H inputs or units is W_hh's zero.
+    assert (lay.kc - 1) * 16 < 4 * plan.units <= lay.kc * 16
+    assert (lay.kh - 1) * 16 < H <= lay.kh * 16
+    gate, dh = _mma_warps(plan)
+    assert sorted((m, k) for _, m, ks in gate for k in ks) == [
+        (m, k) for m in range(lay.kc) for k in range(lay.kh)]
+    assert sorted((m, k) for _, m, ks in dh for k in ks) == [
+        (m, k) for m in range(lay.kh) for k in range(lay.kc)]
+    assert all(ks for _, _, ks in gate)  # no empty k-slice
+    # Phase C: kCPer (batch row, own unit) items a thread, each once; the
+    # instance's Tiles bounds the units (4u <= 16 kc <= 16 Tiles).
+    tiles = next(t for t in BWD_MMA_TILE_CHOICES if lay.tiles <= t)
+    assert plan.units <= 4 * tiles
+    per = -(-plan.rows * 4 * tiles // BWD_THREADS)
+    items = [divmod(t + j * BWD_THREADS, plan.units) for t in range(BWD_THREADS)
+             for j in range(per) if t + j * BWD_THREADS < plan.rows * plan.units]
+    assert sorted(items) == [(r, m) for r in range(plan.rows) for m in range(plan.units)]
+
+
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("H", HIDDEN)
+def test_bwd_mma_plan_fits_the_warps_registers_and_shared_memory(H, B):
+    plan = bwd_mma_plan(B, H)
+    lay = bwd_mma_layout(plan)
+    assert plan.units <= BWD_MMA_MAX_UNITS
+    assert lay.kc * plan.ksplit <= BWD_MMA_WARPS and lay.kh <= BWD_MMA_WARPS
+    # The instance (Tiles) that takes the plan, and its A fragments: two
+    # products x Tiles x 4 registers a lane.
+    tiles = next(t for t in BWD_MMA_TILE_CHOICES if lay.tiles <= t)
+    assert lay.span <= tiles and lay.kc <= tiles
+    assert 2 * tiles * 4 <= 64
+    assert lay.smem_bytes <= SMEM_PER_BLOCK
+    if H % 8 == 0:
+        assert tiles == BWD_MMA_TILE_CHOICES[0]  # every cluster of 8 takes the smaller instance
+
+
+def test_bwd_mma_plan_at_the_production_batch():
+    """B=128, H=128: 16 rows a cluster, 8 clusters of 8 CTAs a direction,
+    128 CTAs, one wave at one CTA an SM; each CTA 16 units, 64 columns (4
+    tiles), the gate product's 8 k-tiles in 2 slices of 4 (32 A-fragment
+    registers a lane for both products); B=25: 8 rows, 64 CTAs."""
+    plan = bwd_mma_plan(128, 128)
+    lay = bwd_mma_layout(plan)
+    assert (plan.rows, plan.cluster, plan.units, plan.ksplit, plan.groups) == (16, 8, 16, 2, 8)
+    assert (lay.kh, lay.kc, lay.span, lay.tiles) == (8, 4, 4, 4)
+    assert plan.grid[0] * plan.grid[1] == 128 <= BWD_MMA_TARGET_CTAS
+    small = bwd_mma_plan(25, 128)
+    assert (small.rows, small.groups, small.grid[0] * small.grid[1]) == (8, 4, 64)
+
+
+@pytest.mark.parametrize("H", [4, 12, 64, 128])
+def test_bwd_mma_plan_picks_the_rows_from_the_batch(H):
+    """The fewest rows a cluster that keep both directions' grid within one
+    wave of one CTA an SM, else the most."""
+    for B in range(1, 300):
+        plan = bwd_mma_plan(B, H)
+        if plan.grid[0] * plan.grid[1] > BWD_MMA_TARGET_CTAS:
+            assert plan.rows == BWD_MMA_ROW_CHOICES[-1]
+        assert all(2 * plan.cluster * -(-B // r) > BWD_MMA_TARGET_CTAS
+                   for r in BWD_MMA_ROW_CHOICES if r < plan.rows)
+
+
+@pytest.mark.parametrize("B,T,H", [
+    (25, 417, 128), (128, 417, 128), (1, 1, 4), (1, 1, 128), (5, 29, 16), (3, 11, 4),
+    (7, 23, 12), (6, 1, 128), (1, 33, 128), (2, 100, 100),
+])
+def test_dwhh_mma_plan_covers_every_row_of_k_once(B, T, H):
+    plan = dwhh_mma_plan(B, T, H)
+    assert plan.K == B * T and plan.rows_per_slice % DWHH_MMA_DEPTH == 0
+    rows = [m for s in range(plan.slices) for m in plan.rows_of(s)]
+    assert rows == list(range(B * T))
+    assert all(len(plan.rows_of(s)) > 0 for s in range(plan.slices))
+    assert plan.tiles_i == 1 and H <= DWHH_MMA_TILE  # a tile holds every unit
+    assert plan.tiles_j * DWHH_MMA_TILE >= 4 * H > (plan.tiles_j - 1) * DWHH_MMA_TILE
+    assert plan.partial_shape == (2, plan.slices, H, 4 * H)
+
+
+def test_dwhh_mma_plan_at_the_production_batch():
+    """B=128: K = 53 376 in 33 slices of 1632 rows; 4 column tiles a
+    direction, 264 blocks, two on each of 132 SMs (2 x 78 KB of shared
+    memory)."""
+    plan = dwhh_mma_plan(128, 417, 128)
+    assert (plan.slices, plan.rows_per_slice, plan.tiles_j) == (33, 1632, 4)
+    assert plan.grid[0] * plan.grid[1] * plan.grid[2] == 264
+    assert 2 * (2 * DWHH_MMA_STAGES * 3 * DWHH_MMA_DEPTH * (DWHH_MMA_TILE + 8)) <= 232_448
