@@ -38,14 +38,16 @@ Phases, each printing one flushed line per step with the seconds since start:
                  B=128, the batch of ``cnn_blstm_formant_v2_b128_r4.npz``;
 4b. kernel_bf16 -- the bf16 forms of the three kernels against their plain
                  versions in bf16 on the card (f32 carries and sums, bf16
-                 stores; the backward on the tensor cores, its dh carry from
-                 three bf16 pieces of the f32 dgates, dW_hh summed from the
+                 stores; every product on the tensor cores: the forward's
+                 from three bf16 pieces of the f32 h, the backward's dh
+                 carry from three of the f32 dgates, dW_hh summed from the
                  pair (dxw, lo)), at the production recipe's batch (B=128)
                  and at B=25, T=417, H=128: every bf16 output within one bf16
                  ulp of the plain version's plus the f32 bound, dxw + lo
                  within 1e-4 of the plain f32 dgates; two launches bit for
-                 bit; the bf16 backward's launch plans, max active clusters
-                 and ptxas' registers and spills; CUDA-event times, the plain
+                 bit; the bf16 kernels' launch plans, max active clusters
+                 and ptxas' registers and spills; CUDA-event times (the
+                 forward at each row choice too), the plain
                  versions', both bounds (the f32-FMA figure, and the bf16
                  forms' bytes and tensor-core products), cuBLAS's
                  ``h_prev^T @ dgates`` (f32, one a direction) and cuDNN's
@@ -338,6 +340,8 @@ from ml_audio_inpainting_torch.ops.cuda.lstm_cell import (
     dwhh_mma_plan,
     dwhh_plan,
     dwhh_reference,
+    fwd_mma_layout,
+    fwd_mma_plan,
     fwd_plan,
     fwd_smem_bytes,
     load_library,
@@ -626,8 +630,8 @@ def ptxas_report(output: str) -> dict:
     """Kernel name -> registers, static shared memory, stack frame and
     spills, from ptxas' ``-v`` report.  An instance of a kernel template is
     named with its integer arguments, e.g. ``lstm_fwd_kernel<2,4>`` (Rows,
-    KQ); f32 is left out, and a bf16 instance's arguments start with
-    ``bf16`` (``lstm_fwd_kernel<bf16,2,4>``, ``lstm_dwhh_reduce_kernel<bf16>``)."""
+    KQ), ``lstm_fwd_mma_kernel<8>``; f32 is left out, and a bf16 type
+    argument is ``bf16`` (``lstm_dwhh_reduce_kernel<bf16>``)."""
     report, name = {}, None
     for line in output.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -707,7 +711,8 @@ def _forward_inputs(b: int, seed: int) -> tuple:
 def _forward_bound(b: int, with_c: bool, elem: int = 4) -> tuple:
     """(ms, by) of lstm_fwd at batch b, both directions, elements of
     ``elem`` bytes: xw and W_hh read once, h (and c) written once; h @ W_hh
-    each step, in f32 FMA in both forms."""
+    each step, in f32 FMA.  For bf16 this is the f32-FMA figure;
+    :func:`_bf16_forward_bounds` is the bf16 form's own."""
     bytes_moved = 2 * elem * (b * T * 4 * H + H * 4 * H + (2 if with_c else 1) * b * T * H)
     flops = 2 * 2 * b * T * H * 4 * H
     return roofline(bytes_moved, flops)
@@ -746,7 +751,7 @@ def phase_kernel(card: str, ptxas: dict) -> dict:
     for b, seed, with_c in ((B, 0, False), (B_TRAIN, 1, True), (B_LARGE, 3, True)):
         layer = _forward_inputs(b, seed)
         plan = fwd_plan(b, H)
-        smem = smem_of(H, plan.rows, plan.cluster, plan.ksplit, 4)
+        smem = smem_of(H, plan.rows, plan.cluster, plan.ksplit)
         if smem != fwd_smem_bytes(plan):
             raise AssertionError(f"lstm_fwd shared memory: source {smem}, plan "
                                  f"{fwd_smem_bytes(plan)} bytes")
@@ -939,6 +944,57 @@ def _bf16_backward_bounds(b: int) -> dict:
         f"{k} {by / 1e6:.1f} MB, {fl / 1e9:.3f} GFLOP (bound {ms:.5f} ms by {bound_by})"
         for k, (ms, bound_by, by, fl) in out.items())))
     return out
+
+
+def _bf16_forward_bounds(b: int) -> dict:
+    """The bounds of the bf16 forward at batch b, both directions, h and c
+    written, at the H100's HBM rate and bf16 dense peak, each (ms, by,
+    bytes, flop).  "function": its function's minimum, xw and W_hh read
+    once, h and c written once (bf16), one (B,H)x(H,4H) product a step;
+    "design": the same bytes and the m16n8k16 products that
+    lstm_fwd_mma_kernel issues (a tile pair, a step, 2 tiles x ktiles x
+    FWD_PIECES, padding included, over every pair of every CTA and T
+    steps)."""
+    e, mma = 2, 2 * 16 * 8 * 16
+    plan = fwd_mma_plan(b, H)
+    lay = fwd_mma_layout(plan)
+    pairs = lay.ugroups * plan.rows // 8  # tile pairs a CTA (each over all k-tiles)
+    issued = T * pairs * 2 * lay.ktiles * lstm_cell.FWD_PIECES * plan.grid[0] * plan.grid[1]
+    bytes_moved = e * 2 * (b * T * 4 * H + H * 4 * H + 2 * b * T * H)
+    work = {"function": (bytes_moved, 2 * 2 * b * T * H * 4 * H),
+            "design": (bytes_moved, mma * issued)}
+    out = {}
+    for name, (by, fl) in work.items():
+        t_bytes, t_ops = by / HBM_BYTES_PER_S, fl / BF16_FLOP_PER_S
+        out[name] = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+                     by, fl)
+    log("kernel_bf16", "B={}, bf16 forward, bytes and GFLOP: {}".format(b, ", ".join(
+        f"{k} {by / 1e6:.1f} MB, {fl / 1e9:.3f} GFLOP (bound {ms:.5f} ms by {bound_by})"
+        for k, (ms, bound_by, by, fl) in out.items())))
+    return out
+
+
+def _bf16_forward_plan(b: int, ptxas: dict) -> dict:
+    """The bf16 forward's launch plan at batch b, its dynamic shared memory
+    (the launcher's against ``fwd_mma_layout``), the most clusters of its
+    configuration the card holds at once, and ptxas' report of its
+    instance."""
+    cdll = load_library("lstm_fwd").cdll
+    plan = fwd_mma_plan(b, H)
+    lay = fwd_mma_layout(plan)
+    smem = cdll.lstm_fwd_mma_smem_bytes(H, plan.rows, plan.cluster)
+    if smem != lay.smem_bytes:
+        raise AssertionError(f"fwd_mma_layout says {lay.smem_bytes} bytes, the kernel {smem}")
+    clusters = cdll.lstm_fwd_mma_max_clusters(H, plan.rows, plan.cluster)
+    if clusters <= 0:
+        raise AssertionError(f"cudaOccupancyMaxActiveClusters failed: {clusters}")
+    kernel = f"lstm_fwd_mma_kernel<{plan.rows}>"
+    return {"kernel": kernel, "rows": plan.rows, "cluster": plan.cluster, "grid": list(plan.grid),
+            "ctas": plan.grid[0] * plan.grid[1], "threads": lay.threads,
+            "ktiles": lay.ktiles, "pieces": lstm_cell.FWD_PIECES, "dynamic_smem_bytes": smem,
+            "max_active_clusters": clusters,
+            "waves": -(-plan.grid[0] * plan.grid[1] // (clusters * plan.cluster)),
+            "ptxas": ptxas.get(kernel)}
 
 
 def phase_kernel_bwd(card: str, ptxas: dict) -> list:
@@ -1188,13 +1244,15 @@ def _bf16_backward_plan(b: int, ptxas: dict) -> dict:
 def phase_kernel_bf16(card: str, ptxas: dict) -> list:
     """The bf16 forms of lstm_fwd, lstm_bwd and lstm_dwhh against their plain
     versions in bf16 on the card at B=128 (the production recipe's batch,
-    the main path's) and B=25: lstm_bwd's dxw within one bf16 ulp + DXW_ATOL
-    and its pair dxw + lo within DXW_ATOL of the plain f32 dgates, dW_hh
-    within one bf16 ulp + DWHH_RTOL_OF_MAX of its largest entry; two
-    launches bitwise equal; the bf16 backward's launch plans, occupancy and
-    ptxas reports; times, plain versions' times, both bounds (the f32-FMA
-    figure and the bf16 forms' own), cuBLAS's h_prev^T @ dgates and cuDNN's
-    bf16 layer as the yardsticks."""
+    the main path's) and B=25: lstm_fwd's h and c (the tensor-core kernel
+    against the plain product of the same bf16 pieces) within one bf16 ulp
+    + KERNEL_ATOL, lstm_bwd's dxw within one bf16 ulp + DXW_ATOL and its
+    pair dxw + lo within DXW_ATOL of the plain f32 dgates, dW_hh within one
+    bf16 ulp + DWHH_RTOL_OF_MAX of its largest entry; two launches bitwise
+    equal; the bf16 kernels' launch plans, occupancy and ptxas reports;
+    times (lstm_fwd at each row choice too), plain versions' times, both
+    bounds (the f32-FMA figure and the bf16 forms' own), cuBLAS's h_prev^T
+    @ dgates and cuDNN's bf16 layer as the yardsticks."""
     runs = {}
     for b, seed in ((B_LARGE, 7), (B_TRAIN, 8)):
         layer, g = _bf16_inputs(b, seed)
@@ -1275,13 +1333,18 @@ def phase_kernel_bf16(card: str, ptxas: dict) -> list:
                 plain["dwhh"] = cuda_ms(lambda: (dwhh_reference(h[..., :H], out[0], False, out[2]),
                                                  dwhh_reference(h[..., H:], out[1], True, out[3])),
                                         reps=10)
-        (fwd_bound, fwd_by) = _forward_bound(b, True, elem=2)
+        (fwd_f32, _) = _forward_bound(b, True, elem=2)
+        fwd_bounds = _bf16_forward_bounds(b)
+        fwd_launch = _bf16_forward_plan(b, ptxas)
         (bwd_f32, _), (dwhh_f32, _) = _backward_bounds(b, elem=2)
         bounds = _bf16_backward_bounds(b)
         launch = _bf16_backward_plan(b, ptxas)
         yard = _cudnn_bf16_yardstick(b, seed)
         log("kernel_bf16", f"B={b}, T={T}, H={H}, both directions: lstm_fwd {fwd_ms:.4f} ms "
-                           f"(bound {fwd_bound:.5f} by {fwd_by}), lstm_bwd {bwd_ms:.4f} ms (bound "
+                           f"(bound "
+                           f"{fwd_bounds['function'][0]:.5f} by {fwd_bounds['function'][1]}; the "
+                           f"design's products {fwd_bounds['design'][0]:.5f}; as f32 FMA "
+                           f"{fwd_f32:.5f}), lstm_bwd {bwd_ms:.4f} ms (bound "
                            f"{bounds['sweep'][0]:.5f} by {bounds['sweep'][1]}; the design's "
                            f"traffic {bounds['sweep_design'][0]:.5f}; as f32 FMA {bwd_f32:.5f}), "
                            f"lstm_dwhh {dwhh_ms:.4f} ms (bound {bounds['dwhh'][0]:.5f} by "
@@ -1291,10 +1354,14 @@ def phase_kernel_bf16(card: str, ptxas: dict) -> list:
                            f"{bwd_ms + dwhh_ms:.4f} ms against its minimum "
                            f"{bounds['b2'][0]:.5f} by {bounds['b2'][1]}; plain {plain}; layer-1 "
                            f"yardstick {yard} ({card})")
-        log("kernel_bf16", f"B={b}: bf16 lstm_bwd launch {launch['sweep']}; lstm_dwhh "
-                           f"{launch['dwhh']}")
-        runs[b] = {"fwd": {"ms": fwd_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
-                           "max_abs_err": err_f},
+        log("kernel_bf16", f"B={b}: bf16 lstm_fwd launch {fwd_launch}; lstm_bwd launch "
+                           f"{launch['sweep']}; lstm_dwhh {launch['dwhh']}")
+        runs[b] = {"fwd": {"ms": fwd_ms, "bound_ms": fwd_bounds["function"][0],
+                           "bound_by": fwd_bounds["function"][1], "bound_f32_fma_ms": fwd_f32,
+                           "bytes": fwd_bounds["function"][2], "flop": fwd_bounds["function"][3],
+                           "design_bound_ms": fwd_bounds["design"][0],
+                           "design_flop": fwd_bounds["design"][3],
+                           "max_abs_err": err_f, "launch": fwd_launch},
                    "bwd": {"ms": bwd_ms, "bound_ms": bounds["sweep"][0],
                            "bound_by": bounds["sweep"][1], "bound_f32_fma_ms": bwd_f32,
                            "bytes": bounds["sweep"][2], "flop": bounds["sweep"][3],
@@ -1316,20 +1383,22 @@ def phase_kernel_bf16(card: str, ptxas: dict) -> list:
 
     main, small = runs[B_LARGE], runs[B_TRAIN]
     shapes = {"B": B_LARGE, "T": T, "H": H, "directions": 2, "dtype": "bfloat16"}
-    fplan = fwd_plan(B_LARGE, H)
     common = {"route": "cuda", "launches": None, "shapes": shapes, "deterministic": True}
     return [
         {"name": "lstm_fwd_bf16", **common,
          "source": "ml_audio_inpainting_torch/csrc/lstm_fwd.cu",
          "replaces": "ml_audio_inpainting_tpu/ops/pallas/lstm_cell.py:40",
+         "kernel": main["fwd"]["launch"]["kernel"],
          **main["fwd"], "plain_ms": main["plain"]["fwd"],
          "max_abs_err_is": "h and c, both directions, B=128 (bf16 outputs)",
+         "bound_is": "its function (xw, W_hh in, h, c out; one product a step) at 3.35 TB/s and "
+                     "989 TFLOP/s; design_* count the m16n8k16 products issued (FWD_PIECES "
+                     "pieces of h, padding); bound_f32_fma_ms the same product in f32 FMA",
          "library_ms": main["yardstick"]["cudnn_forward_ms"],
          "library_call": "torch.nn.LSTM(256, 128, bidirectional=True) in bf16, layer-1 shapes: "
                          "projection and both directions",
          "port_same_work_ms": main["yardstick"]["port_forward_ms"],
-         "launch": {"rows": fplan.rows, "cluster": fplan.cluster, "grid": list(fplan.grid)},
-         "ptxas": ptxas.get(f"lstm_fwd_kernel<bf16,{fplan.rows},{fplan.ksplit}>"),
+         "ptxas": main["fwd"]["launch"]["ptxas"],
          "b25": {**small["fwd"], "library_ms": small["yardstick"]["cudnn_forward_ms"],
                  "port_same_work_ms": small["yardstick"]["port_forward_ms"]}},
         {"name": "lstm_bwd_bf16", **common,

@@ -51,12 +51,14 @@ the Pallas kernels run it (the JAX package's bf16 training): f32 carries,
 ``W_hh`` and ``xw`` upcast, ``h`` and ``c`` rounded to bf16 only where they
 are stored; the backward recomputes the gates from the stored bf16
 ``h_prev`` and ``c``, stores ``dxw`` in bf16, and sums ``dW_hh`` in f32,
-rounded to bf16 once at the end.  The bf16 backward has kernels of its own,
-on the tensor cores: its dh carry takes the f32 ``dgates`` as
-``DH_PIECES`` bf16 pieces, and ``dW_hh`` sums the pair ``(dxw, lo)``, ``lo
-= bf16(dgates - dxw)``, which carries ``dgates`` to 16 bits (the plain
-versions compute the same; :func:`split_bf16`, :func:`bf16_residual`).  A
-CUDA tensor of any other type, or of mixed types, raises.
+rounded to bf16 once at the end.  Every bf16 form has kernels of its own,
+on the tensor cores, whose bf16 operands take each f32 carry as bf16
+pieces: the forward's gate product takes the f32 ``h`` as ``FWD_PIECES``
+pieces, the backward's dh carry the f32 ``dgates`` as ``DH_PIECES``, and
+``dW_hh`` sums the pair ``(dxw, lo)``, ``lo = bf16(dgates - dxw)``, which
+carries ``dgates`` to 16 bits (the plain versions compute the same;
+:func:`split_bf16`, :func:`bf16_residual`).  A CUDA tensor of any other
+type, or of mixed types, raises.
 """
 
 from __future__ import annotations
@@ -89,6 +91,9 @@ __all__ = [
     "ClusterPlan",
     "fwd_plan",
     "fwd_smem_bytes",
+    "FwdMmaLayout",
+    "fwd_mma_layout",
+    "fwd_mma_plan",
     "bwd_plan",
     "MmaLayout",
     "bwd_mma_layout",
@@ -96,7 +101,7 @@ __all__ = [
     "DwhhPlan",
     "dwhh_plan",
     "dwhh_mma_plan",
-    "DTYPE_CODES",
+    "KERNEL_DTYPES",
     "bilstm_recurrence",
     "bilstm_recurrence_reference",
     "bilstm_forward",
@@ -129,6 +134,14 @@ FWD_ROW_CHOICES = (2, 4, 8)  # the Rows (batch rows a cluster) the launcher inst
 # CTAs that fwd_plan aims the grid at: two on each of an H100's 132 SMs.
 FWD_TARGET_CTAS = 256
 
+# Constants of the bf16 form of csrc/lstm_fwd.cu, whose gate product runs on
+# the tensor cores (lstm_fwd_mma_kernel).
+FWD_PIECES = 3  # kPieces: bf16 pieces of the f32 h in the gate product
+FWD_SLOT_WORDS = 4  # kSlotWords: 32-bit words of an h slot (the pieces, padded to 16 bytes)
+FWD_MMA_MAX_TILES = 8  # kMmaMaxTiles: k-tiles of the padded inputs at most
+FWD_MMA_ROWS = 8  # the Rows instance: batch rows a cluster, one n8 tile
+FWD_MMA_PAIR_WARPS = 2  # kPairWarps: warps of a tile pair, each half its k-tiles and one row
+
 # Constants of csrc/lstm_bwd.cu that the launch plans depend on.
 BWD_ROWS = 4  # kRows: batch rows a cluster of the sweep
 BWD_THREADS = 256  # kThreads: threads a CTA of the sweep and of the reduction
@@ -160,19 +173,24 @@ DWHH_MMA_STAGES = 3  # kDwStages: cp.async stages of (h_prev, dxw, lo) tiles
 # stages in 78 KB of shared memory).
 DWHH_MMA_TARGET_BLOCKS = 264
 
-# The element types the kernels are instantiated for, and their codes at the
-# C interface (kF32, kBF16 in the sources).
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The element types the kernels take, each by kernels and launchers of its own.
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C launchers of each source: name -> argument types (pointers, then B, T, H, stream).
 _LAUNCHERS = {
     "lstm_fwd": {
-        # xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_out, c_out (or null);
-        # B, T, H, rows, cluster, ksplit, groups, dtype code
-        "lstm_fwd_launch": [_P] * 6 + [_I] * 8 + [_P],
-        # H, rows, cluster, ksplit, element bytes -> dynamic shared memory of a CTA, bytes
-        "lstm_fwd_smem_bytes": [_I] * 5,
+        # f32: xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_out, c_out (or null);
+        # B, T, H, rows, cluster, ksplit, groups
+        "lstm_fwd_launch": [_P] * 6 + [_I] * 7 + [_P],
+        # H, rows, cluster, ksplit -> dynamic shared memory of an f32 CTA, bytes
+        "lstm_fwd_smem_bytes": [_I] * 4,
+        # bf16: the f32 launcher's pointers; B, T, H, rows, cluster, groups
+        "lstm_fwd_mma_launch": [_P] * 6 + [_I] * 6 + [_P],
+        # H, rows, cluster -> dynamic shared memory of a bf16 CTA, bytes
+        "lstm_fwd_mma_smem_bytes": [_I] * 3,
+        # H, rows, cluster -> cudaOccupancyMaxActiveClusters (or -error)
+        "lstm_fwd_mma_max_clusters": [_I] * 3,
     },
     "lstm_bwd": {
         # f32: xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_seq, c_seq, g_out, dxw_fwd, dxw_bwd;
@@ -266,7 +284,8 @@ def _carry_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def lstm_recurrence_reference(
-    xw: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False, return_c: bool = False
+    xw: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False, return_c: bool = False,
+    pieces: int = FWD_PIECES,
 ):
     """Plain PyTorch version of one direction of ``lstm_fwd``, ``(B, T, 4H)``
     -> ``h (B, T, H)`` (and ``c (B, T, H)`` too with ``return_c``): a Python
@@ -275,17 +294,22 @@ def lstm_recurrence_reference(
 
     bf16 inputs run as ``_fwd_kernel`` runs them: ``xw`` and ``W_hh``
     upcast, ``h`` and ``c`` carried in f32 and rounded to bf16 only where
-    they are stored."""
+    they are stored.  The product ``h @ W_hh`` takes the f32 ``h`` as the
+    sum of ``pieces`` bf16 pieces (:func:`split_bf16`), each an exact bf16
+    operand of the tensor cores, as the bf16 kernel does: one piece (``h``
+    rounded) moves ``h`` and ``c`` off Pallas's f32 product, three keep
+    them as close (``tests/test_torch_bf16_lstm.py``)."""
     B, T, _ = xw.shape
     H = w_hh.shape[0]
     acc = _carry_dtype(xw.dtype)
+    split = acc != xw.dtype  # bf16: the product reads h as bf16 pieces
     w_hh = w_hh.to(acc)
     h = xw.new_zeros((B, H), dtype=acc)
     c = xw.new_zeros((B, H), dtype=acc)
     h_seq = xw.new_empty((B, T, H))
     c_seq = xw.new_empty((B, T, H)) if return_c else None
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        gates = xw[:, t].to(acc) + h @ w_hh
+        gates = xw[:, t].to(acc) + (_split_product(h, w_hh, pieces) if split else h @ w_hh)
         i, f, g, o = gates.chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
@@ -500,18 +524,64 @@ def fwd_plan(B: int, H: int, rows: Optional[int] = None) -> ClusterPlan:
     return ClusterPlan(B, H, rows, cluster, units, ksplit, _cdiv(B, rows))
 
 
-def fwd_smem_bytes(plan: ClusterPlan, elem_bytes: int = 4) -> int:
-    """Dynamic shared memory of an ``lstm_fwd`` CTA under ``plan`` for
-    elements of ``elem_bytes`` bytes (4: f32, 2: bf16), as ``FwdLayout`` in
-    ``csrc/lstm_fwd.cu`` lays it out: the f32 W_hh slice (row stride padded
-    to an odd multiple of 4), two f32 h buffers (each row's k-slices in
-    segments of ``FWD_MAX_HIDDEN / ksplit + 4`` floats) and ``FWD_STAGES``
-    xw buffers of the element type."""
+def fwd_smem_bytes(plan: ClusterPlan) -> int:
+    """Dynamic shared memory of an f32 ``lstm_fwd`` CTA under ``plan``, as
+    ``FwdLayout`` in ``csrc/lstm_fwd.cu`` lays it out: the W_hh slice (row
+    stride padded to an odd multiple of 4), two h buffers (each row's
+    k-slices in segments of ``FWD_MAX_HIDDEN / ksplit + 4`` floats) and
+    ``FWD_STAGES`` xw buffers, all f32."""
     ldw = 4 * ((plan.units + 1) | 1)
     ncol = 4 * plan.units
     hrow = plan.ksplit * (FWD_MAX_HIDDEN // plan.ksplit + 4)
     floats = plan.H * ldw + 2 * plan.rows * hrow
-    return 4 * floats + _cdiv(elem_bytes * FWD_STAGES * plan.rows * ncol, 16) * 16
+    return 4 * floats + _cdiv(4 * FWD_STAGES * plan.rows * ncol, 16) * 16
+
+
+@dataclass(frozen=True)
+class FwdMmaLayout:
+    """A bf16 forward CTA under a plan, as ``MmaFwdLayout`` in
+    ``csrc/lstm_fwd.cu`` computes it: its ``units`` padded to ``upad`` (a
+    multiple of 8), ``ugroups`` groups of 8 units (the m side of a tile
+    pair, with ``rows / 8`` n-tiles, each pair ``FWD_MMA_PAIR_WARPS``
+    warps: ``threads`` threads); the cluster's units in padded order as
+    ``ktiles`` 16-wide k-tiles of the gate product; ``step_bytes``, the h
+    slots of one parity, which every CTA receives a step; ``smem_bytes`` of
+    dynamic shared memory (the slots of both parities, the pairs'
+    mailboxes, two mbarriers)."""
+
+    upad: int
+    ugroups: int
+    ktiles: int
+    threads: int
+    step_bytes: int
+    smem_bytes: int
+
+    def slot_of(self, rank: int, group: int) -> int:
+        """The slot (2 x k-tile + half) of the B fragments that unit group
+        ``group`` of CTA ``rank`` fills: its units' padded inputs."""
+        kp = rank * self.upad + 8 * group
+        return (kp // 16) * 2 + (kp // 8) % 2
+
+
+def fwd_mma_layout(plan: ClusterPlan) -> FwdMmaLayout:
+    upad = _cdiv(plan.units, 8) * 8
+    ktiles = plan.cluster * upad // 16
+    n_tiles = plan.rows // 8
+    pairs = (upad // 8) * n_tiles
+    step = 4 * FWD_SLOT_WORDS * n_tiles * ktiles * 2 * 32
+    smem = 2 * step + 16 * pairs * FWD_MMA_PAIR_WARPS * 32 + 16
+    return FwdMmaLayout(upad, upad // 8, ktiles, 32 * pairs * FWD_MMA_PAIR_WARPS, step, smem)
+
+
+def fwd_mma_plan(B: int, H: int) -> ClusterPlan:
+    """The plan of the bf16 forward (``lstm_fwd_mma_kernel``) for ``H % 4 ==
+    0``, ``4 <= H <= 128``: clusters of 8 CTAs where 8 divides ``H``, else
+    4, as the f32 form, of ``FWD_MMA_ROWS`` batch rows each, at any ``B``
+    (the clusters are independent; at B=128, 256 CTAs, one wave).  A tile
+    pair's k-tiles are halved between its two warps (``ksplit`` 2)."""
+    cluster = 8 if H % 8 == 0 else 4
+    return ClusterPlan(B, H, FWD_MMA_ROWS, cluster, H // cluster, FWD_MMA_PAIR_WARPS,
+                       _cdiv(B, FWD_MMA_ROWS))
 
 
 def bwd_plan(B: int, H: int) -> ClusterPlan:
@@ -631,7 +701,7 @@ def _check_kernel_args(xw: torch.Tensor, w_hh: torch.Tensor) -> None:
             f"LSTM kernel: xw on {xw.device} and w_hh on {w_hh.device}; the kernel "
             "needs them on one CUDA device (CPU tensors take the plain version)"
         )
-    if xw.dtype not in DTYPE_CODES or w_hh.dtype != xw.dtype:
+    if xw.dtype not in KERNEL_DTYPES or w_hh.dtype != xw.dtype:
         raise TypeError(f"LSTM kernel takes float32 or bfloat16 xw and w_hh of one type, got "
                         f"{xw.dtype}/{w_hh.dtype}")
     H = w_hh.shape[0] if w_hh.dim() == 2 else -1
@@ -693,11 +763,12 @@ def bilstm_forward(
     point, and this is its forward.
 
     CPU tensors take :func:`bilstm_recurrence_reference`; CUDA tensors launch
-    ``lstm_fwd`` once for both directions on the clusters of
-    :func:`fwd_plan` (``rows`` batch rows a cluster, by default the plan's
-    choice; the result does not depend on it), counted in
-    ``bilstm_recurrence.launches`` (and ``.bf16_launches`` in bf16), or
-    raise.  ``h`` and ``c`` are in the inputs' type.
+    ``lstm_fwd`` once for both directions, or raise: in f32
+    ``lstm_fwd_kernel`` on the clusters of :func:`fwd_plan`, in bf16
+    ``lstm_fwd_mma_kernel`` on those of :func:`fwd_mma_plan` (``rows``, the
+    f32 plan's batch rows a cluster, is refused in bf16; the result does not
+    depend on it), counted in ``bilstm_recurrence.launches`` (and
+    ``.bf16_launches`` in bf16).  ``h`` and ``c`` are in the inputs' type.
     """
     tensors = (xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd)
     if all(t.device.type == "cpu" for t in tensors):
@@ -711,13 +782,22 @@ def bilstm_forward(
     c = torch.empty_like(h) if with_c else None
     if B == 0 or T == 0:
         return h, c
-    plan = fwd_plan(B, H, rows)
-    launch = load_library("lstm_fwd").cdll.lstm_fwd_launch
+    lib = load_library("lstm_fwd").cdll
     xw_f, xw_b = _aligned16(xw_fwd), _aligned16(xw_bwd)
+    ptrs = [*(t.data_ptr() for t in (xw_f, w_hh_fwd, xw_b, w_hh_bwd, h)),
+            None if c is None else c.data_ptr()]
     with torch.cuda.device(h.device):
-        rc = launch(*(t.data_ptr() for t in (xw_f, w_hh_fwd, xw_b, w_hh_bwd, h)),
-                    None if c is None else c.data_ptr(), B, T, H, plan.rows, plan.cluster,
-                    plan.ksplit, plan.groups, DTYPE_CODES[h.dtype], _stream(h.device))
+        if h.dtype == torch.bfloat16:
+            if rows is not None:
+                raise ValueError(f"the bf16 lstm_fwd runs {FWD_MMA_ROWS} batch rows a cluster; "
+                                 f"rows={rows} is the f32 plan's")
+            plan = fwd_mma_plan(B, H)
+            rc = lib.lstm_fwd_mma_launch(*ptrs, B, T, H, plan.rows, plan.cluster, plan.groups,
+                                         _stream(h.device))
+        else:
+            plan = fwd_plan(B, H, rows)
+            rc = lib.lstm_fwd_launch(*ptrs, B, T, H, plan.rows, plan.cluster, plan.ksplit,
+                                     plan.groups, _stream(h.device))
     if rc != 0:
         raise RuntimeError(f"lstm_fwd launch failed with CUDA error {rc} (B={B}, T={T}, H={H}, "
                            f"{h.dtype}, {plan})")
@@ -819,7 +899,7 @@ def bilstm_dwhh(
                 dwhh_reference(h[..., H:], dxw_bwd, reverse=True, lo=lo_bwd))
     if h.device.type != "cuda":
         raise ValueError(f"lstm_dwhh: h on {h.device}; the kernel needs CUDA tensors")
-    if h.dtype not in DTYPE_CODES:
+    if h.dtype not in KERNEL_DTYPES:
         raise TypeError(f"lstm_dwhh takes float32 or bfloat16 h, got {h.dtype}")
     bf16 = h.dtype == torch.bfloat16
     if bf16 != (lo_fwd is not None) or bf16 != (lo_bwd is not None):

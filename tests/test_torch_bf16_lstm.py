@@ -12,12 +12,13 @@ inputs, so what is left is f32 rounding in another order (XLA's and
 torch's dots and transcendentals), which a rounding to bf16 almost always
 hides:
 
-* forward (B=3, H=16, T=29 and 64): ``h`` and ``c`` equal bit for bit on
-  at least 99.9 % of the entries and within one bf16 ulp on all, with the
-  floor below (over 16 seeds and both directions, 0 or 1 entry of
-  1392-3072 differed: the f32 carries drift by an f32 ulp or so between
-  the two libraries' dots and transcendentals, and a value near a bf16
-  rounding boundary can round the other way);
+* forward (B=3, H=16, T=29 and 64; B=8, H=32, T=100): ``h`` and ``c``
+  equal bit for bit on at least 99.9 % of the entries and within one bf16
+  ulp on all, with the floor below (the f32 carries drift by an f32 ulp or
+  so between the two libraries' dots and transcendentals, and a value near
+  a bf16 rounding boundary can round the other way).  The plain forward
+  computes what the bf16 kernel computes: its product takes the f32 ``h``
+  as ``FWD_PIECES`` bf16 pieces, the operands of the tensor cores;
 * backward: ``dxw`` (bf16) and ``dW_hh`` (bf16, summed in f32 from the
   pair ``(dxw, lo)``, ``lo = bf16(dgates - dxw)``) within one bf16 ulp of
   Pallas's, with a floor of ``1e-6`` of the tensor's largest entry for
@@ -30,7 +31,12 @@ hides:
   pair leaves only ~59 % of ``dW_hh``'s entries equal to Pallas's, and
   one bf16 piece in the dh carry (``dgates`` rounded) only 74 % of
   ``dxw``'s (two pieces 99.9 %, three 99.98 %), so the 99 % bound tells
-  the designs apart;
+  the designs apart.  In the forward's product (B=8, T=100, H=32, forward
+  / reverse direction, ``h`` and ``c`` equal to Pallas's): one piece (``h``
+  rounded) 76.6 % and 77.0 % / 77.1 % and 77.6 %, beyond one ulp; two
+  pieces 99.895 % and 99.895 % / 99.906 % and 99.883 %, within one ulp but
+  below the 99.9 % bound; three 99.973 % and 99.984 % / 99.992 % and
+  99.992 %, so the forward takes three;
 * the BiLSTM module in bf16 (``x @ W_ih + b`` in bf16, then the
   recurrence) against flax's ``BiLSTM(use_pallas=True)`` on bf16 parameters:
   within two bf16 ulps of the output's largest entry (the projection's bf16
@@ -97,17 +103,47 @@ def _assert_matches_bf16(got, want, equal_share):
     assert (got == want).mean() >= equal_share, (got != want).sum()
 
 
+def _forward_case(B, T, H, seed, reverse, pieces=lstm_cell.FWD_PIECES):
+    """The port's plain bf16 forward (its product from ``pieces`` bf16
+    pieces of h) and Pallas's h and c, as f32 numpy."""
+    xw, w_hh, _ = _inputs(B, T, H, seed)
+    out, residuals = _pallas_forward(xw, w_hh, reverse)
+    h, c = lstm_cell.lstm_recurrence_reference(*_bf16(xw, w_hh), reverse, return_c=True,
+                                               pieces=pieces)
+    assert h.dtype == c.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_f32(out), _batch_major(residuals[2], reverse))
+    return _f32(h), _f32(c), _f32(out), _batch_major(residuals[3], reverse)
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("T,seed", [(29, 0), (29, 1), (29, 2), (64, 3), (64, 4)])
 def test_plain_bf16_forward_matches_pallas(T, seed, reverse):
-    B, H = 3, 16
-    xw, w_hh, _ = _inputs(B, T, H, seed)
-    out, residuals = _pallas_forward(xw, w_hh, reverse)
-    h, c = lstm_cell.lstm_recurrence_reference(*_bf16(xw, w_hh), reverse, return_c=True)
-    assert h.dtype == c.dtype == torch.bfloat16
-    np.testing.assert_array_equal(_f32(out), _batch_major(residuals[2], reverse))
-    _assert_matches_bf16(_f32(h), _f32(out), 0.999)
-    _assert_matches_bf16(_f32(c), _batch_major(residuals[3], reverse), 0.999)
+    h, c, want_h, want_c = _forward_case(3, T, 16, seed, reverse)
+    _assert_matches_bf16(h, want_h, 0.999)
+    _assert_matches_bf16(c, want_c, 0.999)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_plain_bf16_forward_matches_pallas_at_the_witness_shape(reverse):
+    """The bound of ``test_plain_bf16_forward_matches_pallas`` at B=8,
+    T=100, H=32: the shape where the number of pieces shows."""
+    h, c, want_h, want_c = _forward_case(8, 100, 32, 1, reverse)
+    _assert_matches_bf16(h, want_h, 0.999)
+    _assert_matches_bf16(c, want_c, 0.999)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("pieces,meets", [(1, False), (2, False), (lstm_cell.FWD_PIECES, True)])
+def test_h_pieces_decide_the_forward_bound(pieces, meets, reverse):
+    """The witness for the forward's product on the tensor cores: with the
+    f32 h as one bf16 piece (rounded), h and c equal Pallas's on only ~77 %
+    of the entries and leave one bf16 ulp; two pieces stay within one ulp
+    but below 99.9 % equal; the kernel's ``FWD_PIECES`` meet the bound of
+    ``test_plain_bf16_forward_matches_pallas``."""
+    h, c, want_h, want_c = _forward_case(8, 100, 32, 1, reverse, pieces=pieces)
+    passed = all(bool(_within_one_ulp(got, want).all() and (got == want).mean() >= 0.999)
+                 for got, want in ((h, want_h), (c, want_c)))
+    assert passed == meets, ((h == want_h).mean(), (c == want_c).mean())
 
 
 def test_cpu_wrapper_runs_the_bf16_plain_version():

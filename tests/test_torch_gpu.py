@@ -31,8 +31,10 @@ its largest entry): both carry and sum in f32 and differ there as the f32
 kernels do, and one rounding to bf16 can then land one ulp apart; the pair
 ``(dxw, lo)`` the bf16 backward kernel writes for dW_hh sums to within
 ``1e-4`` of the plain version's f32 dgates.  Two bf16 launches agree bit for
-bit.  The f32 backward kernels give, on seeded inputs, the outputs they
-gave before the bf16 forms got kernels of their own, bit for bit (sha256
+bit.  The bf16 forward is the tensor-core kernel, held to the plain
+version whose product takes h as the same three bf16 pieces.  The f32
+forward and backward kernels give, on seeded inputs, the outputs they gave
+before the bf16 forms got kernels of their own, bit for bit (sha256
 digests taken on an H100).  A bf16 train step of a narrow model on the
 card launches only the bf16 forms, and its loss lies within ``rtol=5e-2``
 of the f32 step's (bf16 rounding through the network: 1.8e-2 on the CPU
@@ -171,15 +173,18 @@ def test_forward_launcher_refuses_a_plan_it_cannot_run(cuda_device, monkeypatch,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("H", [4, 12, 16, 100, 124, 128])
+@pytest.mark.parametrize("H", [4, 12, 16, 68, 100, 124, 128])
 def test_forward_plan_shared_memory_matches_the_source(cuda_device, H):
-    """The Python mirror of FwdLayout gives the bytes the launcher asks for."""
-    smem = lstm_cell.load_library("lstm_fwd").cdll.lstm_fwd_smem_bytes
+    """The Python mirrors of FwdLayout (f32) and MmaFwdLayout (bf16) give
+    the bytes the launchers ask for."""
+    cdll = lstm_cell.load_library("lstm_fwd").cdll
     for rows in lstm_cell.FWD_ROW_CHOICES:
         plan = lstm_cell.fwd_plan(32, H, rows)
-        for elem_bytes in (4, 2):  # f32, bf16
-            assert smem(H, rows, plan.cluster, plan.ksplit, elem_bytes) == (
-                lstm_cell.fwd_smem_bytes(plan, elem_bytes))
+        assert cdll.lstm_fwd_smem_bytes(H, rows, plan.cluster, plan.ksplit) == (
+            lstm_cell.fwd_smem_bytes(plan))
+    plan = lstm_cell.fwd_mma_plan(32, H)
+    assert cdll.lstm_fwd_mma_smem_bytes(H, plan.rows, plan.cluster) == (
+        lstm_cell.fwd_mma_layout(plan).smem_bytes)
 
 
 @pytest.mark.gpu
@@ -478,17 +483,22 @@ def _bf16(*tensors):
 @pytest.mark.parametrize("B,T,H", [
     (32, 417, 128),  # serving batch; 16 units a CTA: 16-byte xw copies
     (25, 417, 128),  # the f32 training batch
-    (128, 417, 128),  # the production recipe's batch
-    (5, 29, 16),  # 2 units a CTA: 4-byte xw copies
-    (3, 11, 4),  # 1 unit a CTA: xw element by element
+    (128, 417, 128),  # the production recipe's batch: 16 rows a cluster
+    (130, 20, 128),  # 9 clusters of 16 rows, the last with 2 live rows
+    (1, 33, 128),  # B=1: a cluster with one live row
+    (5, 29, 16),  # 2 units a CTA: 4-byte xw copies, 4 k-tiles
+    (3, 11, 4),  # 1 unit a CTA: xw element by element, 2 k-tiles
     (7, 23, 12),  # 3 units a CTA (odd): element by element
-    (3, 19, 124),  # 31 units a CTA, 2 k-slices
+    (9, 31, 68),  # 17 units a CTA: 3 groups of 8, 6 k-tiles
+    (3, 19, 124),  # 31 units a CTA: 4 groups of 8
     (6, 1, 128),  # T=1
 ])
 def test_bf16_forward_kernel_matches_plain_on_card(cuda_device, B, T, H):
-    """h and c of lstm_fwd in bf16 against the plain version in bf16 (f32
-    carries, bf16 stores), both directions; every row choice gives the same
-    launch bit for bit; the launch is counted as a bf16 one."""
+    """h and c of lstm_fwd in bf16 (the tensor-core kernel) against the
+    plain version in bf16 (f32 carries, the product of FWD_PIECES bf16
+    pieces of h, bf16 stores), both directions; h without c is the same
+    launch bit for bit; the launch is counted as a bf16 one, and the f32
+    plan's ``rows`` is refused in bf16."""
     layer = _bf16(*_forward_inputs(cuda_device, B, T, H))
     before = (lstm_cell.bilstm_recurrence.launches, lstm_cell.bilstm_recurrence.bf16_launches)
     h, c = lstm_cell.bilstm_forward(*layer, with_c=True)
@@ -498,9 +508,44 @@ def test_bf16_forward_kernel_matches_plain_on_card(cuda_device, B, T, H):
     want_h, want_c = lstm_cell.bilstm_recurrence_reference(*layer, return_c=True)
     _assert_bf16_close("h", h, want_h, 1e-4)
     _assert_bf16_close("c", c, want_c, 1e-4)
-    for rows in lstm_cell.FWD_ROW_CHOICES:
-        again = lstm_cell.bilstm_forward(*layer, with_c=True, rows=rows)
-        assert torch.equal(again[0], h) and torch.equal(again[1], c), rows
+    with pytest.raises(ValueError, match="batch rows a cluster"):
+        lstm_cell.bilstm_forward(*layer, rows=lstm_cell.FWD_MMA_ROWS)
+    h_only, none = lstm_cell.bilstm_forward(*layer)
+    assert none is None and torch.equal(h_only, h)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H", [(128, 417, 128), (25, 417, 128), (7, 23, 12)])
+def test_bf16_forward_kernel_is_deterministic(cuda_device, B, T, H):
+    """Two bf16 launches on the same inputs give the same h and c, bit for bit."""
+    layer = _bf16(*_forward_inputs(cuda_device, B, T, H))
+    first = lstm_cell.bilstm_forward(*layer, with_c=True)
+    second = lstm_cell.bilstm_forward(*layer, with_c=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("change", [
+    {"rows": 4, "groups": 8},  # no such instance (8 x 4 rows cover B=32)
+    {"rows": 16, "groups": 2},  # no such instance (2 x 16 rows cover B=32)
+    {"cluster": 3},  # does not divide H
+    {"cluster": 16},  # above the portable cluster size
+    {"cluster": 1},  # 128 units a CTA: 16 tile pairs, 32 warps
+    {"groups": 1},  # too few clusters for B=32
+    {"groups": 5},  # more clusters than B=32 needs at 8 rows a cluster
+])
+def test_bf16_forward_launcher_refuses_a_plan_it_cannot_run(cuda_device, monkeypatch, change):
+    """The bf16 launcher checks the plan it is given and launches nothing on
+    one it cannot run; the wrapper raises with the plan in the message."""
+    layer = _bf16(*_forward_inputs(cuda_device, 32, 5, 128))
+    good = lstm_cell.fwd_mma_plan(32, 128)
+    bad = dataclasses.replace(good, **change)
+    monkeypatch.setattr(lstm_cell, "fwd_mma_plan", lambda b, hh: bad)
+    before = lstm_cell.bilstm_recurrence.launches
+    with pytest.raises(RuntimeError, match=r"lstm_fwd launch failed with CUDA error 1 .*ClusterPlan"):
+        lstm_cell.bilstm_forward(*layer)
+    assert lstm_cell.bilstm_recurrence.launches == before
 
 
 def _bf16_backward_inputs(device, B, T, H):
@@ -562,6 +607,41 @@ def test_bf16_backward_kernels_are_deterministic(cuda_device, B, T, H):
     torch.cuda.synchronize()
     for first, second in zip(*runs):
         assert torch.equal(first, second)
+
+
+# sha256 (first 16 hex digits) of (h, c, h without c) of the f32 forward
+# kernel on _forward_inputs, as bilstm_forward launches it, taken on an H100
+# from the kernel as it was before the bf16 form got a kernel of its own.
+F32_FORWARD_DIGESTS = {
+    (32, 417, 128): "46f0303b5ad4e31a",
+    (25, 417, 128): "e545eb537c22d5ee",
+    (128, 417, 128): "0bfe5b08281b70c3",
+    (5, 29, 16): "4e4867a4305f6b5d",
+    (1, 33, 128): "06239890509ef462",
+    (3, 11, 4): "35832c29f7ffb94d",
+    (7, 23, 12): "d5089059f82c990c",
+    (3, 19, 124): "7e92596fdc08ee3e",
+}
+
+
+def f32_forward_digest(device, B, T, H):
+    xw_f, w_f, xw_b, w_b = _forward_inputs(device, B, T, H)
+    h, c = lstm_cell.bilstm_forward(xw_f, w_f, xw_b, w_b, with_c=True)
+    h_only, _ = lstm_cell.bilstm_forward(xw_f, w_f, xw_b, w_b)
+    torch.cuda.synchronize()
+    digest = hashlib.sha256()
+    for t in (h, c, h_only):
+        digest.update(t.cpu().numpy().tobytes())
+    return digest.hexdigest()[:16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H", list(F32_FORWARD_DIGESTS))
+def test_f32_forward_kernel_is_unchanged_bit_for_bit(cuda_device, B, T, H):
+    """The f32 lstm_fwd, launched as serving and the f32 step launch it,
+    gives the outputs of the f32 kernel before the bf16 redesign, bit for
+    bit (the bf16 form is a kernel of its own)."""
+    assert f32_forward_digest(cuda_device, B, T, H) == F32_FORWARD_DIGESTS[(B, T, H)]
 
 
 # sha256 (first 16 hex digits) of (dxw_fwd, dxw_bwd, dW_fwd, dW_bwd) of the

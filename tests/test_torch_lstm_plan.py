@@ -19,6 +19,13 @@ computes what is checked here:
   once, phase C's items every (row, unit) once; a CTA fits its warps, the
   kernel's instances, the registers and the shared memory, and the
   production batch fills one wave of an H100's SMs;
+* ``fwd_mma_plan`` (the bf16 forward on the tensor cores): the clusters
+  cover every batch row once, the unit groups of the cluster fill every
+  B-fragment slot of the gate product once, a CTA fits its warps and the
+  shared memory; and the kernel's fragments, written out again here from
+  its source (the A fragments of W_hh over the padded inputs, the h pieces
+  transposed into the slots, the accumulators read as four gates of a unit
+  for two rows), give ``h @ W_hh`` for every H it takes;
 * the constants the plans use are the ones the CUDA sources declare, and
   the text edits of ``scripts/torch_lstm_bwd_phases.py`` (both backward
   sweeps, f32 and bf16) and ``scripts/torch_lstm_fwd_phases.py`` still find
@@ -27,6 +34,7 @@ computes what is checked here:
 
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -47,7 +55,12 @@ from ml_audio_inpainting_torch.ops.cuda.lstm_cell import (
     DWHH_TILE,
     FWD_MAX_CLUSTER,
     FWD_MAX_HIDDEN,
+    FWD_MMA_MAX_TILES,
+    FWD_MMA_PAIR_WARPS,
+    FWD_MMA_ROWS,
+    FWD_PIECES,
     FWD_ROW_CHOICES,
+    FWD_SLOT_WORDS,
     FWD_STAGES,
     FWD_THREADS,
     bwd_mma_layout,
@@ -55,6 +68,8 @@ from ml_audio_inpainting_torch.ops.cuda.lstm_cell import (
     bwd_plan,
     dwhh_mma_plan,
     dwhh_plan,
+    fwd_mma_layout,
+    fwd_mma_plan,
     fwd_plan,
     fwd_smem_bytes,
 )
@@ -160,13 +175,15 @@ def test_fwd_plan_constants_match_the_cuda_source():
     assert int(declared["kMaxCluster"]) == FWD_MAX_CLUSTER
     assert int(declared["kStages"]) == FWD_STAGES
     assert int(declared["kMaxHidden"]) == FWD_MAX_HIDDEN == lstm_cell.MAX_HIDDEN
-    assert {int(r) for r in re.findall(r"launch_plan<Elem, (\d+), KQ>", src)} == set(
+    assert {int(r) for r in re.findall(r"launch_plan<(\d+), KQ>", src)} == set(
         FWD_ROW_CHOICES)
-    assert set(re.findall(r"launch_rows<Elem, (\d+)>", src)) == {"2", "4"}
-    # The element types' codes at the C interface.
-    assert {torch.float32: int(declared["kF32"]), torch.bfloat16: int(declared["kBF16"])} == (
-        lstm_cell.DTYPE_CODES)
-    assert set(re.findall(r"launch_elem<([\w]+)>", src)) == {"float", "__nv_bfloat16"}
+    assert set(re.findall(r"launch_rows<(\d+)>", src)) == {"2", "4"}
+    # Each element type has its own kernel: f32 lstm_fwd_kernel, bf16
+    # lstm_fwd_mma_kernel, with their own launchers.
+    assert lstm_cell.KERNEL_DTYPES == (torch.float32, torch.bfloat16)
+    assert "lstm_fwd_kernel(const float* xw_fwd" in src
+    assert "lstm_fwd_mma_kernel(const bf16* xw_fwd" in src
+    assert "Elem" not in src
     # The lane mapping and the h layout that the tests above mirror.
     for line in ("const int kq = tid % KQ;", "const int q = (tid / KQ) % 4;",
                  "const int m = tid / kLanes;", "kspan = ((H + ksplit - 1) / ksplit + 3) / 4 * 4;",
@@ -176,9 +193,12 @@ def test_fwd_plan_constants_match_the_cuda_source():
 
 
 def test_fwd_phase_variants_find_their_edits_in_the_kernel():
-    sources = torch_lstm_fwd_phases.variant_sources()
-    assert sources["all"] == lstm_cell.SOURCES["lstm_fwd"].read_text()
-    assert len(set(sources.values())) == len(torch_lstm_fwd_phases.VARIANTS)
+    shipped = lstm_cell.SOURCES["lstm_fwd"].read_text()
+    for form, variants in (("f32", torch_lstm_fwd_phases.VARIANTS),
+                           ("bf16", torch_lstm_fwd_phases.VARIANTS_MMA)):
+        sources = torch_lstm_fwd_phases.variant_sources(form)
+        assert sources["all"] == shipped
+        assert len(set(sources.values())) == len(variants)  # every edit changed something
 
 
 @pytest.mark.parametrize("H", HIDDEN)
@@ -421,3 +441,172 @@ def test_dwhh_mma_plan_at_the_production_batch():
     assert (plan.slices, plan.rows_per_slice, plan.tiles_j) == (33, 1632, 4)
     assert plan.grid[0] * plan.grid[1] * plan.grid[2] == 264
     assert 2 * (2 * DWHH_MMA_STAGES * 3 * DWHH_MMA_DEPTH * (DWHH_MMA_TILE + 8)) <= 232_448
+
+
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("H", HIDDEN)
+def test_fwd_mma_plan_covers_every_row_and_slot_once(H, B):
+    plan = fwd_mma_plan(B, H)
+    lay = fwd_mma_layout(plan)
+    assert plan.rows == FWD_MMA_ROWS and plan.ksplit == FWD_MMA_PAIR_WARPS
+    assert plan.cluster == (8 if H % 8 == 0 else 4) and plan.units * plan.cluster == H
+    assert [b for g in range(plan.groups) for b in plan.batch_rows_of(g)] == list(range(B))
+    assert plan.grid == (plan.cluster * plan.groups, 2)
+    # The units padded to groups of 8; the cluster's padded units are whole
+    # k-tiles of the gate product, and each (k-tile, half) slot is filled by
+    # one unit group of one CTA.
+    assert lay.upad % 8 == 0 and plan.units <= lay.upad < plan.units + 8
+    assert lay.ktiles * 16 == plan.cluster * lay.upad
+    slots = sorted(lay.slot_of(r, j) for r in range(plan.cluster) for j in range(lay.ugroups))
+    assert slots == list(range(2 * lay.ktiles))
+
+
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("H", HIDDEN)
+def test_fwd_mma_plan_fits_the_warps_and_shared_memory(H, B):
+    plan = fwd_mma_plan(B, H)
+    lay = fwd_mma_layout(plan)
+    # A warp keeps 2 x ktiles / 2 x 4 registers of A fragments.
+    assert lay.ktiles <= FWD_MMA_MAX_TILES and lay.ktiles % FWD_MMA_PAIR_WARPS == 0
+    assert lay.threads == 32 * lay.ugroups * plan.rows // 8 * FWD_MMA_PAIR_WARPS
+    assert lay.threads <= FWD_MMA_PAIR_WARPS * FWD_THREADS
+    assert lay.ugroups * plan.rows // 8 <= 15  # a named barrier (1 .. 15) a tile pair
+    assert lay.smem_bytes <= SMEM_PER_BLOCK and lay.smem_bytes % 16 == 0
+    assert lay.step_bytes < 2 ** 20  # an mbarrier's transaction count
+
+
+def test_fwd_mma_plan_at_the_production_batch():
+    """B=128, H=128: 8 rows a cluster, 16 clusters of 8 CTAs a direction,
+    256 CTAs, two on each SM; each CTA 16 units in 2 groups x 1 n-tile = 2
+    tile pairs of 2 warps (4 warps), the gate product's 8 k-tiles, 4 a warp,
+    8 KB of slots received a step; B=25 and B=32: 8 rows, 64 CTAs; B=256:
+    8 rows, 512 CTAs."""
+    plan = fwd_mma_plan(128, 128)
+    lay = fwd_mma_layout(plan)
+    assert (plan.rows, plan.cluster, plan.units, plan.ksplit, plan.groups) == (8, 8, 16, 2, 16)
+    assert (lay.upad, lay.ugroups, lay.ktiles, lay.threads, lay.step_bytes) == (
+        16, 2, 8, 128, 8192)
+    assert plan.grid[0] * plan.grid[1] == 256
+    for b in (25, 32):
+        small = fwd_mma_plan(b, 128)
+        assert (small.rows, small.groups, small.grid[0] * small.grid[1]) == (8, 4, 64)
+    big = fwd_mma_plan(256, 128)
+    assert (big.rows, big.groups, big.grid[0] * big.grid[1]) == (8, 32, 512)
+
+
+@pytest.mark.parametrize("H", [4, 12, 64, 128])
+def test_fwd_mma_plan_runs_eight_rows_at_any_batch(H):
+    """The kernel's one instance, 8 rows a cluster, at every batch: as many
+    clusters a direction as 8-row groups, the last one partial."""
+    for B in range(1, 300):
+        plan = fwd_mma_plan(B, H)
+        assert (plan.rows, plan.groups) == (FWD_MMA_ROWS, -(-B // FWD_MMA_ROWS))
+        assert plan.grid == (plan.cluster * plan.groups, 2)
+
+
+def _fwd_mma_gates(plan, w, h):
+    """The gate products ``(rows, 4H)`` of one cluster (``h``: its rows'
+    f32 h, ``(plan.rows, H)``) as ``lstm_fwd_mma_kernel`` computes them,
+    written out from its source.  Every CTA's tile pairs store their h into
+    slot ``slot_of`` of every n-tile, in the B fragments' layout: warp ks of
+    a pair holds row 2tq + ks of lane (g, tq)'s unit, and its lanes 4 (2a +
+    ks) + tc gather row 2a + ks of units 2tc, 2tc + 1 by two shuffles.
+    Every warp multiplies its two tiles of A fragments (W_hh at the padded
+    inputs, ``w_at``) by the slots of its n-tile over its half of the
+    k-tiles; a pair's warps add their sums; lane (g, tq) reads the
+    accumulators as gates i, f (tile 0) and g, o (tile 1) of unit 8 j + g
+    for rows 2tq and 2tq + 1.  One piece: the pieces' products are summed
+    by the same fragments."""
+    lay = fwd_mma_layout(plan)
+    H, C, u, upad, ks_n = plan.H, plan.cluster, plan.units, lay.upad, FWD_MMA_PAIR_WARPS
+    n_tiles = plan.rows // 8
+    g, tq = np.arange(32) // 4, np.arange(32) % 4
+
+    def h_of(rank, j, nt, unit, row):  # a producer lane's h, zero on padded units
+        return np.where(unit < u, h[nt * 8 + row, rank * u + np.minimum(unit, u - 1)], 0)
+
+    slots = np.full((n_tiles, 2 * lay.ktiles, 32, 2), np.nan)  # (lo, hi) halves of a register
+    for rank in range(C):
+        for j in range(lay.ugroups):
+            for nt in range(n_tiles):
+                slot = lay.slot_of(rank, j)
+                for ks in range(2):
+                    held = h_of(rank, j, nt, 8 * j + g, 2 * tq + ks)  # lane (g, tq) of warp ks
+                    lanes = np.arange(16)
+                    a4, tc = lanes >> 2, lanes & 3
+                    to_lane = 4 * (2 * a4 + ks) + tc
+                    slots[nt, slot, to_lane, 0] = held[4 * (2 * tc) + a4]
+                    slots[nt, slot, to_lane, 1] = held[4 * (2 * tc + 1) + a4]
+    assert not np.isnan(slots).any()  # every slot filled
+
+    def w_at(kpad, q, mu):  # W_hh[input of padded index kpad, column of gate q, unit mu]
+        src, k = divmod(kpad, upad)
+        if k >= u or mu >= u or src >= C:
+            return 0.0
+        return w[src * u + k, q * H + rank * u + mu]
+
+    gates = np.full((plan.rows, 4 * H), np.nan)
+    kt_n = lay.ktiles // ks_n
+    for rank in range(C):
+        for j in range(lay.ugroups):
+            for nt in range(n_tiles):
+                acc = np.zeros((2, 16, 8))  # D of each tile (gate column row, batch row), pair summed
+                for ks in range(ks_n):
+                    for kt in range(ks * kt_n, (ks + 1) * kt_n):
+                        b = np.zeros((16, 8))  # B[k][n] from the b0 (slot 2kt) and b1 registers
+                        for lane in range(32):
+                            for half in range(2):
+                                b[2 * tq[lane] + half, g[lane]] = slots[nt, 2 * kt, lane, half]
+                                b[8 + 2 * tq[lane] + half, g[lane]] = slots[nt, 2 * kt + 1, lane,
+                                                                            half]
+                        for t in range(2):
+                            a = np.array([[w_at(kt * 16 + k, 2 * t + r // 8, 8 * j + r % 8)
+                                           for k in range(16)] for r in range(16)])
+                            acc[t] += a @ b
+                for lane in range(32):
+                    m, r0 = 8 * j + g[lane], nt * 8 + 2 * tq[lane]
+                    if m >= u:
+                        continue
+                    for i in range(2):
+                        for q, (t, row) in enumerate(((0, g[lane]), (0, g[lane] + 8),
+                                                      (1, g[lane]), (1, g[lane] + 8))):
+                            gates[r0 + i, q * H + rank * u + m] = acc[t, row, 2 * tq[lane] + i]
+    return gates
+
+
+@pytest.mark.parametrize("H", [4, 12, 16, 40, 68, 100, 124, 128])
+def test_fwd_mma_fragments_compute_the_gate_product(H):
+    rng = np.random.default_rng(H + FWD_MMA_ROWS)
+    plan = fwd_mma_plan(FWD_MMA_ROWS, H)
+    w = rng.standard_normal((H, 4 * H))
+    h = rng.standard_normal((FWD_MMA_ROWS, H))
+    np.testing.assert_allclose(_fwd_mma_gates(plan, w, h), h @ w, rtol=1e-12, atol=1e-12)
+
+
+def test_fwd_mma_constants_match_the_cuda_source():
+    """The bf16 form's constants, instances, layout and lane mapping, which
+    ``fwd_mma_plan``, ``fwd_mma_layout`` and the tests above mirror."""
+    src = lstm_cell.SOURCES["lstm_fwd"].read_text()
+    declared = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(declared["kPieces"]) == FWD_PIECES
+    assert int(declared["kSlotWords"]) == FWD_SLOT_WORDS >= FWD_PIECES
+    assert int(declared["kMmaMaxTiles"]) == FWD_MMA_MAX_TILES
+    assert int(declared["kPairWarps"]) == FWD_MMA_PAIR_WARPS
+    assert set(re.findall(r"lstm_fwd_mma_kernel<(\d+)>;", src)) == {str(FWD_MMA_ROWS)}
+    for line in ("upad = (units + 7) / 8 * 8;", "ugroups = upad / 8;",
+                 "ktiles = cluster * upad / 16;",
+                 "return sizeof(uint32_t) * kSlotWords * (rows / 8) * ktiles * 2 * 32;",
+                 "const int ks = warp % kPairWarps, pair = warp / kPairWarps;",
+                 "const int grp = pair % lay.ugroups, nt = pair / lay.ugroups;",
+                 "const int kt_n = ktiles / kPairWarps, kt0 = ks * kt_n;",
+                 "const int a4 = (lane & 15) >> 2, tc = lane & 3;",
+                 "float lo = __shfl_sync(kAll, hv, 4 * (2 * tc) + a4);",
+                 "float hi = __shfl_sync(kAll, hv, 4 * (2 * tc + 1) + a4);",
+                 "const int to_lane = 4 * (2 * a4 + ks) + tc;",
+                 "const int m = grp * 8 + g;", "const int r0 = nt * 8 + 2 * tq;",
+                 "const int kp = rank * upad + grp * 8;",
+                 "const int own_slot = (kp / 16) * 2 + (kp / 8) % 2;",
+                 "const int src = kpad / upad, k = kpad - src * upad;",
+                 "return w_hh[static_cast<size_t>(src * units + k) * G + q * H + n0 + mu];",
+                 "const int qa = 2 * t, qb = 2 * t + 1;"):
+        assert line in src, line
