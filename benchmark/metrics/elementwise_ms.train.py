@@ -1,0 +1,10 @@
+"""Device milliseconds a step of PyTorch's elementwise kernels and
+BatchNorm's, in the traced stretch."""
+
+from benchmark import readers
+
+KINDS = ("elementwise", "batchnorm")
+
+
+def read(ctx):
+    return readers.kind_ms_per_unit(ctx, "train", KINDS)
