@@ -237,8 +237,8 @@ Phases, each printing one flushed line per step with the seconds since start:
                  on the FLACs, card against CPU.  ``cli/train_refiner.py``
                  for 20 steps at its defaults (B=8, C=64) on a 64-clip
                  formant_v2 corpus with a 16-clip probe every 10 (0 host
-                 syncs in the steps between them); a bare step through
-                 ``runtime/profiling.py::StepTimer``; step 0 of the head on
+                 syncs in the steps between them); the bare warm step's
+                 mean time on the wall clock; step 0 of the head on
                  the card (f32) against the CPU (f64); the export and its
                  soup with the committed head (``cli/soup.py``) served by
                  ``inpaint``.  ``evaluate --models gan --adapt-steps 10
@@ -330,7 +330,6 @@ from ml_audio_inpainting_torch.ops.cuda.lstm_cell import (
     FWD_THREADS,
     bilstm_dwhh,
     bilstm_forward,
-    bilstm_recurrence,
     bilstm_recurrence_backward,
     bilstm_recurrence_reference,
     bf16_residual,
@@ -389,7 +388,6 @@ from ml_audio_inpainting_torch.runtime.inference import (
     make_tta_shift_fn,
 )
 from ml_audio_inpainting_torch.runtime.longform import longform_inpaint, longform_inpaint_centered
-from ml_audio_inpainting_torch.runtime.profiling import StepTimer
 from ml_audio_inpainting_torch.runtime.serve import load_generator, make_cnn_runner, make_gan_runner
 from ml_audio_inpainting_torch.runtime.transport import (
     DEFAULT_PATCH_WINDOW,
@@ -413,11 +411,7 @@ from ml_audio_inpainting_torch.train.checkpoints import (
     state_tree,
 )
 from ml_audio_inpainting_torch.train.cnn_trainer import create_cnn_state, make_cnn_train_step
-from ml_audio_inpainting_torch.train.gan_trainer import (
-    SCOPES,
-    create_gan_states,
-    make_gan_train_step,
-)
+from ml_audio_inpainting_torch.train.gan_trainer import create_gan_states, make_gan_train_step
 from ml_audio_inpainting_torch.train.recipe import (
     b128_recipe_config,
     gan_gap_layouts,
@@ -592,7 +586,6 @@ GAN_BF16_GRAD_L2_RTOL = 0.3
 GAN_BF16_GRAD_EXEMPT = ("d.final_conv.bias",)
 GAN_BF16_U_ATOL = 5e-3
 GAN_BF16_SIGMA_RTOL = 2e-2
-GAN_SCOPE_NAMES = set(SCOPES.values())
 
 
 def log(phase: str, msg: str) -> None:
@@ -1430,9 +1423,15 @@ def phase_kernel_bf16(card: str, ptxas: dict) -> list:
     ]
 
 
-WRAPPERS = lstm_cell.WRAPPERS
+KERNELS = lstm_cell.KERNELS
 _counts = lstm_cell.kernel_launches
 _reset_counts = lstm_cell.reset_kernel_launches
+
+
+def _fwd_launches() -> int:
+    """``lstm_fwd``'s launches in both forms since the last reset."""
+    counts = _counts()
+    return counts["lstm_fwd"] + counts["lstm_fwd_bf16"]
 
 
 def phase_serving(card: str) -> dict:
@@ -1452,13 +1451,13 @@ def phase_serving(card: str) -> dict:
     _reset_counts()
     outputs = []
     for i, phase in enumerate(("oracle", "oracle", "impaired")):
-        before = bilstm_recurrence.launches
+        before = _fwd_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         restored = runners[phase](audio, gap_start, gap_len)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launched = bilstm_recurrence.launches - before
+        launched = _fwd_launches() - before
         if launched != 3:
             raise AssertionError(
                 f"request {i}: lstm_fwd launched {launched} times, expected 3 "
@@ -1936,8 +1935,8 @@ def phase_serving_deployable(card: str) -> dict:
     summary["cnn extrapolate"], restored = _timed_requests(
         lambda: runner(cnn_d, gs_d, gl_d), "cnn extrapolate f32", seconds_of_audio)
     requests = 2 + GAN_WARM
-    if bilstm_recurrence.launches != 3 * requests:
-        raise AssertionError(f"cnn extrapolate: lstm_fwd launched {bilstm_recurrence.launches} "
+    if _fwd_launches() != 3 * requests:
+        raise AssertionError(f"cnn extrapolate: lstm_fwd launched {_fwd_launches()} "
                              f"times in {requests} requests, expected 3 a request")
     _check_outside("cnn extrapolate", restored, cnn_d, tmask)
     with full_f32_convolutions():
@@ -2127,13 +2126,13 @@ def _evaluation(card: str, work: Path) -> dict:
     summary["evaluate"] = {}
     for label, model, flags in EVAL_REGIMES:
         out = json_dir / f"{label.replace(' ', '_')}.json"
-        before = bilstm_recurrence.launches
+        before = _fwd_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         evaluate.main(_eval_argv(model, flags, clips_dir, DEVICE) + ["--output-json", str(out)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launched = bilstm_recurrence.launches - before
+        launched = _fwd_launches() - before
         if launched != (3 if model == "cnn_blstm" else 0):
             raise AssertionError(f"evaluate {label}: lstm_fwd launched {launched} times, "
                                  f"expected {3 if model == 'cnn_blstm' else 0}")
@@ -2164,9 +2163,9 @@ def _evaluation(card: str, work: Path) -> dict:
         for device in (DEVICE, "cpu"):
             args = evaluate.build_argparser().parse_args(
                 _eval_argv(model, flags, FORMANT_DIR, device))
-            before = bilstm_recurrence.launches
+            before = _fwd_launches()
             runs[device] = evaluate.run(args)[1][model]
-            launched = bilstm_recurrence.launches - before
+            launched = _fwd_launches() - before
             if launched != (3 if model == "cnn_blstm" and device == DEVICE else 0):
                 raise AssertionError(f"formant {label} on {device}: {launched} lstm_fwd launches")
         card_r, cpu_r = runs[DEVICE], runs["cpu"]
@@ -2223,12 +2222,12 @@ def _evaluation(card: str, work: Path) -> dict:
     argv = ["--model", "cnn_blstm", "--checkpoint", str(CHECKPOINT), "--phase", "extrapolate",
             "--longform", "--gap-start", str(LONG_EVAL_GAP_S), "--input", str(long_in),
             "--output", str(long_out), "--device", DEVICE]
-    before = bilstm_recurrence.launches
+    before = _fwd_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     inpaint.main(argv)
     wall = time.perf_counter() - t0
-    launched = bilstm_recurrence.launches - before
+    launched = _fwd_launches() - before
     args = inpaint.build_argparser().parse_args(argv)
     runner = inpaint._build_runner(args, Config())
     mono = torch.from_numpy(read_audio(long_in)[0][:, 0].copy()).to(DEVICE)
@@ -2306,7 +2305,7 @@ def _train(card: str, cfg: Config, flat: dict, label: str, batches: list,
     warm step's ms, s-audio/s and peak memory."""
     suffix = "_bf16" if compute_dtype == torch.bfloat16 else ""
     expected = {f"{name}{form}": 3 if form == suffix else 0
-                for name in WRAPPERS for form in ("", "_bf16")}
+                for name in KERNELS for form in ("", "_bf16")}
     state = create_cnn_state(cfg, device=DEVICE, params=flat)
     step = make_cnn_train_step(cfg, compute_dtype=compute_dtype)
     before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
@@ -2385,10 +2384,10 @@ def phase_training(card: str) -> dict:
         export_params_npz(path, state.model)
         runner = make_cnn_runner(cfg, path, device=DEVICE)
         audio = speech_like_batch(np.random.default_rng(1), B)
-        before_serve = bilstm_recurrence.launches
+        before_serve = _fwd_launches()
         restored = runner(audio, np.full(B, GAP_START), np.full(B, GAP_LEN))
         torch.cuda.synchronize()
-    if bilstm_recurrence.launches - before_serve != 3:
+    if _fwd_launches() - before_serve != 3:
         raise AssertionError("the exported weights' request did not launch lstm_fwd 3 times")
     if tuple(restored.shape) != (B, cfg.data.max_samples) or not torch.isfinite(restored).all():
         raise AssertionError("the exported weights' request is not finite or shaped")
@@ -2501,8 +2500,8 @@ def _gan_step_state(g, d) -> tuple:
 def _device_busy_share(fn) -> tuple:
     """(busy share of the wall time, wall ms) of ``fn()``, ending in a
     synchronise, from a ``torch.profiler`` trace: the union of the device
-    kernels' intervals over the host's span (the trainer's profiler ranges
-    appear on the device's timeline too, and are not kernels)."""
+    kernels' intervals over the host's span (the trainer's spans appear on
+    the device's timeline too, and are not kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2513,7 +2512,7 @@ def _device_busy_share(fn) -> tuple:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     busy = busy_us((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and e.name not in GAN_SCOPE_NAMES)
+                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
     return busy / 1e3 / wall_ms, wall_ms
 
 
@@ -2871,7 +2870,7 @@ def _trace_request(fn) -> tuple:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     spans = [(e.start_ns() / 1e3, e.end_ns() / 1e3) for e in prof.profiler.kineto_results.events()
-             if e.device_type() == DeviceType.CUDA]
+             if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
     return len(spans), busy_us(spans) / 1e3 / wall_ms, wall_ms
 
 
@@ -3266,7 +3265,7 @@ def _training_cli(card: str, work: Path) -> dict:
     counts_all.append(counts)
     n_probes = len(res.probes)
     expected = {"lstm_fwd": 3 * n_probes, "lstm_bwd": 0, "lstm_dwhh": 0,
-                **{f"{k}_bf16": 3 * CLI_CNN_STEPS for k in WRAPPERS}}
+                **{f"{k}_bf16": 3 * CLI_CNN_STEPS for k in KERNELS}}
     if counts != expected:
         raise AssertionError(f"training_cli cnn: launches {counts}, expected {expected} (3 bf16 "
                              f"launches of each kernel a step, 3 f32 lstm_fwd a probe)")
@@ -3388,7 +3387,7 @@ def _training_cli(card: str, work: Path) -> dict:
     pres, pwall = _cli_train("phase-mode anchored", pargv, ())
     counts = _counts()
     counts_all.append(counts)
-    expected = {**{k: 3 * CLI_PHASE_STEPS for k in WRAPPERS}, **{f"{k}_bf16": 0 for k in WRAPPERS}}
+    expected = {**{k: 3 * CLI_PHASE_STEPS for k in KERNELS}, **{f"{k}_bf16": 0 for k in KERNELS}}
     plosses = [v["loss"] for _, v in pres.losses]
     if counts != expected or not all(math.isfinite(v) for v in plosses):
         raise AssertionError(f"training_cli phase: launches {counts} (expected {expected}), "
@@ -3532,7 +3531,7 @@ REFINER_STEPS = 20
 REFINER_PROBE_EVERY = 10
 REFINER_PROBE_CLIPS = 16
 REFINER_CLEAN_STEPS = tuple(i for i in range(2, REFINER_STEPS) if i != REFINER_PROBE_EVERY)
-REFINER_TIMER_STEPS = 6  # bare steps through StepTimer, the first 2 left out
+REFINER_TIMER_STEPS = 6  # bare steps timed, the first 2 left out
 # step 0 of the head on the card (f32) against the CPU (f64) on the card's
 # own example windows: loss rtol 1e-4, each gradient within 1e-3 of its
 # largest entry (the training phase's bounds: sums in another order).
@@ -3712,7 +3711,7 @@ def _refiner_step0(head_flat: dict, ex: dict, device, dtype) -> tuple:
 
 def _refiner_training(card: str, work: Path) -> dict:
     """train_refiner on the card, host syncs counted by step; a bare loop
-    through StepTimer; step 0 against f64 on the CPU; the export served,
+    timed; step 0 against f64 on the CPU; the export served,
     and souped with the committed head and served."""
     cfg = gan_config()
     t0 = time.perf_counter()
@@ -3762,20 +3761,23 @@ def _refiner_training(card: str, work: Path) -> dict:
                    f"host time a step to its return (median) {1e3 * stats['cli_step_s_median']:.1f}"
                    f" ms ({card})")
 
-    # The warm step through StepTimer, on one device batch.
+    # The warm step on the wall clock, on one device batch: the steps after
+    # the first 2 in one loop that ends in a synchronise.
     gen = load_generator(cfg, GAN_CHECKPOINT, DEVICE)
     state = create_refiner_state(torch.Generator().manual_seed(0), device=DEVICE,
                                  params=load_params_npz(REFINER_CHECKPOINT))
     step = make_refiner_train_step(cfg, gen)
     batch = torch.tensor(np.stack([corpus[i] for i in range(8)]), device=DEVICE)
     draws = torch.Generator(device=DEVICE).manual_seed(1)
-    timer = StepTimer(warmup=2)
-    for _ in range(REFINER_TIMER_STEPS):
-        with timer:
-            state, m = step(state, batch, *draw_refiner_gaps(draws, cfg, 8, cfg.data.max_samples))
-            timer.probe(m["loss"])
-    stats["step_timer"] = timer.summary()
-    log("refiner", f"bare train step B=8 through StepTimer: {json.dumps(stats['step_timer'])} "
+    for i in range(REFINER_TIMER_STEPS):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, m = step(state, batch, *draw_refiner_gaps(draws, cfg, 8, cfg.data.max_samples))
+    torch.cuda.synchronize()
+    stats["step_timer"] = {"steps": REFINER_TIMER_STEPS - 2,
+                           "mean_ms": 1e3 * (time.perf_counter() - t0) / (REFINER_TIMER_STEPS - 2)}
+    log("refiner", f"bare train step B=8 on the wall clock: {json.dumps(stats['step_timer'])} "
                    f"({card})")
 
     # Step 0 on the card (f32) against the CPU (f64), the card's own windows.
@@ -4216,8 +4218,8 @@ MD_CLI_STEPS = 2
 MD_SCALING_STEPS = 5
 MD_GAN_CLIPS = 32
 MD_CASE_STEPS = 2  # a 2-rank training case: the checked step, then one timed warm
-MD_SIX_FORMS = {**{k: 3 * MD_CASE_STEPS for k in WRAPPERS},
-                **{f"{k}_bf16": 3 * MD_CASE_STEPS for k in WRAPPERS}}
+MD_SIX_FORMS = {**{k: 3 * MD_CASE_STEPS for k in KERNELS},
+                **{f"{k}_bf16": 3 * MD_CASE_STEPS for k in KERNELS}}
 MD_RECIPES = {"b128_recipe_config": b128_recipe_config, "recipe_config": recipe_config}
 
 
@@ -4486,7 +4488,7 @@ def phase_multi_device(card: str) -> dict:
     t0 = time.perf_counter()
     ranks = spawn(md_rank, 2, "cuda", cases, cli, timeout_s=900)
     log("multi_device", f"2 ranks: {time.perf_counter() - t0:.1f} s with their start")
-    launches = [r.launches for r in ranks]
+    launches = [r.kernel_launches for r in ranks]
     wants = {"cnn b128 bf16 1x2": (refs["bare"], "bf16", b128.training.starter_learning_rate),
              "cnn yaml f32 1x2": (yaml_ref, "f32", yaml_cfg.training.starter_learning_rate)}
     summary = {}

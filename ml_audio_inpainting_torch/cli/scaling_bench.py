@@ -221,7 +221,7 @@ def run(args) -> dict:
     for n in ([] if args.chaos_only else sorted(args.devices)):
         out = spawn(_rank_curve, n, args.device, args.models, shared)
         curves[n] = [r.value for r in out]
-        payload.setdefault("kernel_launches", {})[str(n)] = [r.launches for r in out]
+        payload.setdefault("kernel_launches", {})[str(n)] = [r.kernel_launches for r in out]
     ref_n = min(args.devices)
     for model in args.models:
         per_n, ref = {}, None

@@ -14,6 +14,9 @@
   assembles every batch there with a gather: per step the host sends only
   the ``(B,)`` index vector.  Its order is :func:`batch_iterator`'s with
   ``shuffle=True``.
+
+Both device feeds hand over a batch inside a host-only ``feed.next`` span
+(``runtime/profiling.py``), closed before the batch is yielded.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+
+from ml_audio_inpainting_torch.runtime.profiling import span
 
 __all__ = ["batch_iterator", "prefetch_to_device", "device_corpus_feed"]
 
@@ -128,17 +133,18 @@ def prefetch_to_device(
     thread = threading.Thread(target=producer, daemon=True)
     thread.start()
     while True:
-        item = q.get()
-        if item is sentinel:
-            thread.join()
-            if error:
-                raise error[0]
-            return
-        batch, done = item
-        if done is not None:
-            current = torch.cuda.current_stream(device)
-            current.wait_event(done)
-            batch.record_stream(current)
+        with span("feed.next", device=False):
+            item = q.get()
+            if item is sentinel:
+                thread.join()
+                if error:
+                    raise error[0]
+                return
+            batch, done = item
+            if done is not None:
+                current = torch.cuda.current_stream(device)
+                current.wait_event(done)
+                batch.record_stream(current)
         yield batch
 
 
@@ -185,10 +191,12 @@ def device_corpus_feed(
         while epochs is None or epoch < epochs:
             order = _epoch_order(n, shuffle, seed, epoch)
             for k in range(0, n - n % batch_size, batch_size):
-                idx = torch.from_numpy(order[k:k + batch_size].astype(np.int64))
-                if device.type == "cuda":
-                    idx = idx.pin_memory().to(device, non_blocking=True)
-                yield corpus_dev.index_select(0, idx)
+                with span("feed.next", device=False):
+                    idx = torch.from_numpy(order[k:k + batch_size].astype(np.int64))
+                    if device.type == "cuda":
+                        idx = idx.pin_memory().to(device, non_blocking=True)
+                    batch = corpus_dev.index_select(0, idx)
+                yield batch
             epoch += 1
 
     return gen()

@@ -39,11 +39,11 @@ launchers and no PyTorch headers, into a shared library under
 the first launch on a CUDA tensor, never at import.
 
 Each kernel has a wrapper that takes its plain version for CPU tensors only;
-on CUDA tensors it launches the kernel or raises.  Launches are counted in
-``bilstm_recurrence.launches`` (``lstm_fwd``, launched by
-:func:`bilstm_forward`), ``bilstm_recurrence_backward.launches``
-(``lstm_bwd``) and ``bilstm_dwhh.launches`` (``lstm_dwhh``); each also
-counts its bf16 launches alone in ``.bf16_launches``.
+on CUDA tensors it launches the kernel or raises.  Launches are counted on
+the program's counters (``runtime/profiling.py::count``) under the
+kernel's name, ``lstm_fwd`` (launched by :func:`bilstm_forward`),
+``lstm_bwd`` and ``lstm_dwhh``, with ``_bf16`` after it for the bf16 forms;
+:func:`kernel_launches` reads them.
 
 Element types: f32 and bf16, one type for a layer's ``xw`` and ``W_hh``
 (and so for ``h``, ``c``, the incoming gradient and ``dxw``).  bf16 runs as
@@ -75,6 +75,8 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
+
+from ml_audio_inpainting_torch.runtime import profiling
 
 __all__ = [
     "NVCC_FLAGS",
@@ -767,8 +769,8 @@ def bilstm_forward(
     ``lstm_fwd_kernel`` on the clusters of :func:`fwd_plan`, in bf16
     ``lstm_fwd_mma_kernel`` on those of :func:`fwd_mma_plan` (``rows``, the
     f32 plan's batch rows a cluster, is refused in bf16; the result does not
-    depend on it), counted in ``bilstm_recurrence.launches`` (and
-    ``.bf16_launches`` in bf16).  ``h`` and ``c`` are in the inputs' type.
+    depend on it), counted as ``lstm_fwd`` (``lstm_fwd_bf16`` in bf16,
+    :func:`kernel_launches`).  ``h`` and ``c`` are in the inputs' type.
     """
     tensors = (xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd)
     if all(t.device.type == "cpu" for t in tensors):
@@ -801,7 +803,7 @@ def bilstm_forward(
     if rc != 0:
         raise RuntimeError(f"lstm_fwd launch failed with CUDA error {rc} (B={B}, T={T}, H={H}, "
                            f"{h.dtype}, {plan})")
-    _count(bilstm_recurrence, h.dtype)
+    _count("lstm_fwd", h.dtype)
     return h, c
 
 
@@ -868,7 +870,7 @@ def bilstm_recurrence_backward(
     if rc != 0:
         raise RuntimeError(f"lstm_bwd launch failed with CUDA error {rc} (B={B}, T={T}, H={H}, "
                            f"{xw_fwd.dtype}, {plan})")
-    _count(bilstm_recurrence_backward, xw_fwd.dtype)
+    _count("lstm_bwd", xw_fwd.dtype)
     return out
 
 
@@ -925,7 +927,7 @@ def bilstm_dwhh(
     if rc != 0:
         raise RuntimeError(f"lstm_dwhh launch failed with CUDA error {rc} (B={B}, T={T}, H={H}, "
                            f"{h.dtype}, {plan})")
-    _count(bilstm_dwhh, h.dtype)
+    _count("lstm_dwhh", h.dtype)
     return dw_f, dw_b
 
 
@@ -969,30 +971,21 @@ def bilstm_recurrence(
     return _BiLSTMRecurrence.apply(xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, save)
 
 
-def _count(wrapper, dtype: torch.dtype) -> None:
-    """One launch of ``wrapper``'s kernel, in ``dtype``."""
-    wrapper.launches += 1
-    if dtype == torch.bfloat16:
-        wrapper.bf16_launches += 1
+def _count(kernel: str, dtype: torch.dtype) -> None:
+    """One launch of ``kernel`` in ``dtype``."""
+    profiling.count(f"{kernel}_bf16" if dtype == torch.bfloat16 else kernel)
 
 
-bilstm_recurrence.launches = bilstm_recurrence.bf16_launches = 0
-bilstm_recurrence_backward.launches = bilstm_recurrence_backward.bf16_launches = 0
-bilstm_dwhh.launches = bilstm_dwhh.bf16_launches = 0
-WRAPPERS = {"lstm_fwd": bilstm_recurrence, "lstm_bwd": bilstm_recurrence_backward,
-            "lstm_dwhh": bilstm_dwhh}
+KERNELS = ("lstm_fwd", "lstm_bwd", "lstm_dwhh")
+LAUNCH_COUNTERS = tuple(f"{name}{form}" for name in KERNELS for form in ("", "_bf16"))
 
 
 def kernel_launches() -> dict:
     """Launches of each kernel form since the last reset: the f32 form
     under the kernel's name, the bf16 form under ``<name>_bf16``."""
-    out = {}
-    for name, wrapper in WRAPPERS.items():
-        out[name] = wrapper.launches - wrapper.bf16_launches
-        out[f"{name}_bf16"] = wrapper.bf16_launches
-    return out
+    counts = profiling.counters()
+    return {name: counts.get(name, 0) for name in LAUNCH_COUNTERS}
 
 
 def reset_kernel_launches() -> None:
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = wrapper.bf16_launches = 0
+    profiling.reset_counters(LAUNCH_COUNTERS)

@@ -21,6 +21,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ml_audio_inpainting_torch.runtime.profiling import count
+
 __all__ = ["get_window", "pad_center", "num_frames", "frame_signal", "stft", "istft", "magnitude"]
 
 
@@ -66,7 +68,9 @@ def stft(
     window: str = "hann",
     center: bool = True,
 ) -> torch.Tensor:
-    """Short-time Fourier transform of ``(..., T)`` -> complex ``(..., F, N)``."""
+    """Short-time Fourier transform of ``(..., T)`` -> complex ``(..., F, N)``
+    (each call counted as ``stft``, ``runtime/profiling.py``)."""
+    count("stft")
     if hop_length is None:
         hop_length = n_fft // 4
     if win_length is None:

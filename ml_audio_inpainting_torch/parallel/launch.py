@@ -46,7 +46,7 @@ class RankResult:
 
     rank: int
     value: Any
-    launches: Dict[str, int]
+    kernel_launches: Dict[str, int]
 
 
 def _child(rank: int, world: int, store_path: str, device: str, backend: Optional[str],

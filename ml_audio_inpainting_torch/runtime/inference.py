@@ -51,6 +51,7 @@ from ml_audio_inpainting_torch.ops.gaps import (
 from ml_audio_inpainting_torch.ops.griffinlim import griffinlim
 from ml_audio_inpainting_torch.ops.phase import extrapolate_phase, window_clear_frame_mask
 from ml_audio_inpainting_torch.ops.stft import istft, stft
+from ml_audio_inpainting_torch.runtime.profiling import span
 from ml_audio_inpainting_torch.utils.config import Config
 
 __all__ = [
@@ -130,22 +131,26 @@ def _reconstruct(out_mag: torch.Tensor, spec_clean: Optional[torch.Tensor],
     outside)."""
     n_samples = audio.shape[-1]
     if phase == "oracle":
-        return istft(torch.polar(out_mag, _phase_of(spec_clean)), length=n_samples, **kw)
-    phase_gap = _phase_of(spec_gap)
-    if phase == "impaired":
-        rec = istft(torch.polar(out_mag, phase_gap), length=n_samples, **kw)
-    else:
-        # Phase-trust mask: stricter than the model's frame mask, a frame's
-        # phase is kept only if its whole analysis window avoids the gap.
-        trust = window_clear_frame_mask(sample_valid, out_mag.shape[-1], kw["hop_length"],
-                                        kw["n_fft"], win_length=kw["win_length"])
-        ext = extrapolate_phase(phase_gap, trust, kw["hop_length"], kw["n_fft"])
-        if phase == "extrapolate":
-            rec = istft(torch.polar(out_mag, ext), length=n_samples, **kw)
-        else:  # griffinlim, warm-started from the extrapolated estimate
-            rec = griffinlim(out_mag, n_iter=gl_iters, init="given", init_phase=ext,
+        with span("serve.phase"):
+            angles = _phase_of(spec_clean)
+        with span("serve.istft"):
+            return istft(torch.polar(out_mag, angles), length=n_samples, **kw)
+    rec = None
+    with span("serve.phase"):
+        angles = _phase_of(spec_gap)
+        if phase != "impaired":
+            # Phase-trust mask: stricter than the model's frame mask, a frame's
+            # phase is kept only if its whole analysis window avoids the gap.
+            trust = window_clear_frame_mask(sample_valid, out_mag.shape[-1], kw["hop_length"],
+                                            kw["n_fft"], win_length=kw["win_length"])
+            angles = extrapolate_phase(angles, trust, kw["hop_length"], kw["n_fft"])
+        if phase == "griffinlim":  # warm-started from the extrapolated estimate
+            rec = griffinlim(out_mag, n_iter=gl_iters, init="given", init_phase=angles,
                              length=n_samples, **kw)
-    return audio * sample_valid + rec * (1.0 - sample_valid)
+    with span("serve.istft"):
+        if rec is None:
+            rec = istft(torch.polar(out_mag, angles), length=n_samples, **kw)
+        return audio * sample_valid + rec * (1.0 - sample_valid)
 
 
 @contextlib.contextmanager
@@ -239,11 +244,14 @@ def _gan_serve_fn(cfg: Config, generator: torch.nn.Module, mode: str, phase: str
 
     def serve(audio: torch.Tensor, sample_mask: torch.Tensor,
               fmask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        spec_clean = stft(audio, **kw)
-        spec_gap = stft(audio * sample_mask, **kw)
-        generated = apply(masking.log1p_norm(spec_gap.abs()), fmask)
-        out_mag = _gan_magnitude(generated, spec_clean if phase == "oracle" else spec_gap,
-                                 fmask, mode)
+        with span("serve.stft"):
+            spec_clean = stft(audio, **kw)
+        with span("serve.stft"):
+            spec_gap = stft(audio * sample_mask, **kw)
+        with span("serve.model"):
+            generated = apply(masking.log1p_norm(spec_gap.abs()), fmask)
+            out_mag = _gan_magnitude(generated, spec_clean if phase == "oracle" else spec_gap,
+                                     fmask, mode)
         restored = _reconstruct(out_mag, spec_clean, spec_gap, audio, sample_mask, phase,
                                 gl_iters, kw)
         return restored, generated
@@ -283,14 +291,16 @@ def _cnn_serve(model: torch.nn.Module, audio: torch.Tensor, sample_valid: torch.
     """The CNN+BiLSTM's request from its frame gap mask ``gmask`` (``(B, F,
     N)``, 1 = gap): under ``oracle`` the reference protocol (the clean STFT
     with the gap frames zeroed), else everything from the gapped waveform."""
-    spec_clean = stft(audio, **kw) if phase == "oracle" else None
-    spec_gap = None if phase == "oracle" else stft(audio * sample_valid, **kw)
+    with span("serve.stft"):
+        spec_clean = stft(audio, **kw) if phase == "oracle" else None
+        spec_gap = None if phase == "oracle" else stft(audio * sample_valid, **kw)
     base = spec_clean if phase == "oracle" else spec_gap
-    log_impaired = torch.log10(base.abs() * (1.0 - gmask) + masking.LOG10_EPS)
-    with _eval_mode(model):
-        pred = model(log_impaired)
-    composited = pred * gmask + log_impaired * (1.0 - gmask)
-    out_mag = masking.log10_denorm(composited)
+    with span("serve.model"):
+        log_impaired = torch.log10(base.abs() * (1.0 - gmask) + masking.LOG10_EPS)
+        with _eval_mode(model):
+            pred = model(log_impaired)
+        composited = pred * gmask + log_impaired * (1.0 - gmask)
+        out_mag = masking.log10_denorm(composited)
     restored = _reconstruct(out_mag, spec_clean, spec_gap, audio, sample_valid, phase, gl_iters,
                             kw)
     return restored, composited
@@ -364,19 +374,24 @@ def make_cnn_phase_inpaint_fn(cfg: Config, model: torch.nn.Module,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         n_samples = audio.shape[-1]
         tmask = gap_mask(n_samples, gap_start, gap_len, dtype=audio.dtype)
-        spec_gap = stft(audio * tmask, **kw)
+        with span("serve.stft"):
+            spec_gap = stft(audio * tmask, **kw)
         gmask = _cnn_gap_frames(kw, audio, gap_start, gap_len)
-        with _eval_mode(model):
-            pred = model(torch.stack([spec_gap.real, spec_gap.imag], dim=-1))
-        pred_c = torch.complex(pred[..., 0], pred[..., 1])
+        with span("serve.model"):
+            with _eval_mode(model):
+                pred = model(torch.stack([spec_gap.real, spec_gap.imag], dim=-1))
+            pred_c = torch.complex(pred[..., 0], pred[..., 1])
         if anchored:
-            clear = window_clear_frame_mask(tmask, spec_gap.shape[-1], kw["hop_length"],
-                                            kw["n_fft"], win_length=kw["win_length"])
-            phi = extrapolate_phase(torch.angle(spec_gap), clear, kw["hop_length"], kw["n_fft"])
-            pred_c = pred_c * torch.polar(torch.ones_like(phi), phi)
-        composited = pred_c * gmask + spec_gap * (1.0 - gmask)
-        rec = istft(composited, length=n_samples, **kw)
-        return audio * tmask + rec * (1.0 - tmask), composited
+            with span("serve.phase"):
+                clear = window_clear_frame_mask(tmask, spec_gap.shape[-1], kw["hop_length"],
+                                                kw["n_fft"], win_length=kw["win_length"])
+                phi = extrapolate_phase(torch.angle(spec_gap), clear, kw["hop_length"],
+                                        kw["n_fft"])
+                pred_c = pred_c * torch.polar(torch.ones_like(phi), phi)
+        with span("serve.istft"):
+            composited = pred_c * gmask + spec_gap * (1.0 - gmask)
+            rec = istft(composited, length=n_samples, **kw)
+            return audio * tmask + rec * (1.0 - tmask), composited
 
     return fn
 

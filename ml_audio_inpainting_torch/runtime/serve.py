@@ -32,6 +32,7 @@ from ml_audio_inpainting_torch.runtime.inference import (
     make_cnn_phase_inpaint_fn,
     make_gan_inpaint_fn,
 )
+from ml_audio_inpainting_torch.runtime.profiling import span
 from ml_audio_inpainting_torch.runtime.transport import make_gap_transport_fn
 from ml_audio_inpainting_torch.utils.config import Config
 from ml_audio_inpainting_torch.utils.precision import full_f32_convolutions
@@ -115,15 +116,17 @@ def load_generator(cfg: Config, checkpoint: Checkpoint, device="cuda") -> PConvU
 def _runner(fn: Callable, device, unwrap: bool = True) -> Callable:
     """``runner(audio, gap_start, gap_len)``: numpy arrays or tensors onto
     ``device`` (f32 audio, int64 gaps), ``fn`` with full-f32 convolutions,
-    its first output when ``unwrap``."""
+    its first output when ``unwrap``; a call is one ``serve.request`` span
+    (``runtime/profiling.py``)."""
 
     def runner(audio, gap_start, gap_len):
-        audio = torch.as_tensor(audio, dtype=torch.float32, device=device)
-        gs = torch.as_tensor(gap_start, dtype=torch.int64, device=device)
-        gl = torch.as_tensor(gap_len, dtype=torch.int64, device=device)
-        with full_f32_convolutions():  # bf16 convolutions are not affected
-            out = fn(audio, gs, gl)
-        return out[0] if unwrap else out
+        with span("serve.request"):
+            audio = torch.as_tensor(audio, dtype=torch.float32, device=device)
+            gs = torch.as_tensor(gap_start, dtype=torch.int64, device=device)
+            gl = torch.as_tensor(gap_len, dtype=torch.int64, device=device)
+            with full_f32_convolutions():  # bf16 convolutions are not affected
+                out = fn(audio, gs, gl)
+            return out[0] if unwrap else out
 
     return runner
 

@@ -26,6 +26,7 @@ import torch
 
 from ml_audio_inpainting_torch.ops.gaps import gap_mask
 from ml_audio_inpainting_torch.ops.pcm import to_pcm16
+from ml_audio_inpainting_torch.runtime.profiling import span
 
 __all__ = [
     "DEFAULT_PATCH_WINDOW",
@@ -44,21 +45,25 @@ def make_gap_transport_fn(inpaint_fn: Callable, window: int = DEFAULT_PATCH_WIND
     ``fn(audio, gap_start, gap_len) -> (patch, start)``, both on the card:
     ``patch`` ``(B, window)`` int16, ``start`` ``(B,)`` int32.  A gap longer
     than ``window`` is not wholly in its patch (the caller's contract, as in
-    the JAX package); a window longer than the clip raises."""
+    the JAX package); a window longer than the clip raises.  A call is one
+    ``serve.request`` span (``runtime/profiling.py``), its own work after the
+    inpaint call ``serve.transport``."""
 
     @torch.inference_mode()
     def fn(audio: torch.Tensor, gap_start: torch.Tensor,
            gap_len: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        n = audio.shape[-1]
-        if window > n:
-            raise ValueError(f"patch window {window} exceeds clip length {n}")
-        restored, _ = inpaint_fn(audio, gap_start, gap_len)
-        tmask = gap_mask(n, gap_start, gap_len, dtype=audio.dtype)
-        composited = audio * tmask + restored * (1.0 - tmask)
-        start = torch.clamp(gap_start, 0, n - window)
-        idx = start[:, None] + torch.arange(window, device=audio.device)
-        patch = torch.gather(composited, 1, idx)
-        return to_pcm16(patch), start.to(torch.int32)
+        with span("serve.request"):
+            n = audio.shape[-1]
+            if window > n:
+                raise ValueError(f"patch window {window} exceeds clip length {n}")
+            restored, _ = inpaint_fn(audio, gap_start, gap_len)
+            with span("serve.transport"):
+                tmask = gap_mask(n, gap_start, gap_len, dtype=audio.dtype)
+                composited = audio * tmask + restored * (1.0 - tmask)
+                start = torch.clamp(gap_start, 0, n - window)
+                idx = start[:, None] + torch.arange(window, device=audio.device)
+                patch = torch.gather(composited, 1, idx)
+                return to_pcm16(patch), start.to(torch.int32)
 
     return fn
 

@@ -39,6 +39,7 @@ import torch
 from ml_audio_inpainting_torch.models.build import build_model
 from ml_audio_inpainting_torch.models.cnn_blstm import StackedBLSTMCNN
 from ml_audio_inpainting_torch.parallel.collectives import sum_gradients
+from ml_audio_inpainting_torch.runtime.profiling import span
 from ml_audio_inpainting_torch.train.features import cnn_features, cnn_phase_features
 from ml_audio_inpainting_torch.train.losses import cnn_gap_l1_loss, cnn_phase_l1_loss
 from ml_audio_inpainting_torch.utils.config import Config
@@ -186,29 +187,38 @@ def make_cnn_train_step(
         params = cast_floating(dict(model.named_parameters()), compute_dtype)
         return torch.func.functional_call(model, params, (net_in.to(compute_dtype),))
 
-    def step(state: CNNTrainState, audio: torch.Tensor, gap_start: torch.Tensor,
-             gap_len: Optional[torch.Tensor] = None):
+    def run(state: CNNTrainState, audio: torch.Tensor, gap_start: torch.Tensor,
+            gap_len: Optional[torch.Tensor]):
         model = state.model
         model.train()
-        with torch.no_grad():
+        with torch.no_grad(), span("train.features"):
             batch = _batch(cfg, audio, gap_start, gap_len, phase_mode, phase_anchor)
-        state.optimizer.zero_grad(set_to_none=True)
+        with span("train.optimizer"):
+            state.optimizer.zero_grad(set_to_none=True)
         with full_f32_convolutions():  # forward and backward, as the f32 reference
-            pred = forward(model, batch["net_in"])
-            loss = _loss(pred.float(), batch, phase_mode)
-            loss.backward()
-        params = dict(model.named_parameters())
-        sum_gradients(params.values(), split=[params[n] for n in state.shardings])
-        state.optimizer.step()
-        if state.scheduler is not None:
-            state.scheduler.step()
-        if ema > 0 and state.ema_params is not None:
-            with torch.no_grad():
-                for name, p in model.named_parameters():
-                    e = state.ema_params[name]
-                    e.copy_(ema * e + (1.0 - ema) * p)
+            with span("train.forward"):
+                pred = forward(model, batch["net_in"])
+                loss = _loss(pred.float(), batch, phase_mode)
+            with span("train.backward"):
+                loss.backward()
+        with span("train.optimizer"):
+            params = dict(model.named_parameters())
+            sum_gradients(params.values(), split=[params[n] for n in state.shardings])
+            state.optimizer.step()
+            if state.scheduler is not None:
+                state.scheduler.step()
+            if ema > 0 and state.ema_params is not None:
+                with torch.no_grad():
+                    for name, p in model.named_parameters():
+                        e = state.ema_params[name]
+                        e.copy_(ema * e + (1.0 - ema) * p)
         state.step += 1
         return state, {"loss": loss.detach()}
+
+    def step(state: CNNTrainState, audio: torch.Tensor, gap_start: torch.Tensor,
+             gap_len: Optional[torch.Tensor] = None):
+        with span("train.step"):
+            return run(state, audio, gap_start, gap_len)
 
     return step
 

@@ -63,7 +63,6 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ml_audio_inpainting_torch.models.build import build_discriminator, build_generator
@@ -72,6 +71,7 @@ from ml_audio_inpainting_torch.models.discriminator import Discriminator
 from ml_audio_inpainting_torch.models.pconv_unet import PConvUNet
 from ml_audio_inpainting_torch.models.vgg import VGG19Features, vgg_perceptual_style_losses
 from ml_audio_inpainting_torch.parallel.collectives import sum_gradients
+from ml_audio_inpainting_torch.runtime.profiling import span
 from ml_audio_inpainting_torch.train.features import gan_features
 from ml_audio_inpainting_torch.train.losses import discriminator_loss, generator_losses
 from ml_audio_inpainting_torch.utils.config import Config
@@ -92,11 +92,6 @@ __all__ = [
 ]
 
 ADAM_EPS = 1e-8  # optax.adam's default
-# Profiler ranges around each part of a step (``torch.profiler.record_function``):
-# ``scripts/torch_gan_training_profile.py`` charges a kernel to the range its
-# forward op ran in, and a backward kernel to its forward op's range.
-SCOPES = {"features": "gan/features", "G": "gan/G", "D": "gan/D", "VGG": "gan/VGG",
-          "optimizer": "gan/adam_ema"}
 
 
 @dataclass
@@ -222,12 +217,12 @@ def make_gan_train_step(
     def maybe_checkpoint(fn, *args):
         return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
 
-    def step(g_state: GANState, d_state: GANState, audio: torch.Tensor,
-             gap_start: torch.Tensor, gap_len: Optional[torch.Tensor] = None):
+    def run(g_state: GANState, d_state: GANState, audio: torch.Tensor,
+            gap_start: torch.Tensor, gap_len: Optional[torch.Tensor]):
         gen: PConvUNet = g_state.model
         disc: Discriminator = d_state.model
         gen.train()
-        with torch.no_grad(), record_function(SCOPES["features"]):
+        with torch.no_grad(), span("train.features"):
             batch = _batch(cfg, audio, gap_start, gap_len)
         orig, impaired, mask = batch["original_magnitude"], batch["impaired_magnitude"], batch["mask"]
         orig_c, impaired_c, mask_c = cast(orig), cast(impaired), cast(mask)
@@ -243,7 +238,7 @@ def make_gan_train_step(
             def fn(x, m):
                 frozen = runs[0] > 0 or not first_run_updates
                 runs[0] += 1
-                with running_stats_frozen(gen, frozen), record_function(SCOPES["G"]):
+                with running_stats_frozen(gen, frozen), span("train.G"):
                     return torch.func.functional_call(
                         gen, cast(dict(gen.named_parameters())), (x, m))
             if not torch.is_grad_enabled():  # the detached fake keeps no activations
@@ -261,15 +256,16 @@ def make_gan_train_step(
             d_params = cast(dict(disc.named_parameters()))
 
             def d_train(x, u):
-                with record_function(SCOPES["D"]):
+                with span("train.D"):
                     return disc.apply_sn(d_params, u, x)
 
             us = [cast(u) for u in disc.sn_state()]
             d_real, us, _ = maybe_checkpoint(d_train, orig_c, us)
             d_fake, us, sigmas = maybe_checkpoint(d_train, fake_detached, us)
             d_losses = discriminator_loss(d_real.float(), d_fake.float())
-            _set_grads(d_leaves, d_losses["d_total"])
-            with record_function(SCOPES["optimizer"]):
+            with span("train.backward"):
+                _set_grads(d_leaves, d_losses["d_total"])
+            with span("train.optimizer"):
                 d_state.optimizer.step()
             disc.store_sn_state(us, sigmas)
 
@@ -278,11 +274,11 @@ def make_gan_train_step(
             us_now = [cast(u) for u in disc.sn_state()]
 
             def d_infer(x):
-                with record_function(SCOPES["D"]):
+                with span("train.D"):
                     return disc.apply_sn(d_params, us_now, x)[0]
 
             def vgg_terms(fake, target):
-                with record_function(SCOPES["VGG"]):
+                with span("train.VGG"):
                     return vgg_perceptual_style_losses(vgg, fake, target)
 
             if not fused_g_forward:
@@ -291,11 +287,12 @@ def make_gan_train_step(
             vgg_losses = maybe_checkpoint(vgg_terms, fake, orig_c) if use_vgg else None
             g_losses = generator_losses(fake.float(), orig, mask, d_fake_logits.float(), lambdas,
                                         vgg_losses)
-            _set_grads(g_leaves, g_losses["g_total"])
-        with record_function(SCOPES["optimizer"]):
+            with span("train.backward"):
+                _set_grads(g_leaves, g_losses["g_total"])
+        with span("train.optimizer"):
             g_state.optimizer.step()
         if g_ema > 0 and g_state.ema_params is not None:
-            with torch.no_grad(), record_function(SCOPES["optimizer"]):
+            with torch.no_grad(), span("train.optimizer"):
                 for name, p in gen.named_parameters():
                     e = g_state.ema_params[name]
                     e.copy_(g_ema * e + (1.0 - g_ema) * p)
@@ -303,6 +300,11 @@ def make_gan_train_step(
         d_state.step += 1
         metrics = {k: v.detach() for k, v in {**g_losses, **d_losses}.items()}
         return g_state, d_state, metrics
+
+    def step(g_state: GANState, d_state: GANState, audio: torch.Tensor,
+             gap_start: torch.Tensor, gap_len: Optional[torch.Tensor] = None):
+        with span("train.step"):
+            return run(g_state, d_state, audio, gap_start, gap_len)
 
     return step
 

@@ -128,7 +128,7 @@ def main() -> int:
 
     by_layer, by_name, intervals = defaultdict(float), defaultdict(float), []
     for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
+        if evt.device_type != DeviceType.CUDA or evt.is_user_annotation:  # a span's shadow
             continue
         start, end = evt.time_range.start, evt.time_range.end
         intervals.append((start, end))

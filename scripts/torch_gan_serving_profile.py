@@ -17,17 +17,15 @@ host.  Prints one JSON object: per dtype the host-clock time a request, the
 device kernels' time a request by layer (convolutions; elementwise and
 BatchNorm; pads, concats and copies; FFTs), the top kernels by name, and the
 device's busy and idle share of the traced wall time.  A kernel's layer is
-that of the outermost operator that launched it; the stages of the inpaint
-function (the generator, its STFTs and iSTFT, the phase-trust mask, the
-phase extrapolation, Griffin-Lim) are wrapped here in ``record_function``
-ranges named ``stage:...``, and a kernel inside one counts to that stage.
-Imports nothing of JAX.
+that of the outermost operator that launched it; its stage is the program's
+own ``serve.*`` span around it (``runtime/profiling.py``, live under the
+profiler: ``stft``, ``model``, ``phase``, ``istft``, ``transport``), ``other``
+outside them.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
-import functools
 import json
 import re
 import subprocess
@@ -38,9 +36,8 @@ from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
-from ml_audio_inpainting_torch.models.pconv_unet import PConvUNet
 from ml_audio_inpainting_torch.runtime import inference
 from ml_audio_inpainting_torch.runtime.serve import make_gan_runner
 from ml_audio_inpainting_torch.runtime.synthetic import (
@@ -65,25 +62,9 @@ LAYERS = (
     ("elementwise_batchnorm", re.compile(r"^aten::")),
 )
 
-
-# The inpaint function's stages, as the names it calls them by.
-STAGES = ("stft", "istft", "window_clear_frame_mask", "extrapolate_phase", "griffinlim")
-
-
-def _staged(name: str, fn):
-    @functools.wraps(fn)
-    def run(*args, **kwargs):
-        with record_function(f"stage:{name}"):
-            return fn(*args, **kwargs)
-
-    return run
-
-
-def instrument() -> None:
-    """Wrap the inpaint function's stages in ``record_function`` ranges."""
-    for name in STAGES:
-        setattr(inference, name, _staged(name, getattr(inference, name)))
-    PConvUNet.forward = _staged("generator", PConvUNet.forward)
+# The program's span around a request, and the prefix of its stages' spans.
+REQUEST = "serve.request"
+STAGE = "serve."
 
 
 def layer_of(op: str) -> str:
@@ -107,12 +88,14 @@ def busy_us(intervals) -> float:
 
 
 def outermost(evt) -> tuple:
-    """(stage, operator): the ``stage:`` range around ``evt`` (``other``
-    outside every stage) and the outermost operator inside it."""
-    while evt.cpu_parent is not None and not evt.cpu_parent.name.startswith("stage:"):
+    """(stage, operator): the ``serve.*`` stage span around ``evt``
+    (``other`` outside every stage) and the outermost operator inside it."""
+    while evt.cpu_parent is not None and not evt.cpu_parent.name.startswith(STAGE):
         evt = evt.cpu_parent
     parent = evt.cpu_parent
-    return (parent.name[len("stage:"):] if parent is not None else "other"), evt.name
+    if parent is None or parent.name == REQUEST:
+        return "other", evt.name
+    return parent.name[len(STAGE):], evt.name
 
 
 def profile_runner(runner, audio, starts, lens) -> dict:
@@ -135,7 +118,7 @@ def profile_runner(runner, audio, starts, lens) -> dict:
     by_layer, by_stage, by_name, intervals = (defaultdict(float), defaultdict(float),
                                               defaultdict(float), [])
     for evt in events:
-        if evt.name.startswith("stage:"):  # the ranges themselves, on either timeline
+        if evt.is_user_annotation:  # the spans themselves, on either timeline
             continue
         if evt.device_type == DeviceType.CUDA:
             intervals.append((evt.time_range.start, evt.time_range.end))
@@ -181,7 +164,6 @@ def main() -> int:
     starts = torch.full((BATCH,), GAP_START, device="cuda")
     lens = torch.full((BATCH,), GAP_LEN, device="cuda")
     out = {"card": smi, "batch": BATCH, "requests": REQUESTS, "phase": args.phase}
-    instrument()
     for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
         if args.dtype not in ("both", label):
             continue

@@ -22,9 +22,11 @@ device kernels' time per step by kind (convolutions and their gradients,
 cuDNN's layout transposes, matrix products, FFTs, the optimizer, pooling,
 resizing, casts and copies, reductions, other elementwise passes, the
 rest) and by part of the
-step (the trainer's profiler ranges, ``train/gan_trainer.py::SCOPES``: G,
-D, VGG19, the features, Adam and the EMA; a backward kernel is charged to
-the range of the forward op it differentiates), the two crossed, the
+step (the trainer's spans, ``train.G``, ``train.D``, ``train.VGG``,
+``train.features``, ``train.backward`` (the host side of the gradients'
+calls) and ``train.optimizer`` (Adam and the EMA), live under
+the profiler, ``runtime/profiling.py``; a backward kernel is charged to
+the span of the forward op it differentiates), the two crossed, the
 device's busy and idle share of the traced wall time, and the top kernels.
 Imports nothing of JAX.
 """
@@ -47,11 +49,7 @@ from torch.profiler import ProfilerActivity, profile
 from ml_audio_inpainting_torch.data.dataset import FormantSpeechDataset
 from ml_audio_inpainting_torch.data.pipeline import device_corpus_feed
 from ml_audio_inpainting_torch.models.vgg import vgg19_params
-from ml_audio_inpainting_torch.train.gan_trainer import (
-    SCOPES,
-    create_gan_states,
-    make_gan_train_step,
-)
+from ml_audio_inpainting_torch.train.gan_trainer import create_gan_states, make_gan_train_step
 from ml_audio_inpainting_torch.train.recipe import gan_gap_layouts, gan_recipe_config
 from ml_audio_inpainting_torch.weights import load_params_npz
 from scripts.torch_cnn_serving_profile import busy_us
@@ -79,7 +77,9 @@ KINDS = (
     ("reduction", re.compile(r"reduce_kernel", re.I)),
     ("elementwise", re.compile(r"elementwise_kernel", re.I)),
 )
-PARTS = {name: part for part, name in SCOPES.items()}
+# The trainer's spans, by the part of the step each names.
+PARTS = {f"train.{part}": part for part in ("features", "G", "D", "VGG", "backward",
+                                           "optimizer")}
 BACKWARD = "autograd::engine::evaluate_function"
 
 
@@ -176,7 +176,7 @@ def main() -> int:
     events = prof.events()
     by_kind, by_name, intervals = defaultdict(float), defaultdict(float), []
     for evt in events:
-        if evt.device_type != DeviceType.CUDA or evt.name in PARTS:  # a range's span, no kernel
+        if evt.device_type != DeviceType.CUDA or evt.is_user_annotation:  # a span's shadow
             continue
         start, end = evt.time_range.start, evt.time_range.end
         intervals.append((start, end))

@@ -153,7 +153,7 @@ def test_cpu_wrapper_runs_the_bf16_plain_version():
     xw_f, w_f, _ = _inputs(B, T, H, 5)
     xw_b, w_b, _ = _inputs(B, T, H, 6)
     layer = _bf16(xw_f, w_f, xw_b, w_b)
-    before = (lstm_cell.bilstm_recurrence.launches, lstm_cell.bilstm_recurrence.bf16_launches)
+    before = lstm_cell.kernel_launches()
     h, c = lstm_cell.bilstm_forward(*layer, with_c=True)
     out = lstm_cell.bilstm_recurrence(*layer)
     assert h.dtype == c.dtype == out.dtype == torch.bfloat16
@@ -161,8 +161,7 @@ def test_cpu_wrapper_runs_the_bf16_plain_version():
     want = np.concatenate([_f32(_pallas_forward(xw_f, w_f, False)[0]),
                            _f32(_pallas_forward(xw_b, w_b, True)[0])], axis=-1)
     _assert_matches_bf16(_f32(h), want, 0.999)
-    assert (lstm_cell.bilstm_recurrence.launches,
-            lstm_cell.bilstm_recurrence.bf16_launches) == before
+    assert lstm_cell.kernel_launches() == before
 
 
 def _backward_case(B, T, H, seed, reverse, pieces=lstm_cell.DH_PIECES):
@@ -243,7 +242,7 @@ def test_cpu_backward_wrapper_returns_the_bf16_pair():
     xw_f, w_f, g = _inputs(B, T, H, 5)
     xw_b, w_b, _ = _inputs(B, T, H, 6)
     g2 = np.concatenate([g, g[:, ::-1]], axis=-1)
-    counts = (lstm_cell.bilstm_recurrence_backward.launches, lstm_cell.bilstm_dwhh.launches)
+    counts = lstm_cell.kernel_launches()
     for dtype in (torch.bfloat16, torch.float32):
         layer = [torch.tensor(a).to(dtype) for a in (xw_f, w_f, xw_b, w_b)]
         h, c = lstm_cell.bilstm_forward(*layer, with_c=True)
@@ -262,8 +261,7 @@ def test_cpu_backward_wrapper_returns_the_bf16_pair():
         dws = lstm_cell.bilstm_dwhh(h, dxw_f, dxw_b, lo_f, lo_b)
         assert dws[0].dtype == dtype
         assert torch.equal(dws[0], lstm_cell.dwhh_reference(h[..., :H], dxw_f, False, lo=lo_f))
-    assert counts == (lstm_cell.bilstm_recurrence_backward.launches,
-                      lstm_cell.bilstm_dwhh.launches)
+    assert counts == lstm_cell.kernel_launches()
 
 
 @pytest.mark.parametrize("reverse", [False, True])

@@ -53,16 +53,22 @@ import torch
 from ml_audio_inpainting_torch.models.build import build_generator
 from ml_audio_inpainting_torch.models.cnn_blstm import StackedBLSTMCNN
 from ml_audio_inpainting_torch.ops.cuda import lstm_cell
+from ml_audio_inpainting_torch.runtime import profiling
 from ml_audio_inpainting_torch.runtime.inference import make_gan_inpaint_fn
 from ml_audio_inpainting_torch.runtime.serve import make_cnn_runner, make_gan_runner
 from ml_audio_inpainting_torch.runtime.synthetic import (
+    GAP_LEN,
+    GAP_START,
     gan_config,
     speech_like_batch,
     synthetic_dataset_batch,
 )
+from ml_audio_inpainting_torch.runtime.transport import DEFAULT_PATCH_WINDOW, make_gap_transport_fn
 from ml_audio_inpainting_torch.train.cnn_trainer import create_cnn_state, make_cnn_train_step
 from ml_audio_inpainting_torch.utils.config import Config
 from ml_audio_inpainting_torch.weights import cnn_blstm_flat_variables
+
+from span_stages import outside_stages
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(REPO, "results", "checkpoints", "cnn_blstm_formant_v2_r2.npz")
@@ -77,6 +83,13 @@ def cuda_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _launches(kernel: str, bf16_only: bool = False) -> int:
+    """``kernel``'s launches since the last reset (``lstm_cell.kernel_launches``),
+    in both forms or in bf16 alone."""
+    counts = lstm_cell.kernel_launches()
+    return counts[f"{kernel}_bf16"] + (0 if bf16_only else counts[kernel])
 
 
 def _on_card(device, *arrays):
@@ -114,11 +127,11 @@ def test_kernel_matches_plain_on_card(cuda_device, B, T, H):
     against the plain version of its direction, at shapes that reach the
     edges of the cluster plan; and the entry point's h is the same launch's."""
     xw_f, w_f, xw_b, w_b = _forward_inputs(cuda_device, B, T, H)
-    before = lstm_cell.bilstm_recurrence.launches
+    before = _launches("lstm_fwd")
     h, c = lstm_cell.bilstm_forward(xw_f, w_f, xw_b, w_b, with_c=True)
     got = lstm_cell.bilstm_recurrence(xw_f, w_f, xw_b, w_b)
     torch.cuda.synchronize()
-    assert lstm_cell.bilstm_recurrence.launches == before + 2
+    assert _launches("lstm_fwd") == before + 2
     assert h.shape == c.shape == got.shape == (B, T, 2 * H)
     assert torch.equal(got, h)
     _check_forward(h, c, xw_f, w_f, xw_b, w_b)
@@ -166,10 +179,10 @@ def test_forward_launcher_refuses_a_plan_it_cannot_run(cuda_device, monkeypatch,
     good = lstm_cell.fwd_plan(32, 128)
     bad = dataclasses.replace(good, **change)
     monkeypatch.setattr(lstm_cell, "fwd_plan", lambda b, hh, rows: bad)
-    before = lstm_cell.bilstm_recurrence.launches
+    before = _launches("lstm_fwd")
     with pytest.raises(RuntimeError, match=r"lstm_fwd launch failed with CUDA error 1 .*ClusterPlan"):
         lstm_cell.bilstm_forward(xw_f, w_f, xw_b, w_b)
-    assert lstm_cell.bilstm_recurrence.launches == before
+    assert _launches("lstm_fwd") == before
 
 
 @pytest.mark.gpu
@@ -206,9 +219,9 @@ def test_serving_on_card_matches_cpu(cuda_device, phase):
     audio = (rng.standard_normal((2, 16000)) * 0.1).astype(np.float32)
     starts, lens = np.array([3000, 8000]), np.array([1280, 1280])
     card = make_cnn_runner(Config(), CKPT, device=cuda_device, phase=phase)
-    before = lstm_cell.bilstm_recurrence.launches
+    before = _launches("lstm_fwd")
     got = card(audio, starts, lens).cpu().numpy()
-    assert lstm_cell.bilstm_recurrence.launches == before + 3  # one a layer
+    assert _launches("lstm_fwd") == before + 3  # one a layer
     want = make_cnn_runner(Config(), CKPT, device="cpu", phase=phase)(audio, starts, lens).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
@@ -261,11 +274,11 @@ def test_backward_kernels_match_plain_on_card(cuda_device, B, T, H):
     xw_f, w_f, xw_b, w_b, g, h, c = _backward_inputs(cuda_device, B, T, H)
     want_h = lstm_cell.bilstm_recurrence_reference(xw_f, w_f, xw_b, w_b, return_c=True)
     np.testing.assert_allclose(c.cpu().numpy(), want_h[1].cpu().numpy(), rtol=0, atol=1e-4)
-    before = (lstm_cell.bilstm_recurrence_backward.launches, lstm_cell.bilstm_dwhh.launches)
+    before = (_launches("lstm_bwd"), _launches("lstm_dwhh"))
     dxw_f, dxw_b = lstm_cell.bilstm_recurrence_backward(xw_f, w_f, xw_b, w_b, h, c, g)
     dw_f, dw_b = lstm_cell.bilstm_dwhh(h, dxw_f, dxw_b)
     torch.cuda.synchronize()
-    assert (lstm_cell.bilstm_recurrence_backward.launches, lstm_cell.bilstm_dwhh.launches) == (
+    assert (_launches("lstm_bwd"), _launches("lstm_dwhh")) == (
         before[0] + 1, before[1] + 1)
     for sl, xw, w, dxw, dw, reverse in ((slice(0, H), xw_f, w_f, dxw_f, dw_f, False),
                                         (slice(H, 2 * H), xw_b, w_b, dxw_b, dw_b, True)):
@@ -314,9 +327,9 @@ def test_backward_on_card_reaches_every_parameter(cuda_device):
     (the BiLSTM's output carries its graph through lstm_fwd/lstm_bwd)."""
     model = _narrow_live_model(cuda_device)
     x = torch.randn(3, 65, 40, generator=torch.Generator().manual_seed(1)).to(cuda_device)
-    before = lstm_cell.bilstm_recurrence_backward.launches
+    before = _launches("lstm_bwd")
     model(x).square().sum().backward()
-    assert lstm_cell.bilstm_recurrence_backward.launches == before + 2  # one a layer
+    assert _launches("lstm_bwd") == before + 2  # one a layer
     missing = [n for n, p in model.named_parameters() if p.grad is None or not p.grad.any()]
     assert not missing, f"no gradient on the card: {missing}"
 
@@ -500,10 +513,10 @@ def test_bf16_forward_kernel_matches_plain_on_card(cuda_device, B, T, H):
     launch bit for bit; the launch is counted as a bf16 one, and the f32
     plan's ``rows`` is refused in bf16."""
     layer = _bf16(*_forward_inputs(cuda_device, B, T, H))
-    before = (lstm_cell.bilstm_recurrence.launches, lstm_cell.bilstm_recurrence.bf16_launches)
+    before = (_launches("lstm_fwd"), _launches("lstm_fwd", bf16_only=True))
     h, c = lstm_cell.bilstm_forward(*layer, with_c=True)
     torch.cuda.synchronize()
-    assert (lstm_cell.bilstm_recurrence.launches, lstm_cell.bilstm_recurrence.bf16_launches) == (
+    assert (_launches("lstm_fwd"), _launches("lstm_fwd", bf16_only=True)) == (
         before[0] + 1, before[1] + 1)
     want_h, want_c = lstm_cell.bilstm_recurrence_reference(*layer, return_c=True)
     _assert_bf16_close("h", h, want_h, 1e-4)
@@ -542,10 +555,10 @@ def test_bf16_forward_launcher_refuses_a_plan_it_cannot_run(cuda_device, monkeyp
     good = lstm_cell.fwd_mma_plan(32, 128)
     bad = dataclasses.replace(good, **change)
     monkeypatch.setattr(lstm_cell, "fwd_mma_plan", lambda b, hh: bad)
-    before = lstm_cell.bilstm_recurrence.launches
+    before = _launches("lstm_fwd")
     with pytest.raises(RuntimeError, match=r"lstm_fwd launch failed with CUDA error 1 .*ClusterPlan"):
         lstm_cell.bilstm_forward(*layer)
-    assert lstm_cell.bilstm_recurrence.launches == before
+    assert _launches("lstm_fwd") == before
 
 
 def _bf16_backward_inputs(device, B, T, H):
@@ -573,13 +586,14 @@ def test_bf16_backward_kernels_match_plain_on_card(cuda_device, B, T, H):
     (the same bf16 pieces in the dh carry), on h and c written by the bf16
     lstm_fwd."""
     xw_f, w_f, xw_b, w_b, g, h, c = _bf16_backward_inputs(cuda_device, B, T, H)
-    counts = (lstm_cell.bilstm_recurrence_backward, lstm_cell.bilstm_dwhh)
-    before = [(k.launches, k.bf16_launches) for k in counts]
+    counts = ("lstm_bwd", "lstm_dwhh")
+    before = [(_launches(k), _launches(k, bf16_only=True)) for k in counts]
     dxw_f, dxw_b, lo_f, lo_b = lstm_cell.bilstm_recurrence_backward(
         xw_f, w_f, xw_b, w_b, h, c, g, dgates=True)
     dw_f, dw_b = lstm_cell.bilstm_dwhh(h, dxw_f, dxw_b, lo_f, lo_b)
     torch.cuda.synchronize()
-    assert [(k.launches, k.bf16_launches) for k in counts] == [(n + 1, m + 1) for n, m in before]
+    assert [(_launches(k), _launches(k, bf16_only=True)) for k in counts] == [
+        (n + 1, m + 1) for n, m in before]
     assert lo_f.dtype == lo_b.dtype == torch.bfloat16
     for sl, xw, w, dxw, lo, dw, reverse in (
             (slice(0, H), xw_f, w_f, dxw_f, lo_f, dw_f, False),
@@ -687,8 +701,7 @@ def test_bf16_kernels_refuse_mixed_dtypes(cuda_device):
     """A bf16 layer whose other tensors are f32 (or the reverse) launches
     nothing and raises: there is no fallback."""
     xw_f, w_f, xw_b, w_b, g, h, c = _bf16_backward_inputs(cuda_device, 5, 29, 16)
-    counts = [lstm_cell.bilstm_recurrence.launches, lstm_cell.bilstm_recurrence_backward.launches,
-              lstm_cell.bilstm_dwhh.launches]
+    counts = lstm_cell.kernel_launches()
     with pytest.raises(TypeError, match="of one type"):
         lstm_cell.bilstm_forward(xw_f, w_f.float(), xw_b, w_b)
     with pytest.raises(TypeError, match="of one type"):
@@ -702,9 +715,7 @@ def test_bf16_kernels_refuse_mixed_dtypes(cuda_device):
         lstm_cell.bilstm_dwhh(h, zeros, zeros, zeros, zeros)
     with pytest.raises(ValueError, match="pairs"):
         lstm_cell.bilstm_dwhh(h, *_bf16(zeros, zeros))
-    assert counts == [lstm_cell.bilstm_recurrence.launches,
-                      lstm_cell.bilstm_recurrence_backward.launches,
-                      lstm_cell.bilstm_dwhh.launches]
+    assert counts == lstm_cell.kernel_launches()
 
 
 @pytest.mark.gpu
@@ -726,12 +737,11 @@ def test_bf16_training_step_on_card_runs_the_bf16_kernels(cuda_device):
     losses = {}
     for dtype in (torch.bfloat16, torch.float32):
         state = create_cnn_state(cfg, device=cuda_device, params=flat)
-        kernels = (lstm_cell.bilstm_recurrence, lstm_cell.bilstm_recurrence_backward,
-                   lstm_cell.bilstm_dwhh)
-        before = [(k.launches, k.bf16_launches) for k in kernels]
+        kernels = lstm_cell.KERNELS
+        before = [(_launches(k), _launches(k, bf16_only=True)) for k in kernels]
         _, m = make_cnn_train_step(cfg, compute_dtype=dtype)(state, audio, starts, lengths)
         torch.cuda.synchronize()
-        after = [(k.launches, k.bf16_launches) for k in kernels]
+        after = [(_launches(k), _launches(k, bf16_only=True)) for k in kernels]
         bf16 = 2 if dtype == torch.bfloat16 else 0
         assert after == [(n + 2, m + bf16) for n, m in before], (dtype, before, after)
         for name, p in state.model.named_parameters():
@@ -894,9 +904,9 @@ def test_deployable_cnn_on_card_matches_cpu(cuda_device, phase):
     inside = _interval_inside(16000, starts, lens)
     cpu = make_cnn_runner(Config(), CKPT, device="cpu", phase=phase, gl_iters=4)
     card = make_cnn_runner(Config(), CKPT, device=cuda_device, phase=phase, gl_iters=4)
-    before = lstm_cell.bilstm_recurrence.launches
+    before = _launches("lstm_fwd")
     got = card(audio, starts, lens)
-    assert lstm_cell.bilstm_recurrence.launches == before + 3
+    assert _launches("lstm_fwd") == before + 3
     _check_deployable(got, cpu(audio, starts, lens), audio, inside, phase, CNN_DEPLOYABLE_RTOL)
     mask = gap_mask(16000, starts, lens)
     want = make_cnn_inpaint_mask_fn(Config(), cpu.model, phase=phase, gl_iters=4)(audio, mask)
@@ -1287,11 +1297,11 @@ def test_global_pool_forward_on_card_matches_cpu(cuda_device):
     model_d, _ = load_torch_cnn_blstm(sd, device=cuda_device)
     assert model_d.global_pool and model_d.lstm.hidden_dim == 64
     x = torch.tensor(np.random.default_rng(5).standard_normal((2, 257, 84)), dtype=torch.float32)
-    before = lstm_cell.bilstm_recurrence.launches
+    before = _launches("lstm_fwd")
     with torch.no_grad():
         want = model_c(x)
         got = model_d(x.to(cuda_device)).cpu()
-    assert lstm_cell.bilstm_recurrence.launches - before == 3
+    assert _launches("lstm_fwd") - before == 3
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
 
 
@@ -1459,5 +1469,122 @@ def test_model_parallel_step_on_two_ranks_of_the_card(cuda_device):
             if want.is_floating_point() and not name.endswith(("running_mean", "running_var")):
                 assert (model[name] - want).abs().max().item() <= 2.1e-4, name
     for r in ranks:
-        assert r.launches == {**{k: 3 for k in lstm_cell.WRAPPERS},
-                              **{f"{k}_bf16": 3 for k in lstm_cell.WRAPPERS}}, r.launches
+        assert r.kernel_launches == {**{k: 3 for k in lstm_cell.KERNELS},
+                                     **{f"{k}_bf16": 3 for k in lstm_cell.KERNELS}}, \
+            r.kernel_launches
+
+
+def _traced_roots(fn, units: int):
+    """``fn()`` ``units`` times under a CPU and CUDA profiler, after one warm
+    call: the program's spans of that stretch, by root."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities):
+        for _ in range(units):
+            fn()
+        torch.cuda.synchronize()
+    records = profiling.stretch()
+    roots = [r for r in records if r.parent is None]
+    return [(root, [r for r in records if r.unit == root.unit and r is not root])
+            for root in roots]
+
+
+def _unit(path: str, device):
+    """(one request or step of ``path`` as a call, its root span's name)."""
+    audio = torch.tensor(speech_like_batch(np.random.default_rng(7), 32), device=device)
+    if path == "cnn_serve_b32":
+        runner = make_cnn_runner(Config(), CKPT, device=device, phase="extrapolate")
+        fn = make_gap_transport_fn(runner.inpaint_fn, DEFAULT_PATCH_WINDOW)
+        starts = torch.full((32,), GAP_START, device=device)
+        lens = torch.full((32,), GAP_LEN, device=device)
+        return lambda: fn(audio, starts, lens), "serve.request"
+    cfg = Config.from_dict({"training": {"batch_size": 32}})
+    state = create_cnn_state(cfg, device=device)
+    step = make_cnn_train_step(cfg, compute_dtype=torch.bfloat16)
+    starts = torch.full((32, 1), GAP_START, device=device)
+    return lambda: step(state, audio, starts), "train.step"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["cnn_serve_b32", "cnn_train_b32"])
+def test_span_device_times_add_up_to_their_root(cuda_device, path):
+    """Each span of a request or step carries CUDA events whose device time
+    is positive, and its children's times add up to within 5 % of the
+    root's.  Each stage ends where the next one opens, so this shows the
+    prologue before the first stage is small; that no kernel is launched
+    between two stages is the next test's."""
+    call, root_name = _unit(path, cuda_device)
+    units = _traced_roots(call, 3)
+    assert [root.name for root, _ in units] == [root_name] * 3
+    for root, children in units:
+        assert len(children) >= 4
+        assert all(r.device_ms > 0 for r in (root, *children))
+        total = sum(r.device_ms for r in children)
+        assert abs(total - root.device_ms) <= 0.05 * root.device_ms, (
+            [(r.name, r.device_ms) for r in children], root.device_ms)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["cnn_serve_b32", "cnn_train_b32"])
+def test_every_kernel_of_a_unit_is_launched_in_a_stage(cuda_device, path):
+    """Every op that launches kernels under a request's or step's root span,
+    after its first stage opened, runs in one of its stages (the profiler's
+    own CPU-op tree and kernel links): no stage's device time holds kernels
+    launched between two stages.  The backward's kernels, launched from the
+    autograd engine's thread, sit inside ``train.backward``'s call."""
+    from torch.autograd import DeviceType
+
+    call, root_name = _unit(path, cuda_device)
+    call()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(2):
+            call()
+        torch.cuda.synchronize()
+    events = prof.events()
+
+    def launches(e):
+        return e.device_type == DeviceType.CPU and bool(e.kernels)
+
+    def under_root(e):
+        while e is not None and e.name != root_name:
+            e = e.cpu_parent
+        return e is not None
+
+    assert sum(under_root(e) for e in events if launches(e)) > 10
+    assert outside_stages(events, root_name, launches) == []
+
+
+class _ItemInBackward(torch.autograd.Function):
+    """The identity, whose backward reads a value to the host."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        g.sum().item()
+        return g
+
+
+@pytest.mark.gpu
+def test_host_syncs_in_a_root_are_counted_also_in_backward(cuda_device):
+    """Two ``.item()`` calls inside a live root, one of them in the autograd
+    engine's thread during ``backward``, count 2 ``host_syncs``; the sync
+    debug mode is restored after, and outside a root nothing counts."""
+    x = torch.ones(64, device=cuda_device, requires_grad=True)
+    profiling.span("idle")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        with profiling.span("test.root"):
+            y = _ItemInBackward.apply(x).square().sum()
+            y.item()
+            y.backward()
+        y.item()
+    (root,) = profiling.stretch()
+    assert root.counts.get("host_syncs") == 2, root.counts
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert root.device_ms > 0

@@ -58,9 +58,9 @@ def test_cpu_wrapper_matches_pallas():
         ],
         axis=-1,
     )
-    before = lstm_cell.bilstm_recurrence.launches
+    before = lstm_cell.kernel_launches()
     got = lstm_cell.bilstm_recurrence(*(torch.tensor(a) for a in (xw_f, w_f, xw_b, w_b)))
-    assert lstm_cell.bilstm_recurrence.launches == before  # CPU: no kernel launch
+    assert lstm_cell.kernel_launches() == before  # CPU: no kernel launch
     assert got.shape == (B, T, 2 * H)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 

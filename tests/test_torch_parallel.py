@@ -435,7 +435,7 @@ def test_the_ranks_ran_one_torch_thread_and_no_kernel(run):
     plain versions and count nothing.  A rank that raises fails the call."""
     assert [r.rank for r in run["ranks"]] == [0, 1, 2, 3]
     assert all(r.value["threads"] == 1 for r in run["ranks"])
-    assert all(set(r.launches.values()) == {0} for r in run["ranks"])
+    assert all(set(r.kernel_launches.values()) == {0} for r in run["ranks"])
     with pytest.raises(RuntimeError, match="rank 1 of 2 failed"):
         spawn(ranks.fail_on_rank_1, 2, "cpu")
 
