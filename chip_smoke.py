@@ -7,8 +7,9 @@ card: the quickest proof that the port builds, runs and agrees with itself.
 Phases, each printing one flushed line per step with the seconds since start:
 
 1. device     -- the card's name, count and power limit (raises without CUDA);
-2. build      -- one ``nvcc`` call a source, ``csrc/lstm_fwd.cu`` and
-                 ``csrc/lstm_bwd.cu``, and one ``g++`` call for the audio
+2. build      -- one ``nvcc`` call a source, ``csrc/lstm_fwd.cu``,
+                 ``csrc/lstm_bwd.cu`` and ``csrc/batchnorm.cu``, and one
+                 ``g++`` call for the audio
                  codec ``native/audioio.cpp``, all started together; prints
                  the times and ptxas' register / shared-memory / spill
                  reports;
@@ -54,6 +55,23 @@ Phases, each printing one flushed line per step with the seconds since start:
                  ``nn.LSTM(256, 128, bidirectional=True)`` in bf16, forward
                  and backward, on layer 1's shapes as the yardsticks (the port
                  calls neither);
+4c. batchnorm -- the train-mode BatchNorm + ReLU kernels
+                 (``ops/cuda/batchnorm.py``, ``csrc/batchnorm.cu``) at the
+                 bf16 step's five layers (B=128, 257 x 417, C = 16, 32, 64,
+                 32, 16): forward and backward against their plain version on
+                 the card (y and dx within a bf16 step of their value plus
+                 1e-5 of their largest entry; the plain backward from the
+                 kernels' statistics); CUDA-event times beside the
+                 function's bound (4 bytes an element forward, 6 backward, at
+                 3.35 TB/s), the design's traffic (6 and 10), the plain
+                 version's, and ``F.batch_norm(training=True)`` + ``relu`` in
+                 bf16 as the library yardstick (the port never calls it).
+                 The LeakyReLU(0.2) form at each of the GAN generator's
+                 thirteen layers (their shapes read off a forward of the
+                 recipe's generator), bf16 at B=32 and f32 at B=8, as
+                 gan_training runs them: y, the running statistics, dx,
+                 dweight and dbias against the plain version on the card
+                 (the bounds of the ``gpu`` tests), and the kernels' times;
 5. serving    -- the CNN+BiLSTM runner with the committed
                  ``results/checkpoints/cnn_blstm_formant_v2_r2.npz`` answers 3
                  requests of 32 seeded speech-like 5 s clips with an 80 ms gap
@@ -127,6 +145,7 @@ Phases, each printing one flushed line per step with the seconds since start:
                  (the checkpoint's BiLSTM is saturated, so no gradient
                  reaches it or the encoder, in either package).  Each step
                  must launch every kernel 3 times (one a BiLSTM layer) and
+                 the BatchNorm kernels once a layer each way (5 and 5), and
                  give a finite loss; every parameter with a gradient must
                  move (from the redrawn BiLSTM: every parameter); step 0's
                  loss and gradients on a reduced batch (1 clip x 2 variants)
@@ -144,7 +163,8 @@ Phases, each printing one flushed line per step with the seconds since start:
                  BiLSTM redrawn (its BiLSTM is saturated, as v2_r2's): warm
                  step ms (median of steps 1-4), s-audio/s (128 x 5 s a step),
                  peak memory; each step must launch each of the three
-                 kernels 3 times, all in bf16, and no f32 form; step 0's loss
+                 kernels 3 times and the BatchNorm kernels 5 times each way,
+                 all in bf16, and no f32 form; step 0's loss
                  and every gradient are held against an f32 step on the card
                  from the same weights and batch;
 9. gan_training -- the JAX package's fastest GAN recipe
@@ -171,8 +191,10 @@ Phases, each printing one flushed line per step with the seconds since start:
                  gradient, D's u and sigma); the bf16 step on the card
                  against the card's f32 step, and a control, the bf16 step
                  with every cast rounded through float8_e5m2, which must
-                 fall outside the same bounds; no hand-written kernel
-                 launched (the path has none).
+                 fall outside the same bounds; no LSTM kernel launched (the
+                 path has none); the BatchNorm kernels launched in bf16 by
+                 the bf16 runs, and in f32 by the f32 run and the f32 check
+                 (whose tape records the fused kernels' branches).
 9b. training_cli -- the training CLI (``cli/train.py``) in-process on the
                  card: the CNN+BiLSTM production recipe
                  (``b128_recipe_config`` as a JSON ``--config``, bf16,
@@ -197,8 +219,8 @@ Phases, each printing one flushed line per step with the seconds since start:
                  width, and the global-pool lineage at hidden 64) through
                  ``inpaint``, card against CPU.  The GAN recipe
                  (``gan_recipe_config``, bf16, B=32, EMA) for 6 steps: a
-                 sample FLAC, ``{g, d}`` restored bit for bit, no
-                 hand-written kernel.  Prints the CLI's warm step against
+                 sample FLAC, ``{g, d}`` restored bit for bit, no LSTM
+                 kernel.  Prints the CLI's warm step against
                  the bare steps of ``training_bf16`` and ``gan_training``,
                  save and restore seconds and MB, and the probe's seconds;
 10. classical -- the classical family at the CLI's defaults, built by the
@@ -321,9 +343,10 @@ from unittest import mock
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 from torch.utils._pytree import tree_map
 
-from ml_audio_inpainting_torch.ops.cuda import lstm_cell
+from ml_audio_inpainting_torch.ops.cuda import batchnorm, lstm_cell
 from ml_audio_inpainting_torch.ops.cuda.lstm_cell import (
     BWD_THREADS,
     FWD_ROW_CHOICES,
@@ -364,9 +387,11 @@ from ml_audio_inpainting_torch.data.dataset import FormantSpeechDataset
 from ml_audio_inpainting_torch.data.multigap import multi_gap_mask
 from ml_audio_inpainting_torch.data.pipeline import device_corpus_feed
 from ml_audio_inpainting_torch.data.probe import load_real_probe_set
-from ml_audio_inpainting_torch.models.build import build_model
+from ml_audio_inpainting_torch.models.build import build_generator, build_model
+from ml_audio_inpainting_torch.models.cnn_blstm import FlaxBatchNorm2d
 from ml_audio_inpainting_torch.models.port_torch import seeded_reference_cnn_state_dict
 from ml_audio_inpainting_torch.models.refiner import WaveRefiner
+from ml_audio_inpainting_torch.models.pconv_unet import LEAKY_SLOPE
 from ml_audio_inpainting_torch.models.vgg import vgg19_params
 from ml_audio_inpainting_torch.ops import masking
 from ml_audio_inpainting_torch.ops.gaps import frame_mask_from_interval, gap_mask
@@ -411,6 +436,7 @@ from ml_audio_inpainting_torch.train.checkpoints import (
     state_tree,
 )
 from ml_audio_inpainting_torch.train.cnn_trainer import create_cnn_state, make_cnn_train_step
+from ml_audio_inpainting_torch.train.features import gan_features
 from ml_audio_inpainting_torch.train.gan_trainer import create_gan_states, make_gan_train_step
 from ml_audio_inpainting_torch.train.recipe import (
     b128_recipe_config,
@@ -629,7 +655,7 @@ def ptxas_report(output: str) -> dict:
     for line in output.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:  # the mangled name holds <name>[I<template arguments>E]
-            found = re.search(r"(lstm_[a-z_]*?kernel)(I(?:f|13__nv_bfloat16|Li\d+E)*E)?(?=[EI])",
+            found = re.search(r"((?:lstm|bn)_[a-z_]*?kernel)(I(?:f|13__nv_bfloat16|Li\d+E)*E)?(?=[EI])",
                               m.group(1))
             if found:
                 args = ["bf16" if a == "13__nv_bfloat16" else a[2:-1]
@@ -1426,6 +1452,182 @@ def phase_kernel_bf16(card: str, ptxas: dict) -> list:
 KERNELS = lstm_cell.KERNELS
 _counts = lstm_cell.kernel_launches
 _reset_counts = lstm_cell.reset_kernel_launches
+
+
+# The bf16 step's BatchNorm layers (encoder 16-32-64, decoder 32-16) at
+# B=128 over 257 x 417 bins.
+BN_LAYERS = (("enc_bn0", 16), ("enc_bn1", 32), ("enc_bn2", 64), ("dec_bn0", 32), ("dec_bn1", 16))
+BN_PLANE = (257, 417)
+BN_BATCH = 128
+
+
+def _bn_check(label: str, got: torch.Tensor, want: torch.Tensor, scale=None,
+              two_steps: bool = False) -> float:
+    """The worst distance of an output from the plain version's, in units
+    of its bound (1e-5 of ``scale``, by default the largest entry, plus a
+    bf16 step of the value in bf16, or two for a value rounded twice);
+    raises above 1."""
+    step = (2 if two_steps else 1) * 2.0 ** -7 if want.dtype == torch.bfloat16 else 0.0
+    got, want = got.double(), want.double()
+    bound = step * want.abs() + 1e-5 * (want.abs().max() if scale is None else scale)
+    worst = ((got - want).abs() / bound).max().item()
+    if not worst <= 1.0:
+        raise AssertionError(f"{label}: {worst:.3f} of the bound")
+    return worst
+
+
+def phase_batchnorm(card: str, ptxas: dict) -> list:
+    """The BatchNorm + ReLU kernels in bf16 at the bf16 step's five layers:
+    checked against the plain version, timed beside their bounds, the plain
+    version and the library's ``F.batch_norm(training=True)`` + ``relu``."""
+    dev = torch.device(DEVICE)
+    for name, r in ptxas.items():
+        if name.startswith("bn_"):
+            log("batchnorm", f"{name}: {r}")
+    rows = []
+    eps, keep = 1e-5, 0.99
+    for layer, C in BN_LAYERS:
+        shape = (BN_BATCH, C, *BN_PLANE)
+        n = math.prod(shape)
+        rng = np.random.default_rng(C)
+        gen = torch.Generator(dev).manual_seed(C)
+        x = (torch.randn(shape, generator=gen, device=dev) * 2 + 1).to(torch.bfloat16)
+        dy = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.tensor(rng.uniform(0.5, 1.5, C), dtype=torch.float32, device=dev)
+        b = torch.tensor(rng.standard_normal(C), dtype=torch.float32, device=dev)
+        wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+
+        def stats():
+            return (torch.zeros(C, device=dev), torch.ones(C, device=dev),
+                    torch.zeros((), dtype=torch.int64, device=dev))
+
+        st = stats()
+        y, saved, counter = batchnorm.forward_kernel(x, wb, bb, *st, True, eps, keep, 0.0)
+        dx, _, _ = batchnorm.backward_kernel(dy, x, wb, bb, saved, counter, eps, 0.0)
+        py, _ = batchnorm.forward_reference(x, wb, bb, *stats(), True, eps, keep, 0.0)
+        pdx, _, _ = batchnorm.backward_reference(dy, x, wb, bb, saved, eps, 0.0)
+        errs = {"y": _bn_check(f"{layer} y", y, py), "dx": _bn_check(f"{layer} dx", dx, pdx)}
+        del py, pdx
+        kernel_f = cuda_ms(lambda: batchnorm.forward_kernel(x, wb, bb, *st, True, eps, keep, 0.0),
+                           reps=20)
+        kernel_b = cuda_ms(lambda: batchnorm.backward_kernel(dy, x, wb, bb, saved, counter, eps,
+                                                             0.0), reps=20)
+        plain_f = cuda_ms(lambda: batchnorm.forward_reference(x, wb, bb, *st, True, eps, keep,
+                                                              0.0), reps=5)
+        plain_b = cuda_ms(lambda: batchnorm.backward_reference(dy, x, wb, bb, saved, eps, 0.0),
+                          reps=5)
+        xl, wl, bl = (t.clone().requires_grad_() for t in (x, w, b))
+
+        def library():
+            return torch.relu(F.batch_norm(xl, st[0], st[1], wl, bl, True, 1.0 - keep, eps))
+
+        library_f = cuda_ms(library, reps=20)
+        library_fb = cuda_ms(lambda: torch.autograd.grad(library(), [xl, wl, bl], dy), reps=20)
+        for pas, kernel_ms, plain_ms, library_ms, least_b, design_b in (
+                ("forward", kernel_f, plain_f, library_f, 4, 6),
+                ("backward", kernel_b, plain_b, library_fb - library_f, 6, 10)):
+            bound = 1e3 * least_b * n / HBM_BYTES_PER_S
+            row = {"name": f"batchnorm {layer} {pas}", "shape": list(shape), "dtype": "bf16",
+                   "kernel_ms": kernel_ms, "bound_ms": bound, "bound_by": "bytes",
+                   "roofline_share": bound / kernel_ms,
+                   "design_ms": 1e3 * design_b * n / HBM_BYTES_PER_S,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "max_err_of_bound": errs["y" if pas == "forward" else "dx"], "card": card}
+            log("batchnorm", json.dumps(row))
+            rows.append(row)
+        del x, dy, y, dx, xl, saved
+        torch.cuda.empty_cache()
+    total = {pas: sum(r["kernel_ms"] for r in rows if r["name"].endswith(pas))
+             for pas in ("forward", "backward")}
+    log("batchnorm", f"five layers: forward {total['forward']:.3f} ms, backward "
+                     f"{total['backward']:.3f} ms of kernels a step")
+    return rows + _bn_gan_rows(card)
+
+
+def _bn_gan_layers() -> list:
+    """``(name, (C, H, W))`` of each BatchNorm layer of the GAN recipe's
+    generator over one clip's spectrogram, in call order."""
+    cfg = gan_recipe_config()
+    dev = torch.device(DEVICE)
+    feats = gan_features(torch.zeros(1, cfg.data.max_samples, device=dev),
+                         torch.zeros(1, dtype=torch.int64, device=dev), cfg.data.spectrogram,
+                         cfg.data.gap_len_s, cfg.data.sample_rate)
+    gen = build_generator(cfg, dev)
+    layers = []
+    hooks = [m.register_forward_pre_hook(
+        lambda _, args, name=name: layers.append((name, tuple(args[0].shape[1:]))))
+        for name, m in gen.named_modules() if isinstance(m, FlaxBatchNorm2d)]
+    with torch.no_grad():
+        gen(feats["impaired_magnitude"], feats["mask"])
+    for hook in hooks:
+        hook.remove()
+    return layers
+
+
+def _bn_gan_rows(card: str) -> list:
+    """The LeakyReLU(0.2) form at each BatchNorm layer of the GAN generator,
+    at the batches of gan_training's runs (bf16 at the recipe's 32 clips,
+    f32 at GAN_F32_BATCH), parameters in the input's type as the trainer
+    casts them, checked on the card, and the kernels' times.  ``y`` bit for
+    bit the eager ops' from the kernels' mean and variance (the ``gpu``
+    test's check), and those within 1e-5 of the plain version's: against
+    the plain ``y`` itself a bf16 LeakyReLU output may lie two steps off,
+    since a step of its input, times 0.2, is up to 1.6 of its own before
+    it is rounded again.  The running statistics, and ``dx``, ``dweight``
+    and ``dbias`` against the plain backward from the kernels' statistics,
+    within the bounds of ``tests/test_torch_gpu.py``'s BatchNorm tests: 1e-5
+    of the largest entry (``dx``: of its largest term ``g m``; ``dweight``,
+    ``dbias``: of each channel's sum of its terms' magnitudes), plus a bf16
+    step of the value in bf16 (each rounded once)."""
+    dev = torch.device(DEVICE)
+    eps, keep, slope, dims = 1e-5, 0.99, LEAKY_SLOPE, (0, 2, 3)
+    layers = _bn_gan_layers()
+    log("batchnorm", f"GAN generator: {len(layers)} layers {layers}")
+    rows = []
+    for dtype, batch in ((torch.bfloat16, gan_recipe_config().training.batch_size),
+                         (torch.float32, GAN_F32_BATCH)):
+        for layer, (C, H, W) in layers:
+            shape = (batch, C, H, W)
+            gen = torch.Generator(dev).manual_seed(C * H * W)
+            x = (torch.randn(shape, generator=gen, device=dev) * 2 + 1).to(dtype)
+            dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            w = (torch.rand(C, generator=gen, device=dev) + 0.5).to(dtype)
+            b = torch.randn(C, generator=gen, device=dev).to(dtype)
+            st = (torch.zeros(C, device=dev), torch.ones(C, device=dev),
+                  torch.zeros((), dtype=torch.int64, device=dev))
+            pst = tuple(t.clone() for t in st)
+            y, saved, counter = batchnorm.forward_kernel(x, w, b, *st, True, eps, keep, slope)
+            dx, dw, db = batchnorm.backward_kernel(dy, x, w, b, saved, counter, eps, slope)
+            py, psaved = batchnorm.forward_reference(x, w, b, *pst, True, eps, keep, slope)
+            pdx, pdw, pdb = batchnorm.backward_reference(dy, x, w, b, saved, eps, slope)
+            xc = x.float() - saved[:, 0][:, None, None]
+            m = (torch.rsqrt(torch.clamp_min(saved[:, 1], 0.0) + eps) * w.float())[:, None, None]
+            z = (xc * m + b.float()[:, None, None]).to(dtype)
+            g = torch.where(z > 0, dy, dy * slope).float()
+            label = f"GAN {layer} {shape} {dtype}"
+            if not torch.equal(y, batchnorm.activate(z, slope)):
+                raise AssertionError(f"{label} y: not the eager ops' from the kernels' statistics")
+            errs = {"mean_var": _bn_check(f"{label} mean and variance", saved, psaved),
+                    "y_of_plain": _bn_check(f"{label} y", y, py, two_steps=True),
+                    "running_mean": _bn_check(f"{label} running mean", st[0], pst[0]),
+                    "running_var": _bn_check(f"{label} running var", st[1], pst[1]),
+                    "dx": _bn_check(f"{label} dx", dx, pdx, (g * m).abs().max()),
+                    "dweight": _bn_check(f"{label} dweight", dw, pdw, (g * xc).abs().sum(dims)),
+                    "dbias": _bn_check(f"{label} dbias", db, pdb, g.abs().sum(dims))}
+            del py, pdx, xc, z, g
+            kernel_f = cuda_ms(lambda: batchnorm.forward_kernel(x, w, b, *st, True, eps, keep,
+                                                                slope), reps=10)
+            kernel_b = cuda_ms(lambda: batchnorm.backward_kernel(dy, x, w, b, saved, counter, eps,
+                                                                 slope), reps=10)
+            row = {"name": f"batchnorm GAN {layer}", "shape": list(shape),
+                   "dtype": "bf16" if dtype == torch.bfloat16 else "f32", "slope": slope,
+                   "forward_ms": kernel_f, "backward_ms": kernel_b,
+                   "max_err_of_bound": errs, "card": card}
+            log("batchnorm", json.dumps(row))
+            rows.append(row)
+            del x, dy, y, dx, saved
+            torch.cuda.empty_cache()
+    return rows
 
 
 def _fwd_launches() -> int:
@@ -2295,6 +2497,12 @@ def _check_step_against_cpu(cfg: Config, flat: dict, audio: np.ndarray, starts: 
     return {"loss_rel_err": rel, "grad_rel_err": worst[0], "zero_grad": zero}
 
 
+def _step_counts() -> dict:
+    """The LSTM's and the BatchNorm kernels' launch counts since their
+    last resets."""
+    return {**_counts(), **batchnorm.kernel_launches()}
+
+
 def _train(card: str, cfg: Config, flat: dict, label: str, batches: list,
            compute_dtype=None) -> tuple:
     """TRAIN_STEPS steps from ``flat``, one on each of ``batches`` (clips and
@@ -2302,19 +2510,23 @@ def _train(card: str, cfg: Config, flat: dict, label: str, batches: list,
     launches of every step (3 of each kernel in the step's form, none of the
     other) and finite losses.  Returns the state, the launch counts, the
     names of the parameter tensors that moved and of all of them, and the
-    warm step's ms, s-audio/s and peak memory."""
+    warm step's ms, s-audio/s and peak memory.  The launch counts hold the
+    BatchNorm kernels' too: each layer's forward and backward once a step,
+    in the step's form."""
     suffix = "_bf16" if compute_dtype == torch.bfloat16 else ""
-    expected = {f"{name}{form}": 3 if form == suffix else 0
-                for name in KERNELS for form in ("", "_bf16")}
     state = create_cnn_state(cfg, device=DEVICE, params=flat)
+    norms = sum(isinstance(m, FlaxBatchNorm2d) for m in state.model.modules())
+    expected = {f"{name}{form}": (3 if name in KERNELS else norms) if form == suffix else 0
+                for name in (*KERNELS, *batchnorm.KERNELS) for form in ("", "_bf16")}
     step = make_cnn_train_step(cfg, compute_dtype=compute_dtype)
     before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
+    batchnorm.reset_kernel_launches()
     seconds = []
     for i, (clips, gaps) in enumerate(batches):
-        counts = _counts()
+        counts = _step_counts()
         audio = torch.tensor(clips, device=DEVICE)
         gaps = [t.to(DEVICE) for t in gaps]
         torch.cuda.synchronize()
@@ -2322,16 +2534,17 @@ def _train(card: str, cfg: Config, flat: dict, label: str, batches: list,
         state, metrics = step(state, audio, *gaps)
         loss = metrics["loss"].item()  # synchronises
         seconds.append(time.perf_counter() - t0)
-        launched = {k: v - counts[k] for k, v in _counts().items()}
+        launched = {k: v - counts[k] for k, v in _step_counts().items()}
         if launched != expected:
             raise AssertionError(f"{label} training step {i}: launches {launched}, expected "
-                                 f"{expected} (one a BiLSTM layer, in the step's form)")
+                                 f"{expected} (the LSTM's one a BiLSTM layer, BatchNorm's one a "
+                                 f"layer, in the step's form)")
         if not math.isfinite(loss):
             raise AssertionError(f"{label} training step {i}: loss {loss}")
         seqs = audio.shape[0] * cfg.data.gaps_per_audio
         log("training", f"{label}: step {i}: loss {loss:.4f}, {1e3 * seconds[-1]:.2f} ms, "
                         f"{seqs / seconds[-1]:.1f} sequences/s, launches {launched} ({card})")
-    launches = _counts()
+    launches = _step_counts()
     peak = torch.cuda.max_memory_allocated() / 2**20
     warm = sorted(seconds[1:])[len(seconds[1:]) // 2]
     stats = {"warm_step_ms": 1e3 * warm, "sequences_per_s": seqs / warm,
@@ -2657,9 +2870,16 @@ def _check_gan_step_against_cpu(cfg: Config, batch: tuple, vgg) -> tuple:
     """Step 0 of ``batch`` on the card in f32 against the port's step in f64
     on the CPU from the same weights, taking the card's branch at every
     kink (``utils/branch_tape.py``): the losses, every gradient, D's u and
-    sigma.  Returns (the card's step, the readings)."""
+    sigma.  The card's step runs the fused BatchNorm kernels, as training
+    does (the tape records their branches).  Returns (the card's step, the
+    readings)."""
     tape = []
+    before = batchnorm.kernel_launches()
     card = gan_step0(cfg, batch, DEVICE, vgg=vgg, tape=tape)
+    fused = {k: v - before[k] for k, v in batchnorm.kernel_launches().items()}
+    if not (fused["bn_fwd"] and fused["bn_bwd"]):
+        raise AssertionError(f"gan_training step 0 on the card under the tape: BatchNorm "
+                             f"launches {fused}")
     (m_d, g_d, sn_d), (m_c, g_c, sn_c) = card, gan_step0(cfg, batch, "cpu", torch.float64,
                                                          tape=tape, replay=True)
     loss_err = max(abs(m_d[k] - v) / abs(v) for k, v in m_c.items() if v)
@@ -2670,7 +2890,8 @@ def _check_gan_step_against_cpu(cfg: Config, batch: tuple, vgg) -> tuple:
     sn_err = {k: (sn_d[k] - v).abs().max().item() / (1.0 if k.endswith(".u") else v.item())
               for k, v in sn_c.items()}
     log("gan_training", f"step 0 of {batch[0].shape[0]} clips, VGG on, card f32 vs CPU f64 on the "
-                        f"card's {len(tape)} kink branches: losses within {loss_err:.3e} (rtol "
+                        f"card's {len(tape)} kink branches (BatchNorm launches {fused}): losses "
+                        f"within {loss_err:.3e} (rtol "
                         f"{STEP_LOSS_RTOL}); {len(g_c)} gradient tensors within {err[worst]:.3e} of "
                         f"their largest entry (worst {worst}; allowed {GAN_STEP_GRAD_RTOL_OF_MAX}); "
                         f"D's u and sigma after the D step within {max(sn_err.values()):.3e} "
@@ -2744,8 +2965,11 @@ def _check_gan_bf16_against_f32(cfg: Config, batch: tuple, vgg, card_f32: tuple)
 
 def phase_gan_training(card: str) -> dict:
     """GAN training at the JAX package's fastest recipe; returns the launch
-    counts of the hand-written kernels (all 0: the path has none)."""
+    counts of the hand-written kernels: none of the LSTM's (the path has
+    none), the BatchNorm kernels in the bf16 form in the bf16 runs and in
+    the f32 form in the f32 run and the check against the CPU."""
     _reset_counts()
+    batchnorm.reset_kernel_launches()
     cfg = gan_recipe_config()
     clips = cfg.training.batch_size
     batches, corpus_s = gan_training_batches(cfg)
@@ -2795,6 +3019,10 @@ def phase_gan_training(card: str) -> dict:
                        torch.bfloat16, remat=True)
     summary["bf16_b32_remat"] = remat["stats"]
     del remat
+    norms = batchnorm.kernel_launches()
+    if not (norms["bn_fwd_bf16"] and norms["bn_bwd_bf16"]) or norms["bn_fwd"] or norms["bn_bwd"]:
+        raise AssertionError(f"gan_training bf16 runs: BatchNorm launches {norms}, expected the "
+                             f"bf16 form each way and no f32 form")
 
     # f32 (TF32 off) at the reference's batch, B=8 (configs/gan.yaml); B=32
     # does not fit (B=8 peaks at 29 GB).
@@ -2813,7 +3041,12 @@ def phase_gan_training(card: str) -> dict:
 
     launches = _counts()
     if any(launches.values()):
-        raise AssertionError(f"gan_training launched a hand-written kernel: {launches}")
+        raise AssertionError(f"gan_training launched an LSTM kernel: {launches}")
+    norms = batchnorm.kernel_launches()
+    if not all(norms.values()):
+        raise AssertionError(f"gan_training: BatchNorm launches {norms}, expected both forms "
+                             f"each way")
+    launches = {**launches, **norms}
     summary["launches"] = launches
     log("gan_training", f"summary ({card}): {json.dumps(summary)}")
     return launches
@@ -3461,7 +3694,7 @@ def _training_cli(card: str, work: Path) -> dict:
     counts = _counts()
     counts_all.append(counts)
     if any(counts.values()):
-        raise AssertionError(f"training_cli gan launched a hand-written kernel: {counts}")
+        raise AssertionError(f"training_cli gan launched an LSTM kernel: {counts}")
     glosses = [(v["g_total"], v["d_total"]) for _, v in gres.losses]
     mgr = CheckpointManager(gres.checkpoint_dir)
     if (not all(math.isfinite(x) for pair in glosses for x in pair) or mgr.all_steps() != [4, 6]
@@ -3495,7 +3728,7 @@ def _training_cli(card: str, work: Path) -> dict:
                         + ", ".join(f"step {s}: {t:.2f} s {b / 1e6:.1f} MB" for s, t, b in gres.saves)
                         + f"; {{g, d}} ({n_gtensors} tensors) restored bit for bit in "
                         f"{grestore_s:.2f} s; sample {gres.samples[0].name} (FLAC, MD5 verified); "
-                        f"no hand-written kernel ({card})")
+                        f"no LSTM kernel ({card})")
     del gres
 
     launches = {k: sum(c[k] for c in counts_all) for k in counts_all[0]}
@@ -4582,6 +4815,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     kernels = [phase_kernel(card, ptxas), *phase_kernel_bwd(card, ptxas),
                *phase_kernel_bf16(card, ptxas)]
+    norms = phase_batchnorm(card, ptxas)
     paths = {"serving": phase_serving(card)}
     phase_gan_serving(card)
     paths["serving_deployable"] = phase_serving_deployable(card)
@@ -4600,8 +4834,18 @@ def main() -> int:
         k["launches"] = sum(k["launches_by_path"].values())
         if not k["launches"]:
             raise AssertionError(f"{k['name']} was never launched on the main paths")
+    norm_launches = {path: {k: counts[k] for k in batchnorm.LAUNCH_COUNTERS if counts.get(k)}
+                     for path, counts in paths.items()}
+    norm_launches = {path: counts for path, counts in norm_launches.items() if counts}
+    if norm_launches.get("training_bf16", {}).keys() != {"bn_fwd_bf16", "bn_bwd_bf16"}:
+        raise AssertionError(f"BatchNorm launches by path {norm_launches}: training_bf16 "
+                             f"launched other forms or none")
+    for name in batchnorm.LAUNCH_COUNTERS:
+        if not any(name in counts for counts in norm_launches.values()):
+            raise AssertionError(f"{name} was never launched on the main paths")
     log("done", f"total {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"batchnorm": norms, "launches_by_path": norm_launches}), flush=True)
     print(smi, flush=True)
     print(json.dumps({
         "ok": True,

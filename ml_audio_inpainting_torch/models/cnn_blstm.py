@@ -26,13 +26,14 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Iterator, Sequence
+from typing import Iterator, Optional, Sequence
 
 import torch
 from torch import nn
 
+from ml_audio_inpainting_torch.ops.cuda import batchnorm
 from ml_audio_inpainting_torch.ops.lstm import BiLSTM
-from ml_audio_inpainting_torch.parallel.collectives import batch_moments, column_parallel_linear
+from ml_audio_inpainting_torch.parallel.collectives import column_parallel_linear
 
 __all__ = ["FlaxBatchNorm2d", "StackedBLSTMCNN", "running_stats_frozen"]
 
@@ -63,28 +64,28 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     ``update_running`` (True) says whether a train-mode forward moves the
     running statistics; :func:`running_stats_frozen` clears it for a forward
     that repeats one whose update was already kept.
+
+    ``forward(x, negative_slope)`` also applies the activation that follows
+    the layer: none for None, ``torch.relu`` for 0, ``F.leaky_relu`` with
+    that slope otherwise.  Train mode runs the rule and the activation as
+    one ``torch.autograd.Function`` (``ops/cuda/batchnorm.py``: hand-written
+    kernels on the card, its plain version on the CPU), with the mean taken
+    over a mesh's global batch; eval mode applies the activation to
+    cuDNN's output as a plain op.  The Function is called through its
+    module, where a branch tape (``utils/branch_tape.py``) wraps it.
     """
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
         self.update_running = True
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, negative_slope: Optional[float] = None) -> torch.Tensor:
         if not self.training:
-            return super().forward(x)
-        dims = (0, 2, 3)
-        acc = torch.promote_types(x.dtype, torch.float32)  # f32 for bf16, else x's own
-        xf = x.to(acc)
-        mean, mean_sq = batch_moments(xf, dims)  # over a mesh's global batch
-        var = torch.clamp_min(mean_sq - mean * mean, 0.0)
-        if self.update_running:
-            with torch.no_grad():
-                self.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
-                self.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
-                self.num_batches_tracked.add_(1)
-        mul = torch.rsqrt(var + self.eps) * self.weight.to(acc)
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.to(acc)[:, None, None]
-        return y.to(x.dtype)
+            return batchnorm.activate(super().forward(x), negative_slope)
+        return batchnorm.batch_norm_act(x, self.weight, self.bias, self.running_mean,
+                                        self.running_var, self.num_batches_tracked,
+                                        self.update_running, self.eps, BN_MOMENTUM,
+                                        negative_slope=negative_slope)
 
 
 @contextlib.contextmanager
@@ -176,8 +177,8 @@ class StackedBLSTMCNN(nn.Module):
         h = x[:, None] if squeeze else x.permute(0, 3, 1, 2)  # (B, C, F, T)
         B, _, F, T = h.shape
         for i in range(self.num_enc):
-            h = getattr(self, f"enc_conv{i}")(h)
-            h = torch.relu(getattr(self, f"enc_bn{i}")(h))
+            h = getattr(self, f"enc_conv{i}")(h)  # (the input is freed before the norm runs)
+            h = getattr(self, f"enc_bn{i}")(h, 0.0)  # ReLU
 
         if self.global_pool:
             seq = h.mean(dim=2).transpose(1, 2)  # (B, T, C)
@@ -188,8 +189,10 @@ class StackedBLSTMCNN(nn.Module):
         seq = column_parallel_linear(seq, self.projection.weight, self.projection.bias)
         h = seq.reshape(B, T, self.dec_filters[0], F).permute(0, 2, 3, 1)  # (B, dec0, F, T)
 
-        h = torch.relu(self.dec_bn0(self.dec_conv0(h)))
-        h = torch.relu(self.dec_bn1(self.dec_conv1(h)))
+        h = self.dec_conv0(h)
+        h = self.dec_bn0(h, 0.0)  # ReLU
+        h = self.dec_conv1(h)
+        h = self.dec_bn1(h, 0.0)
         h = self.dec_conv2(h)
         return h[:, 0] if squeeze else h.permute(0, 2, 3, 1)
 

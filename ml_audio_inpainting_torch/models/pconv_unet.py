@@ -144,7 +144,7 @@ class EncDecBlock(nn.Module):
 
     def forward(self, x, mask, mask_channel_sum):
         x, mask = self.pconv(x, mask, mask_channel_sum)
-        return F.leaky_relu(self.norm(x), LEAKY_SLOPE), mask
+        return self.norm(x, LEAKY_SLOPE), mask
 
 
 class PConvUNet(nn.Module):

@@ -112,9 +112,12 @@ __all__ = [
 ]
 
 _PACKAGE = Path(__file__).resolve().parents[2]
+# Every CUDA source of the package, built and loaded by load_library
+# (``batchnorm`` serves ``ops/cuda/batchnorm.py``).
 SOURCES = {
     "lstm_fwd": _PACKAGE / "csrc" / "lstm_fwd.cu",
     "lstm_bwd": _PACKAGE / "csrc" / "lstm_bwd.cu",
+    "batchnorm": _PACKAGE / "csrc" / "batchnorm.cu",
 }
 BUILD_DIR = _PACKAGE / "_build"
 NVCC_FLAGS = (
@@ -178,8 +181,9 @@ DWHH_MMA_TARGET_BLOCKS = 264
 # The element types the kernels take, each by kernels and launchers of its own.
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C launchers of each source: name -> argument types (pointers, then B, T, H, stream).
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C launchers of each source: name -> argument types (the LSTM's: pointers,
+# then B, T, H, stream).
 _LAUNCHERS = {
     "lstm_fwd": {
         # f32: xw_fwd, w_hh_fwd, xw_bwd, w_hh_bwd, h_out, c_out (or null);
@@ -212,6 +216,22 @@ _LAUNCHERS = {
         # B, T, H, slices, rows_per_slice
         "lstm_dwhh_mma_launch": [_P] * 8 + [_I] * 5 + [_P],
     },
+    "batchnorm": {
+        # x, partial, sums, counter; bf16, B, C, P, chunks, chunk
+        "bn_fwd_stats_launch": [_P] * 4 + [_I] * 6 + [_P],
+        # x, y, sums, gamma, beta; param_bf16; saved, run_mean, run_var, batches; update;
+        # count, eps, keep, take; act; slope; bf16, B, C, P, chunks, chunk
+        "bn_fwd_apply_launch": [_P] * 5 + [_I] + [_P] * 4 + [_I] + [_F] * 4 + [_I] + [_F]
+                               + [_I] * 6 + [_P],
+        # x, dy, saved, gamma, beta; param_bf16; partial, sums, counter, dgamma, dbeta;
+        # eps; act; slope; bf16, B, C, P, chunks, chunk
+        "bn_bwd_reduce_launch": [_P] * 5 + [_I] + [_P] * 5 + [_F] + [_I] + [_F] + [_I] * 6
+                                + [_P],
+        # x, dy, saved, sums, gamma, beta; param_bf16; dx; count, eps; act; slope;
+        # bf16, B, C, P, chunks, chunk
+        "bn_bwd_apply_launch": [_P] * 6 + [_I] + [_P] + [_F] * 2 + [_I] + [_F] + [_I] * 6
+                               + [_P],
+    },
 }
 
 
@@ -236,7 +256,7 @@ def _find_nvcc() -> str:
             return c
     raise RuntimeError(
         "nvcc not found (looked on PATH, in $CUDA_HOME/bin, $CUDA_PATH/bin and "
-        "/usr/local/cuda/bin): the LSTM kernels cannot be built"
+        "/usr/local/cuda/bin): the CUDA kernels cannot be built"
     )
 
 

@@ -10,8 +10,9 @@ the one-device path is unchanged bit for bit (rule 4 of
 
 * :func:`global_sum`, :func:`global_mean`, :func:`global_max`: the
   reductions a loss ends in, over the ``data`` group, identity backward;
-* :func:`batch_moments`: BatchNorm's ``E[x]`` and ``E[x^2]`` over the
-  global batch, whose backward sums the partial gradients over ``data``;
+* :func:`batch_moments`, :func:`batch_sums`: BatchNorm's ``E[x]`` and
+  ``E[x^2]``, and the channel sums of its forward and of its explicit
+  backward (the partial gradients' sums), over the global batch;
 * :func:`row_parallel_matmul`, :func:`column_parallel_linear`: Megatron's
   pair over the ``model`` group, partial sums in f32 and rounded once;
 * :func:`sum_gradients`: rule 2, the summed gradients over ``data``, and
@@ -32,7 +33,7 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from ml_audio_inpainting_torch.parallel.mesh import Mesh
 
-__all__ = ["use_mesh", "global_sum", "global_mean", "global_max", "batch_moments",
+__all__ = ["use_mesh", "global_sum", "global_mean", "global_max", "batch_sums", "batch_moments",
            "row_parallel_matmul", "column_parallel_linear", "sum_gradients", "all_gather_rows",
            "all_gather_cat"]
 
@@ -89,24 +90,6 @@ class _LossSum(torch.autograd.Function):
         return g, None
 
 
-class _SyncedSum(torch.autograd.Function):
-    """``all_reduce`` sum forward and backward: the sum feeds each rank's
-    own activations, so each rank's gradient of it is a partial one."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
 def global_sum(x: torch.Tensor) -> torch.Tensor:
     """``x`` (a rank's sum) summed over the ``data`` group, in ``x``'s type
     (the losses' f32); ``x`` itself outside a mesh."""
@@ -134,17 +117,31 @@ def global_max(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def batch_sums(sums: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """A rank's per-channel sums over its share of the batch, summed over
+    the ``data`` group in one ``all_reduce`` (into a new tensor), and the
+    group's size; ``(sums, 1)`` outside a mesh.  Not differentiable:
+    BatchNorm's forward and its explicit backward call it for their channel
+    sums (``ops/cuda/batchnorm.py``)."""
+    group, size, _ = _axis("data")
+    if group is None:
+        return sums, 1
+    out = sums.clone()
+    dist.all_reduce(out, group=group)
+    return out, size
+
+
 def batch_moments(x: torch.Tensor, dims: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(E[x], E[x^2])`` over ``dims`` of the global batch: ``x.mean(dims)``
     and ``(x * x).mean(dims)`` outside a mesh; inside, both sums in one
-    ``all_reduce`` over ``data`` whose backward sums the gradients too."""
-    group, size, _ = _axis("data")
-    if group is None:
+    ``all_reduce`` over ``data`` (:func:`batch_sums`).  Not differentiable
+    inside a mesh: BatchNorm's backward sums its own gradients."""
+    if _axis("data")[0] is None:
         return x.mean(dim=dims), (x * x).mean(dim=dims)
+    sums, size = batch_sums(torch.stack([x.sum(dim=dims), (x * x).sum(dim=dims)]))
     count = size
     for d in dims:
         count *= x.shape[d]
-    sums = _SyncedSum.apply(torch.stack([x.sum(dim=dims), (x * x).sum(dim=dims)]), group)
     return sums[0] / count, sums[1] / count
 
 

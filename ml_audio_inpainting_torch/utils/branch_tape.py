@@ -11,9 +11,11 @@ an H100, ``scripts/torch_gan_step_precision.py``: up to 2.1e-3 from f64, and
 two by their arithmetic alone, the reference
 replays the f32 run's decisions: inside :func:`branch_tape`, the
 ``torch.nn.functional`` calls ``leaky_relu``, ``relu`` and ``max_pool2d``
-(the modules' too: ``nn.ReLU`` and ``nn.MaxPool2d`` call them) record, or
-take from the tape, which side of 0 each input lies on and which input each
-pool window passes on.
+(the modules' too: ``nn.ReLU`` and ``nn.MaxPool2d`` call them) and the
+train-mode BatchNorm fused with its activation
+(``ops/cuda/batchnorm.py::batch_norm_act``) record, or take from the tape,
+which side of 0 each activation's input lies on and which input each pool
+window passes on.
 """
 
 from __future__ import annotations
@@ -25,19 +27,23 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
+from ml_audio_inpainting_torch.ops.cuda import batchnorm
+
 __all__ = ["branch_tape"]
 
 
 @contextlib.contextmanager
 def branch_tape(tape: List[torch.Tensor], replay: bool = False) -> Iterator[None]:
-    """A scope in which ``F.leaky_relu``, ``F.relu`` and ``F.max_pool2d``
-    append to ``tape`` the branch each call takes (a bool tensor, input >
-    0, or the pool's argmax indices), in call order, and return what they
-    return outside it; or, with ``replay``, take the branches from ``tape``
-    in the same order, whatever their own inputs say.  A replay must make
-    the same calls on the same shapes (the same step, on any device and in
-    any dtype), and use up the tape."""
+    """A scope in which ``F.leaky_relu``, ``F.relu``, ``F.max_pool2d`` and
+    ``batchnorm.batch_norm_act`` with an activation append to ``tape`` the
+    branch each call takes (a bool tensor, the activation's input > 0, or
+    the pool's argmax indices), in call order, and return what they return
+    outside it; or, with ``replay``, take the branches from ``tape`` in the
+    same order, whatever their own inputs say.  A replay must make the same
+    calls on the same shapes (the same step, on any device and in any
+    dtype), and use up the tape."""
     leaky_relu, relu, max_pool2d = F.leaky_relu, F.relu, F.max_pool2d
+    batch_norm_act = batchnorm.batch_norm_act
     calls = [0]
 
     def branch(input: torch.Tensor, pooled: bool = False) -> torch.Tensor:
@@ -77,7 +83,24 @@ def branch_tape(tape: List[torch.Tensor], replay: bool = False) -> Iterator[None
         tape.append(index)
         return out
 
+    def tape_batch_norm_act(*args, negative_slope=None):
+        """Recorded from the fused run: its output's side of 0 is its
+        activation's input's for a slope of 0 or more.  Replayed as the
+        normalisation alone, then the activation on the recorded sides."""
+        if negative_slope is None:
+            return batch_norm_act(*args)
+        if negative_slope < 0:
+            raise NotImplementedError("branch tape: a BatchNorm activation of negative slope")
+        if replay:
+            y = batch_norm_act(*args)
+            return torch.where(branch(y), y,
+                               y * negative_slope if negative_slope else torch.zeros_like(y))
+        out = batch_norm_act(*args, negative_slope=negative_slope)
+        tape.append(out > 0)
+        return out
+
     F.leaky_relu, F.relu, F.max_pool2d = tape_leaky_relu, tape_relu, tape_max_pool2d
+    batchnorm.batch_norm_act = tape_batch_norm_act
     try:
         yield
         if replay and calls[0] != len(tape):
@@ -85,3 +108,4 @@ def branch_tape(tape: List[torch.Tensor], replay: bool = False) -> Iterator[None
                                f"{len(tape)}")
     finally:
         F.leaky_relu, F.relu, F.max_pool2d = leaky_relu, relu, max_pool2d
+        batchnorm.batch_norm_act = batch_norm_act

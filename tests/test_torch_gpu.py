@@ -52,7 +52,7 @@ import torch
 
 from ml_audio_inpainting_torch.models.build import build_generator
 from ml_audio_inpainting_torch.models.cnn_blstm import StackedBLSTMCNN
-from ml_audio_inpainting_torch.ops.cuda import lstm_cell
+from ml_audio_inpainting_torch.ops.cuda import batchnorm, lstm_cell
 from ml_audio_inpainting_torch.runtime import profiling
 from ml_audio_inpainting_torch.runtime.inference import make_gan_inpaint_fn
 from ml_audio_inpainting_torch.runtime.serve import make_cnn_runner, make_gan_runner
@@ -752,6 +752,147 @@ def test_bf16_training_step_on_card_runs_the_bf16_kernels(cuda_device):
     np.testing.assert_allclose(losses[torch.bfloat16], losses[torch.float32], rtol=5e-2)
 
 
+# ------------------------------------------------------- BatchNorm kernels
+#
+# ``ops/cuda/batchnorm.py``'s kernels against its plain version on the card,
+# at the CNN step's planes (257 x 417, C = 16, 32, 64, at B=8) and at odd
+# small shapes.  ``y`` within 1e-5 of its largest entry in f32 and, in
+# bf16, one bf16 step of its value more (the two take their channel sums in
+# another order, and one rounding can then land a step apart); given the
+# kernels' own mean and variance, ``y`` is the eager ops' bit for bit.  The
+# running statistics rtol 1e-5 atol 1e-6.  The backward against the plain
+# backward from the kernels' statistics: ``dx`` as ``y``, but within 1e-5 of
+# its largest term ``g m`` (over a few elements a channel the terms of ``dx
+# = g m + dmean / N + 2 x dvar / N`` cancel to far below them); ``dweight`` and
+# ``dbias`` within 1e-5 of the sum of their terms' magnitudes a channel
+# (``sum |g (x - mean)|`` and ``sum |g|``: sums of up to 857 472 terms of
+# either sign in another order), plus a bf16 step of the value for bf16
+# parameters.  Two launches agree bit for bit.
+
+BN_SHAPES = [((8, 16, 257, 417), 0.0), ((8, 32, 257, 417), 0.0), ((8, 64, 257, 417), 0.0),
+             ((3, 5, 7, 11), 0.2), ((2, 3, 1, 1), None), ((4, 7, 13, 9), 0.2),
+             ((1, 2, 129, 3), 0.0)]
+
+
+def _bn_case(device, shape, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    C = shape[1]
+    x = torch.tensor(rng.standard_normal(shape, dtype=np.float32) * 2 + 1, device=device)
+    dy = torch.tensor(rng.standard_normal(shape, dtype=np.float32), device=device)
+    w = torch.tensor(rng.uniform(0.5, 1.5, C).astype(np.float32), device=device)
+    b = torch.tensor(rng.standard_normal(C).astype(np.float32), device=device)
+    return x.to(dtype), dy.to(dtype), w.to(dtype), b.to(dtype)
+
+
+def _bn_stats(device, C):
+    return (torch.zeros(C, device=device), torch.ones(C, device=device),
+            torch.zeros((), dtype=torch.int64, device=device))
+
+
+def _bn_both(device, shape, dtype, slope):
+    """(kernels, kernels again, plain): each ``(y, saved, running stats, dx,
+    dweight, dbias)``.  The plain backward takes the kernels' statistics: an
+    activation input within rounding of 0 would otherwise take the other
+    side of the kink in one of the two."""
+    x, dy, w, b = _bn_case(device, shape, dtype)
+    out = []
+    for kernels in (True, True, False):
+        stats = _bn_stats(device, shape[1])
+        if kernels:
+            y, saved, counter = batchnorm.forward_kernel(x, w, b, *stats, True, 1e-5, 0.99, slope)
+            grads = batchnorm.backward_kernel(dy, x, w, b, saved, counter, 1e-5, slope)
+        else:
+            y, saved = batchnorm.forward_reference(x, w, b, *stats, True, 1e-5, 0.99, slope)
+            grads = batchnorm.backward_reference(dy, x, w, b, out[0][1], 1e-5, slope)
+        out.append((y, saved, *stats, *grads))
+    torch.cuda.synchronize()
+    return (x, dy, w, b), out
+
+
+def _bn_close(got, want, name, scale=None):
+    step = 2.0 ** -7 if want.dtype == torch.bfloat16 else 0.0
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    got, want = got.double(), want.double()
+    bound = 1e-5 * (want.abs().max() if scale is None else scale) + step * want.abs()
+    err = (got - want).abs()
+    assert (err <= bound).all(), f"{name}: worst {err.max().item()} ({(err - bound).max().item()})"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,slope", BN_SHAPES, ids=lambda v: str(v))
+def test_batchnorm_kernels_match_plain_on_card(cuda_device, shape, slope, dtype):
+    (x, dy, w, b), (first, second, plain) = _bn_both(cuda_device, shape, dtype, slope)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+    y, saved, rm, rv, nbt, dx, dw, db = first
+    py, psaved, prm, prv, pnbt, pdx, pdw, pdb = plain
+    _bn_close(y, py, "y")
+    np.testing.assert_allclose(saved.cpu().numpy(), psaved.cpu().numpy(), rtol=1e-5, atol=1e-6)
+    for got, want in ((rm, prm), (rv, prv)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-6)
+    assert nbt.item() == pnbt.item() == 1
+    # y from the kernels' own statistics, by the eager ops: bit for bit.
+    xf, mean = x.float(), saved[:, 0][:, None, None]
+    m = (torch.rsqrt(torch.clamp_min(saved[:, 1], 0.0) + 1e-5) * w.float())[:, None, None]
+    normalised = ((xf - mean) * m + b.float()[:, None, None]).to(dtype)
+    assert torch.equal(y, batchnorm.activate(normalised, slope))
+    g = dy if slope is None else torch.where(normalised > 0, dy,
+                                             dy * slope if slope else torch.zeros_like(dy))
+    g = g.float()
+    _bn_close(dx, pdx, "dx", (g * m).abs().max())
+    dims = (0, 2, 3)
+    _bn_close(db, pdb, "dbias", g.abs().sum(dims))
+    _bn_close(dw, pdw, "dweight", (g * (xf - mean)).abs().sum(dims))
+
+
+@pytest.mark.gpu
+def test_bf16_training_step_on_card_runs_the_batchnorm_kernels(cuda_device):
+    """One bf16 step of the narrow CNN+BiLSTM (three encoder and two decoder
+    BatchNorm layers) calls the BatchNorm Function's bf16 forward and
+    backward five times each, and its f32 form not at all."""
+    cfg = Config.from_dict({
+        "data": {"max_len_s": 1.2, "gap_len_s": 0.05, "train_n_gaps": 3},
+        "model": {"num_lstm_layers": 2, "lstm_hidden_dim": 16, "enc_filters": [4, 8],
+                  "dec_filters": [4, 8]},
+    })
+    flat = cnn_blstm_flat_variables(_narrow_live_model("cpu", seed=2, freq_bins=257).state_dict())
+    audio = torch.tensor((np.random.default_rng(3).standard_normal((2, 19200)) * 0.1).astype(
+        np.float32), device=cuda_device)
+    starts = torch.tensor([[[3000, 9000, 14000]], [[4200, 8400, 15000]]], device=cuda_device)
+    lengths = torch.tensor([[[400, 800, 160]], [[700, 300, 500]]], device=cuda_device)
+    state = create_cnn_state(cfg, device=cuda_device, params=flat)
+    batchnorm.reset_kernel_launches()
+    make_cnn_train_step(cfg, compute_dtype=torch.bfloat16)(state, audio, starts, lengths)
+    torch.cuda.synchronize()
+    assert batchnorm.kernel_launches() == {"bn_fwd": 0, "bn_fwd_bf16": 5, "bn_bwd": 0,
+                                           "bn_bwd_bf16": 5}
+
+
+@pytest.mark.gpu
+def test_batchnorm_launchers_refuse_what_they_cannot_run(cuda_device):
+    x, dy, w, b = _bn_case(cuda_device, (2, 3, 5, 7), torch.float32)
+    stats = _bn_stats(cuda_device, 3)
+    refusals = [
+        (ValueError, "contiguous", (x.transpose(2, 3), w, b, *stats)),
+        (TypeError, "float32 or bfloat16", (x.double(), w, b, *stats)),
+        (TypeError, "float32 or bfloat16", (x.half(), w, b, *stats)),
+        (ValueError, "need CUDA tensors", (x.cpu(), w, b, *stats)),
+        (TypeError, "one type", (x, w, b.bfloat16(), *stats)),
+        (TypeError, "running", (x, w, b, stats[0].bfloat16(), *stats[1:])),
+        (ValueError, "expected contiguous", (x, w[:2], b, *stats)),
+    ]
+    for error, match, args in refusals:
+        with pytest.raises(error, match=match):
+            batchnorm.forward_kernel(*args, True, 1e-5, 0.99, 0.0)
+    y, saved, counter = batchnorm.forward_kernel(x, w, b, *stats, True, 1e-5, 0.99, 0.0)
+    strided = dy.transpose(2, 3).contiguous().transpose(2, 3)  # dy's shape, not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        batchnorm.backward_kernel(strided, x, w, b, saved, counter, 1e-5, 0.0)
+    with pytest.raises(ValueError, match="against x"):
+        batchnorm.backward_kernel(dy.bfloat16(), x, w, b, saved, counter, 1e-5, 0.0)
+
+
 # ------------------------------------------------------- deployable serving
 #
 # Each function of deployable serving on the card against the same function
@@ -1087,10 +1228,14 @@ def test_gan_step_on_card_matches_cpu(cuda_device, n_gaps):
     bias's gradient lies 1.0e-3 (1 gap) and 1.2e-3 (4 gaps) of the largest
     from f64 on an H100 (with it, within 8.4e-7); the port's f32 step on
     that machine's CPU lies as far with 4 gaps
-    (``scripts/torch_gan_step_precision.py --tiny N``)."""
+    (``scripts/torch_gan_step_precision.py --tiny N``).  Under the tape the
+    card's step runs the fused BatchNorm kernels, as training does."""
     cfg = _tiny_gan_cfg(n_gaps)
     tape = []
+    batchnorm.reset_kernel_launches()
     m_d, g_d, s_d = _gan_step_on(cuda_device, cfg, tape=tape)
+    launched = batchnorm.kernel_launches()
+    assert launched["bn_fwd"] and launched["bn_bwd"], launched
     m_c, g_c, s_c = _gan_step_on(torch.device("cpu"), cfg, torch.float64, tape=tape, replay=True)
     for k, v in m_c.items():
         assert abs(m_d[k] - v) <= 1e-4 * abs(v) + 1e-7, (k, m_d[k], v)

@@ -13,8 +13,10 @@ model: at hidden 16 with a 256-point STFT, layer 0's ``w_ih`` has 129 x 8
 ``model``), each in f32 and bf16; the GAN on 4 x 1 in f32 and bf16; GAN
 serving on 4 x 1; the training CLI with ``--model-parallel 2`` (a 2 x 2
 mesh: ``gcd(batch 2, 4 // 2)`` data rows), its save, restore and resume,
-and a run at B=1 that leaves 3 ranks idle; and the dry run's rank program
-(``parallel/dryrun.py``), whose check runs here.  Weights are JAX's init redrawn (a live BiLSTM, as
+and a run at B=1 that leaves 3 ranks idle; the train-mode BatchNorm with
+its activation (``ops/cuda/batchnorm.py``) over the 2 x 2 mesh's two data
+rows; and the dry run's rank program (``parallel/dryrun.py``), whose check
+runs here.  Weights are JAX's init redrawn (a live BiLSTM, as
 ``tests/test_torch_cnn_train.py`` draws them).  The GAN is the JAX dry
 run's tiny configuration (``__graft_entry__.py:17-30``).
 
@@ -130,6 +132,24 @@ CLI_COMMON = ["--model", "cnn_blstm", "--synthetic", "4", "--corpus", "harmonic"
               "1", "--probe-every", "1", "--probe-clips", "2"]
 
 
+# BatchNorm with its activation over the (2, 2) mesh's two data rows, f32
+# with LeakyReLU(0.2) and bf16 with ReLU: y and dx within 1e-5 of their
+# largest entry (the channel sums taken a rank at a time and then summed)
+# plus, in bf16, one bf16 step of the value (one rounding of a value that
+# moved in f32); the ranks' dweight and dbias summed within the same of the
+# one process's, two bf16 steps in bf16 (each rank's sum rounded, then the
+# two added); the running statistics rtol 1e-6.
+BN_SLOPES = {"f32": 0.2, "bf16": 0.0}
+
+
+def _bn_inputs():
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((4, 3, 5, 7)) * 2 + 1).astype(np.float32)
+    dy = rng.standard_normal((4, 3, 5, 7)).astype(np.float32)
+    return x, dy, rng.uniform(0.5, 1.5, 3).astype(np.float32), rng.standard_normal(3).astype(
+        np.float32)
+
+
 def _audio(seed=0, clips=CLIPS):
     rng = np.random.default_rng(seed)
     t = np.arange(N) / SR
@@ -215,6 +235,10 @@ def run(tmp_path_factory):
                 "dtype": dt}) for dt in ("f32", "bf16")]
     cases.append(("serve", (4, 1), "serve", {"cfg": gcfg.to_dict(), "g_flat": g_flat,
                                              "batch": serve_batch}))
+    x, dy, w, b = _bn_inputs()
+    cases += [(f"bn {dt}", (2, 2), "batchnorm", {"x": x, "dy": dy, "weight": w, "bias": b,
+                                                  "slope": slope, "dtype": dt})
+              for dt, slope in BN_SLOPES.items()]
     cases.append(("cli", None, "train_cli", {"runs": cli_runs, "config": config}))
     cases.append(("dryrun", None, "dryrun", {"n": 4}))
     out = {}
@@ -341,6 +365,32 @@ def test_cnn_sharded_step_matches_one_rank(run, shape, dtype):
     for r in results[1:]:  # every rank holds the same (gathered) state
         for k, v in r["variables"].items():
             np.testing.assert_array_equal(v, got["variables"][k], err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_batchnorm_over_two_data_ranks_matches_one_process(run, dtype):
+    """Ranks 0 and 2 of the (2, 2) mesh hold the two halves of the batch;
+    their ``batch_norm_act`` forward and backward (the plain version, its
+    channel sums through one ``all_reduce`` each way) against one process
+    over the whole batch (bounds: ``BN_SLOPES``)."""
+    x, dy, w, b = _bn_inputs()
+    halves = [run["ranks"][r].value[f"bn {dtype}"] for r in (0, 2)]
+    one = ranks.batchnorm("cpu", make_mesh(), x, dy, w, b, BN_SLOPES[dtype], dtype)
+    ulp = 2.0 ** -7 if dtype == "bf16" else 0.0
+    want_type = "torch.bfloat16" if dtype == "bf16" else "torch.float32"
+    for h in halves:
+        assert h["mesh"] == {"data": 2, "model": 2}
+        assert h["dtypes"] == [want_type] * 4
+        for got, want in zip(h["running"], one["running"]):
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    for key in ("y", "dx"):
+        got, want = np.concatenate([h[key] for h in halves]), one[key]
+        bound = 1e-5 * np.abs(want).max() + ulp * np.abs(want)
+        assert (np.abs(got - want) <= bound).all(), key
+    for key in ("dweight", "dbias"):
+        got, want = halves[0][key] + halves[1][key], one[key]
+        bound = 1e-5 * np.abs(want).max() + 2 * ulp * np.abs(want)
+        assert (np.abs(got - want) <= bound).all(), key
 
 
 def test_cnn_dp_x_tp_step_matches_jaxs_sharded_step(run):

@@ -18,7 +18,8 @@ import torch
 from pathlib import Path
 
 from ml_audio_inpainting_torch.cli import train
-from ml_audio_inpainting_torch.parallel.collectives import all_gather_cat
+from ml_audio_inpainting_torch.ops.cuda.batchnorm import batch_norm_act
+from ml_audio_inpainting_torch.parallel.collectives import all_gather_cat, use_mesh
 from ml_audio_inpainting_torch.parallel.dryrun import rank_program
 from ml_audio_inpainting_torch.parallel.mesh import make_mesh, shard_batch
 from ml_audio_inpainting_torch.parallel.sharding import (
@@ -98,6 +99,26 @@ def serve(device, mesh, cfg: dict, g_flat: dict, batch: tuple) -> dict:
         refusal = str(e)
     return {"restored": restored.cpu().numpy(), "generated": generated.cpu().numpy(),
             "refusal": refusal}
+
+
+def batchnorm(device, mesh, x, dy, weight, bias, slope, dtype: str) -> dict:
+    """The train-mode BatchNorm with its activation (``ops/cuda/batchnorm.py``)
+    forward and backward on this rank's rows of ``x`` and ``dy`` over
+    ``mesh``'s data group: its rows of ``y`` and ``dx``, its own ``dweight``
+    and ``dbias``, and the running statistics after the update."""
+    dt = DTYPES[dtype] or torch.float32
+    xs, dys = shard_batch((x, dy), mesh)
+    xs, dys = xs.to(dt).requires_grad_(), dys.to(dt)
+    w, b = (torch.as_tensor(t).to(dt).requires_grad_() for t in (weight, bias))
+    C = w.shape[0]
+    stats = (torch.zeros(C), torch.ones(C), torch.zeros((), dtype=torch.int64))
+    with use_mesh(mesh):
+        y = batch_norm_act(xs, w, b, *stats, True, 1e-5, 0.99, slope)
+        y.backward(dys)
+    return {"y": y.detach().float().numpy(), "dx": xs.grad.float().numpy(),
+            "dweight": w.grad.float().numpy(), "dbias": b.grad.float().numpy(),
+            "dtypes": [str(t.dtype) for t in (y, xs.grad, w.grad, b.grad)],
+            "running": [t.numpy() for t in stats]}
 
 
 def battery(device, cases: list) -> dict:
